@@ -1,0 +1,174 @@
+"""Batching routine: Algorithm 1 of the paper, sized against device memory.
+
+Counterpart of ``repro.core.batching``.  The batch is canonicalized once,
+optionally sorted by difficulty and padded to a power of two, cut into
+chunks of at most ``N = floor(S / Y)`` LPs (Eq. 5: usable device bytes over
+bytes per LP), each chunk is solved, and the results are concatenated,
+unpadded and unpermuted.  On a card the budget is the card's memory and the
+solver the CUDA kernel (kernels/ops.py); on the CPU it is a stated constant
+and the plain PyTorch engine (core/simplex.py).
+"""
+from __future__ import annotations
+
+import inspect
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .forms import ensure_canonical, finish_result
+from .lp import LPBatch, LPResult, WarmStart, canonicalize_backend
+
+# Planning budget for a CPU run (no device memory to size against).
+CPU_DEVICE_BYTES = 16 * 2 ** 30
+# Fraction of the budget the tableaux may claim (leave room for scratch).
+BUDGET_FRACTION = 0.6
+
+
+def device_bytes_of(device: torch.device) -> int:
+    """Memory that chunking plans against: the card's total memory on
+    cuda, ``CPU_DEVICE_BYTES`` on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return CPU_DEVICE_BYTES
+
+
+def max_chunk_size(batch: LPBatch,
+                   device_bytes: int = CPU_DEVICE_BYTES) -> int:
+    """Paper Eq. (5): N = floor(S / Y), with S = usable device bytes and Y
+    the float32 bytes one LP needs."""
+    usable = int(device_bytes * BUDGET_FRACTION)
+    return max(1, usable // batch.bytes_per_lp(4))
+
+
+def difficulty_proxy(batch: LPBatch) -> np.ndarray:
+    """Per-LP difficulty estimate for sorted batching: the count of
+    infeasible rows (b_i < 0; each seeds an artificial that phase 1 must
+    drive out), tie-broken by the relative infeasibility mass (a strictly
+    sub-unit fraction, so it never reorders across counts)."""
+    b = np.asarray(batch.b)
+    neg = b < 0
+    count = neg.sum(axis=1).astype(np.float64)
+    mass = np.where(neg, -b, 0.0).sum(axis=1)
+    frac = mass / (1.0 + mass.max()) if mass.max() > 0 else 0.0
+    return count + frac
+
+
+def _take_batch(batch: LPBatch, idx) -> LPBatch:
+    return LPBatch(A=np.asarray(batch.A)[idx], b=np.asarray(batch.b)[idx],
+                   c=np.asarray(batch.c)[idx],
+                   ub=None if batch.ub is None else np.asarray(batch.ub)[idx])
+
+
+def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
+                  device=None, chunk_size: Optional[int] = None,
+                  device_bytes: Optional[int] = None,
+                  sort_by_difficulty: bool = False, pricing: str = "dantzig",
+                  backend: str = "tableau", presolve: bool = True,
+                  scale: Optional[bool] = None,
+                  warm: Optional[WarmStart] = None,
+                  pad_to_bucket: bool = False,
+                  **solver_kwargs) -> LPResult:
+    """Chunked batched solve (Algorithm 1) on ``device`` (CUDA unless
+    ``device="cpu"``; raises when neither is given nor available).
+
+    With ``solver=None`` the solver is the CUDA kernel on cuda
+    (``kernels.ops.solve_batched_kernel``) and the plain engine on the CPU
+    (``core.simplex.solve_batched_torch``); a custom ``solver`` takes the
+    canonical sub-batch plus ``device=`` and, when a non-default rule is
+    asked for, ``pricing=``.  ``sort_by_difficulty`` groups LPs of similar
+    difficulty into the same chunk (results are unpermuted);
+    ``pad_to_bucket`` pads the batch to a power of two by replicating
+    members (the replicas' results are dropped).  A ``GeneralLPBatch`` is
+    canonicalized once up front and the concatenated result recovered at
+    the end.  ``warm`` is not ported yet and raises."""
+    canonicalize_backend(backend)
+    if warm is not None:
+        raise NotImplementedError(
+            "warm starts are not ported to repro_torch yet (ROADMAP.md, "
+            "queue 1: warm starts)")
+    dev = resolve_device(device)
+    batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
+    if solver is None:
+        if dev.type == "cuda":
+            from ..kernels.ops import solve_batched_kernel as solver
+        else:
+            from .simplex import solve_batched_torch as solver
+        solver_kwargs["pricing"] = pricing
+    elif pricing != "dantzig":
+        params = inspect.signature(solver).parameters
+        if "pricing" not in params and not any(
+                p.kind is inspect.Parameter.VAR_KEYWORD
+                for p in params.values()):
+            raise ValueError(
+                f"pricing={pricing!r} requested but solver "
+                f"{getattr(solver, '__name__', solver)!r} does not accept "
+                "a 'pricing' kwarg")
+        solver_kwargs.setdefault("pricing", pricing)
+    solver_kwargs["device"] = dev
+
+    B = batch.batch
+    perm = None
+    if sort_by_difficulty and B > 1:
+        perm = np.argsort(difficulty_proxy(batch), kind="stable")
+        batch = _take_batch(batch, perm)
+    unpad_B = None
+    if pad_to_bucket and B > 1:
+        Bp = 1 << (B - 1).bit_length()
+        if Bp != B:
+            batch = _take_batch(batch, np.arange(Bp) % B)
+            unpad_B, B = B, Bp
+
+    if chunk_size is None:
+        if device_bytes is None:
+            device_bytes = device_bytes_of(dev)
+        chunk_size = max_chunk_size(batch, device_bytes)
+    if chunk_size >= B:
+        res = solver(batch, **solver_kwargs)
+        return finish_result(rec, _unpermute(_unpad(res, unpad_B), perm))
+
+    parts = []
+    for i in range(math.ceil(B / chunk_size)):
+        s, e = i * chunk_size, min((i + 1) * chunk_size, B)
+        sub = LPBatch(A=batch.A[s:e], b=batch.b[s:e], c=batch.c[s:e],
+                      ub=None if batch.ub is None else batch.ub[s:e])
+        parts.append(solver(sub, **solver_kwargs))
+
+    def cat(field):
+        vals = [getattr(r, field) for r in parts]
+        if any(v is None for v in vals):
+            return None
+        return np.concatenate([np.asarray(v) for v in vals])
+
+    res = LPResult(x=cat("x"), objective=cat("objective"),
+                   status=cat("status"), iterations=cat("iterations"),
+                   y=cat("y"), z=cat("z"),
+                   warm=WarmStart.concat([r.warm for r in parts]))
+    return finish_result(rec, _unpermute(_unpad(res, unpad_B), perm))
+
+
+def _map_result(res: LPResult, take, warm_fn) -> LPResult:
+    return LPResult(x=take(res.x), objective=take(res.objective),
+                    status=take(res.status), iterations=take(res.iterations),
+                    y=take(res.y), z=take(res.z),
+                    warm=None if res.warm is None else warm_fn(res.warm))
+
+
+def _unpad(res: LPResult, B) -> LPResult:
+    """Drop the pad_to_bucket replica rows (no-op when B is None)."""
+    if B is None:
+        return res
+    return _map_result(res, lambda a: None if a is None else np.asarray(a)[:B],
+                       lambda w: w.slice(0, B))
+
+
+def _unpermute(res: LPResult, perm) -> LPResult:
+    """Undo the difficulty sort (no-op when perm is None)."""
+    if perm is None:
+        return res
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return _map_result(res, lambda a: None if a is None else np.asarray(a)[inv],
+                       lambda w: w.take(inv))

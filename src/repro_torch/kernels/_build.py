@@ -1,0 +1,80 @@
+"""Build the port's CUDA sources with nvcc at first use and load them.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface (loaded with ``ctypes``; no PyTorch headers, so a build
+takes seconds).  Libraries land in ``build/kernels/`` at the repository root,
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is reused.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("simplex_tile",)
+# sm_90a: Hopper.  -fmad=false keeps nvcc from contracting a*b+c on its
+# own; the sources request every fused multiply-add explicitly.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every library in ``names`` that is not built yet, one nvcc
+    per source, all started together.  Returns ``{name: seconds}`` for the
+    ones compiled; raises with nvcc's output when one fails.  The compiler
+    report (-Xptxas -v) is kept beside each library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    took = {}
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    return took
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library ``name`` (building it first if needed)."""
+    build((name,))
+    return ctypes.CDLL(str(library_path(name)))

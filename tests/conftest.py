@@ -3,3 +3,8 @@ import sys
 
 # tests run against the source tree (PYTHONPATH=src also works)
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips where there is none")
