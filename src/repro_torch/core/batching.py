@@ -35,12 +35,17 @@ def device_bytes_of(device: torch.device) -> int:
     return CPU_DEVICE_BYTES
 
 
-def max_chunk_size(batch: LPBatch,
-                   device_bytes: int = CPU_DEVICE_BYTES) -> int:
+def max_chunk_size(batch: LPBatch, device_bytes: int = CPU_DEVICE_BYTES,
+                   *, compaction: bool = False) -> int:
     """Paper Eq. (5): N = floor(S / Y), with S = usable device bytes and Y
-    the float32 bytes one LP needs."""
+    the float32 bytes one LP needs.  Under the compaction scheduler
+    (``compaction=True``) Y counts two copies of the state: a survivor
+    gather (at most a half-size bucket) and the one-shot phase compaction
+    (a tableau two thirds the size or less) each copy it while the old one
+    is still alive."""
     usable = int(device_bytes * BUDGET_FRACTION)
-    return max(1, usable // batch.bytes_per_lp(4))
+    copies = 2 if compaction else 1
+    return max(1, usable // (copies * batch.bytes_per_lp(4)))
 
 
 def difficulty_proxy(batch: LPBatch) -> np.ndarray:
@@ -69,7 +74,7 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
                   backend: str = "tableau", presolve: bool = True,
                   scale: Optional[bool] = None,
                   warm: Optional[WarmStart] = None,
-                  pad_to_bucket: bool = False,
+                  pad_to_bucket: bool = False, compaction: bool = False,
                   **solver_kwargs) -> LPResult:
     """Chunked batched solve (Algorithm 1) on ``device`` (CUDA unless
     ``device="cpu"``; raises when neither is given nor available).
@@ -94,19 +99,25 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
     if solver is None:
         if dev.type == "cuda":
             from ..kernels.ops import solve_batched_kernel as solver
+            if compaction:
+                solver_kwargs["compaction"] = True
+        elif compaction:
+            from .compaction import solve_batched_compacted as solver
         else:
             from .simplex import solve_batched_torch as solver
         solver_kwargs["pricing"] = pricing
-    elif pricing != "dantzig":
-        params = inspect.signature(solver).parameters
-        if "pricing" not in params and not any(
-                p.kind is inspect.Parameter.VAR_KEYWORD
-                for p in params.values()):
-            raise ValueError(
-                f"pricing={pricing!r} requested but solver "
-                f"{getattr(solver, '__name__', solver)!r} does not accept "
-                "a 'pricing' kwarg")
-        solver_kwargs.setdefault("pricing", pricing)
+    else:
+        for kw, value, wanted in (("compaction", compaction, compaction),
+                                  ("pricing", pricing, pricing != "dantzig")):
+            if wanted and not _accepts(solver, kw):
+                raise ValueError(
+                    f"{kw}={value!r} requested but solver "
+                    f"{getattr(solver, '__name__', solver)!r} does not "
+                    f"accept a {kw!r} kwarg")
+        if compaction:
+            solver_kwargs["compaction"] = True
+        if pricing != "dantzig":
+            solver_kwargs.setdefault("pricing", pricing)
     solver_kwargs["device"] = dev
 
     B = batch.batch
@@ -124,7 +135,8 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
     if chunk_size is None:
         if device_bytes is None:
             device_bytes = device_bytes_of(dev)
-        chunk_size = max_chunk_size(batch, device_bytes)
+        chunk_size = max_chunk_size(batch, device_bytes,
+                                    compaction=compaction)
     if chunk_size >= B:
         res = solver(batch, **solver_kwargs)
         return finish_result(rec, _unpermute(_unpad(res, unpad_B), perm))
@@ -147,6 +159,13 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
                    y=cat("y"), z=cat("z"),
                    warm=WarmStart.concat([r.warm for r in parts]))
     return finish_result(rec, _unpermute(_unpad(res, unpad_B), perm))
+
+
+def _accepts(solver: Callable, kw: str) -> bool:
+    """Whether ``solver`` takes the keyword ``kw`` (or any keyword)."""
+    params = inspect.signature(solver).parameters
+    return kw in params or any(p.kind is inspect.Parameter.VAR_KEYWORD
+                               for p in params.values())
 
 
 def _map_result(res: LPResult, take, warm_fn) -> LPResult:

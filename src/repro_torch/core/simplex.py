@@ -171,13 +171,17 @@ def _bound_moves(T, flip, ub, basis, factor, pivrow_raw, pe, e, l,
 
 
 def _step(s: SimplexState, *, n: int, m: int, tol: float, feas_thr,
-          rule: str, full: bool) -> SimplexState:
+          rule: str, full: bool, active=None) -> SimplexState:
     """One lockstep step across the batch (masked for inactive LPs): on the
     full tableau (``full=True``, both phases) or on the phase-compacted one
-    (phase 2 only, every running LP is in phase 2 there)."""
+    (phase 2 only, every running LP is in phase 2 there).  ``active``, a
+    (B,) bool mask, restricts the step to the running LPs it selects (a
+    resumable segment parks some and stops others at their cap); an LP
+    outside it keeps every leaf bit for bit."""
     T, basis, phase, status, iters, w, flip, ub, work = s
     B, rows, C = T.shape
-    active = status == _RUNNING
+    running = status == _RUNNING
+    active = running if active is None else running & active
     col_ok = torch.arange(C, device=T.device) < n + m
 
     # ---- Step 1: entering variable (pivot column) --------------------------
@@ -239,19 +243,28 @@ def _step(s: SimplexState, *, n: int, m: int, tol: float, feas_thr,
 
 
 def simplex_step(state: SimplexState, *, n: int, m: int, tol: float,
-                 feas_thr, rule: str = "dantzig") -> SimplexState:
-    """One lockstep pivot on the **full** (B, m+2, n+2m+1) tableau."""
+                 feas_thr, rule: str = "dantzig", active=None) -> SimplexState:
+    """One lockstep pivot on the **full** (B, m+2, n+2m+1) tableau, for the
+    running LPs in ``active`` (all of them when None)."""
     return _step(state, n=n, m=m, tol=tol, feas_thr=feas_thr, rule=rule,
-                 full=True)
+                 full=True, active=active)
 
 
 def phase2_step(state: SimplexState, *, n: int, m: int, tol: float,
-                rule: str = "dantzig") -> SimplexState:
+                rule: str = "dantzig", active=None) -> SimplexState:
     """One lockstep phase-2 pivot on the **compacted** (B, m+1, n+m+1)
     tableau: the same pivots ``simplex_step`` would make, on fewer
     entries."""
     return _step(state, n=n, m=m, tol=tol, feas_thr=None, rule=rule,
-                 full=False)
+                 full=False, active=active)
+
+
+def tableau_elements(m: int, n: int, compacted: bool = False) -> int:
+    """Logical tableau elements touched by one pivot's rank-1 update: the
+    unit of the scheduler's executed-work record (``SegmentStat``)."""
+    if compacted:
+        return (m + 1) * (n + m + 1)
+    return (m + 2) * (n + 2 * m + 1)
 
 
 def compact_tableau(T: torch.Tensor, *, m: int, n: int) -> torch.Tensor:

@@ -2,7 +2,11 @@
 
 Each kernel source lives in ``csrc/`` and is built by ``_build`` at first
 use; importing this package builds and loads nothing."""
-from .ops import solve_batched_kernel  # noqa: F401
+from .hyperbox_kernel import hyperbox_tile, hyperbox_tile_plain  # noqa: F401
+from .ops import (  # noqa: F401
+    KernelBackend, solve_batched_kernel, solve_hyperbox_kernel,
+)
 from .simplex_tile import (  # noqa: F401
-    simplex_tile, simplex_tile_plain, smem_bytes, tableau_in_smem,
+    segment_tile, segment_tile_plain, simplex_tile, simplex_tile_plain,
+    smem_bytes, tableau_in_smem,
 )

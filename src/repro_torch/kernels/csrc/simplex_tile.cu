@@ -1,28 +1,43 @@
-// Whole-solve batched simplex for Hopper (sm_90a): one thread block per LP.
+// Batched simplex for Hopper (sm_90a): one thread block per LP.  Two
+// kernels share one step body.
 //
-// Replaces the Pallas TPU kernel `_simplex_kernel` of
-// src/repro/kernels/simplex_tile.py (launched by `simplex_pallas`).  It
-// computes the same function as the port's plain engine
-// (src/repro_torch/core/simplex.py, `solve_two_phase`): loop 1 runs the
-// combined two-phase step on the full (m+2) x (n+2m+1) tableau until the LP
-// leaves phase 1, loop 2 runs phase-2 steps on the phase-compacted view
+// `simplex_tile_kernel`, the whole solve, replaces the Pallas TPU kernel
+// `_simplex_kernel` of src/repro/kernels/simplex_tile.py (launched by
+// `simplex_pallas`).  It computes the same function as the port's plain
+// engine (src/repro_torch/core/simplex.py, `solve_two_phase`): loop 1 runs
+// the combined two-phase step on the full (m+2) x (n+2m+1) tableau until the
+// LP leaves phase 1, loop 2 runs phase-2 steps on the phase-compacted view
 // (rows <= m, columns < n+m plus the right-hand side), and only x, the
 // objective, status, iterations, y and z are written back.
+//
+// `simplex_segment_kernel`, one resumable segment, replaces the Pallas TPU
+// kernel `_segment_kernel` of the same file (launched by `segment_pallas`
+// under the compaction scheduler).  It computes the port's plain segment
+// (src/repro_torch/core/compaction.py, `run_segment`): state in, at most
+// `steps` steps, state out.  Stage p1 steps an LP while it is running, in
+// phase 1 and under its cap (loop 1, bounded); stage p2 runs loop 2 on a
+// physically compacted (m+1) x (n+m+1) tableau, the layout of the engine's
+// `compact_tableau`, so a launch moves about a third fewer state bytes and
+// needs less shared memory than the full tableau would.  A block whose LP
+// has nothing to do returns before it loads anything.
 //
 // Design (the paper's, Sec. 5): one CTA per LP, the tableau resident in
 // dynamic shared memory together with the bound, flip, basis and weight
 // rows, sentinel min-ratio and Dantzig/steepest-edge/devex pricing as block
-// reductions, per-block early exit.  Phase compaction restricts the loops
-// to the kept rows and columns in place, so nothing moves.  An LP whose
-// tableau does not fit in shared memory runs the same body on its own slice
-// of the device-memory tableau (`kSmemTableau = false`).
+// reductions, per-block early exit.  In the whole-solve kernel phase
+// compaction restricts loop 2 to the kept rows and columns in place, so
+// nothing moves.  An LP whose tableau does not fit in shared memory runs the
+// same body on its own slice of the device-memory tableau
+// (`kSmemTableau = false`); the launcher chooses per stage shape.
 //
-// What bounds it: each pivot is a rank-1 update of (m+2)(n+2m+1) entries
-// (2 flops each) framed by two block reductions and a handful of barriers.
+// What bounds it: each pivot is a rank-1 update of the stage's entries (2
+// flops each) framed by two block reductions and a handful of barriers.
 // From shared memory the update is cheap; the barriers and reductions
 // (latency, not bandwidth) dominate a pivot at the paper's sizes, and the
 // card is filled by running one LP per SM at a time.  The device-memory
 // variant moves the tableau through L2 every pivot and is bound by bytes.
+// A segment also pays one round trip of its state through device memory
+// per launch.
 //
 // Parity with the reference (every rule holds bit for bit against the
 // plain engine):
@@ -36,7 +51,8 @@
 //  * the pivot row is replaced by the scaled row, not re-added;
 //  * bound lookups select, never sum (inf * 0 would poison a sum);
 //  * phase 2 pins basic artificials at zero;
-//  * loops 1 and 2 share one max_iters budget, counted per LP;
+//  * the max_iters budget is counted per LP (loops 1 and 2, and every
+//    segment, share it);
 //  * steepest-edge norms accumulate rows in order, one rounding per term.
 
 #include <cuda_runtime.h>
@@ -67,18 +83,27 @@ constexpr int kWorkPivots2 = 1;
 constexpr int kWorkFlips = 2;
 constexpr int kWorkCounters = 3;
 
+// Rows and row stride of a stage's tableau: the full (m+2) x (n+2m+1) one,
+// or the phase-compacted (m+1) x (n+m+1) one of a p2 segment.
+__host__ __device__ inline int stage_rows(int m, bool full) {
+  return full ? m + 2 : m + 1;
+}
+__host__ __device__ inline int stage_cols(int m, int n, bool full) {
+  return full ? n + 2 * m + 1 : n + m + 1;
+}
+
 // Where each buffer of one block's dynamic shared memory starts, in 4-byte
 // words: the reduction scratch, the entering-column and pivot-row buffers,
 // the bound, flip and basis rows, the weights of a weighted rule and, when
-// it fits, the (m+2) x (n+2m+1) tableau.  The kernel carves its buffers and
-// the launcher sizes the allocation from this one layout.
+// it fits, the stage's tableau.  The kernels carve their buffers and the
+// launchers size the allocation from this one layout.
 struct Layout {
   size_t red_i, colbuf, rowbuf, ub, flip, basis, w, T, words;
 };
 
-__host__ __device__ inline Layout layout(int m, int n, int rule,
-                                         bool tableau) {
-  const size_t R = m + 2, C = n + 2 * m + 1;
+__host__ __device__ inline Layout layout(int m, int n, int rule, bool tableau,
+                                         bool full = true) {
+  const size_t R = stage_rows(m, full), C = stage_cols(m, n, full);
   Layout L;
   L.red_i = kRedSlots;
   L.colbuf = 2 * kRedSlots;
@@ -178,14 +203,35 @@ struct Block {
   int* red_i;
 };
 
+// The block's buffers in dynamic shared memory, laid out by `L`; the
+// tableau is there too when `smem_tableau`, else it is the LP's own slice
+// `Tg_lp` of the device-memory tableau.
+__device__ inline Block carve(float* smem, const Layout& L, float* Tg_lp,
+                              bool smem_tableau) {
+  Block s;
+  s.red_v = smem;
+  s.red_i = reinterpret_cast<int*>(smem + L.red_i);
+  s.colbuf = smem + L.colbuf;
+  s.rowbuf = smem + L.rowbuf;
+  s.ub = smem + L.ub;
+  s.flip = reinterpret_cast<int*>(smem + L.flip);
+  s.basis = reinterpret_cast<int*>(smem + L.basis);
+  s.w = smem + L.w;
+  s.T = smem_tableau ? smem + L.T : Tg_lp;
+  return s;
+}
+
 // One step of the LP's solve.  kFull: the full tableau (loop 1); otherwise
-// the compacted view (rows <= m, columns < n+m and the rhs).  Every thread
-// makes the same decisions from block-broadcast values, so control flow
-// stays uniform across the block.
+// the compacted view (rows <= m, columns < n+m and the rhs).  C is the row
+// stride, with the rhs in column C-1: n+2m+1 for the full storage (both
+// loops of the whole-solve kernel), n+m+1 for a physically compacted one.
+// Every thread makes the same decisions from block-broadcast values, so
+// control flow stays uniform across the block.
 template <int kRule, bool kFull>
-__device__ void step(const Block& s, int m, int n, float tol, float thr,
-                     int& phase, int& status, int& iters, int* work) {
-  const int C = n + 2 * m + 1, NP = n + m;
+__device__ void step(const Block& s, int m, int n, int C, float tol,
+                     float thr, int& phase, int& status, int& iters,
+                     int* work) {
+  const int NP = n + m;
   const int rows = kFull ? m + 2 : m + 1;
   const int ncols = kFull ? C : NP + 1;
   const int tid = threadIdx.x, NT = blockDim.x;
@@ -338,18 +384,9 @@ __global__ void __launch_bounds__(1024)
   const int tid = threadIdx.x, NT = blockDim.x;
   const size_t lp = blockIdx.x;
 
-  const Layout L = layout(m, n, kRule, kSmemTableau);
-  Block s;
-  s.red_v = smem;
-  s.red_i = reinterpret_cast<int*>(smem + L.red_i);
-  s.colbuf = smem + L.colbuf;
-  s.rowbuf = smem + L.rowbuf;
-  s.ub = smem + L.ub;
-  s.flip = reinterpret_cast<int*>(smem + L.flip);
-  s.basis = reinterpret_cast<int*>(smem + L.basis);
-  s.w = smem + L.w;
   float* Tg_lp = Tg + lp * (size_t)R * C;
-  s.T = kSmemTableau ? smem + L.T : Tg_lp;
+  const Block s = carve(smem, layout(m, n, kRule, kSmemTableau), Tg_lp,
+                        kSmemTableau);
 
   if (kSmemTableau)
     for (int i = tid; i < R * C; i += NT) s.T[i] = Tg_lp[i];
@@ -371,10 +408,10 @@ __global__ void __launch_bounds__(1024)
   __syncthreads();
 
   while (status == kRunning && phase == 1 && iters < max_iters)
-    step<kRule, true>(s, m, n, tol, thr, phase, status, iters, work);
+    step<kRule, true>(s, m, n, C, tol, thr, phase, status, iters, work);
   if (status == kRunning && phase == 1) status = kIterationLimit;
   while (status == kRunning && iters < max_iters)
-    step<kRule, false>(s, m, n, tol, thr, phase, status, iters, work);
+    step<kRule, false>(s, m, n, C, tol, thr, phase, status, iters, work);
   if (status == kRunning) status = kIterationLimit;
   __syncthreads();
 
@@ -424,25 +461,153 @@ cudaError_t launch(float* T, const int* basis, const int* phase,
   return cudaGetLastError();
 }
 
+// The state a segment reads and writes, one row per LP (see
+// src/repro_torch/core/compaction.py, `CompactionState`).  T is the stage's
+// tableau, row stride n+2m+1 (p1) or n+m+1 (p2); w holds the n+m priceable
+// weights (unread under dantzig); flip is one byte per structural column.
+// ub and thr are read-only; `it` receives the steps each LP took.
+struct SegmentState {
+  float* T;
+  int* basis;
+  float* w;
+  bool* flip;
+  const float* ub;
+  int* phase;
+  const float* thr;
+  int* status;
+  int* iters;
+  int* work;
+  int* it;
+};
+
+// One segment: at most `steps` steps of stage p1 (kFull) or p2 per LP.
+// An LP steps while it is running, under its cap and, in p1, in phase 1;
+// one still running at its cap afterwards (in p1: in phase 1) is marked
+// at the iteration limit, as after the whole-solve kernel's loops.
+template <int kRule, bool kSmemTableau, bool kFull>
+__global__ void __launch_bounds__(1024)
+    simplex_segment_kernel(SegmentState g, int m, int n, int steps,
+                           int max_iters, float tol) {
+  const int R = stage_rows(m, kFull), C = stage_cols(m, n, kFull);
+  const int NP = n + m;
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const size_t lp = blockIdx.x;
+  int phase = g.phase[lp], status = g.status[lp], iters = g.iters[lp];
+  const bool stage_ok = !kFull || phase == 1;
+  if (!(status == kRunning && stage_ok && iters < max_iters && steps > 0)) {
+    // nothing to do: the tableau is never loaded
+    if (tid == 0) {
+      g.it[lp] = 0;
+      if (status == kRunning && stage_ok && iters >= max_iters)
+        g.status[lp] = kIterationLimit;
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) float smem[];
+  float* Tg_lp = g.T + lp * (size_t)R * C;
+  const Block s = carve(smem, layout(m, n, kRule, kSmemTableau, kFull),
+                        Tg_lp, kSmemTableau);
+  if (kSmemTableau)
+    for (int i = tid; i < R * C; i += NT) s.T[i] = Tg_lp[i];
+  for (int j = tid; j < n; j += NT) {
+    s.ub[j] = g.ub[lp * n + j];
+    s.flip[j] = g.flip[lp * n + j];
+  }
+  for (int i = tid; i < m; i += NT) s.basis[i] = g.basis[lp * m + i];
+  if (kRule != kDantzig)
+    for (int k = tid; k < NP; k += NT) s.w[k] = g.w[lp * NP + k];
+  const float thr = kFull ? g.thr[lp] : 0.f;
+  int work[kWorkCounters];
+  for (int k = 0; k < kWorkCounters; ++k)
+    work[k] = g.work[lp * kWorkCounters + k];
+  __syncthreads();
+
+  int it = 0;
+  while (status == kRunning && (!kFull || phase == 1) && iters < max_iters &&
+         it < steps) {
+    step<kRule, kFull>(s, m, n, C, tol, thr, phase, status, iters, work);
+    ++it;
+  }
+  if (status == kRunning && (!kFull || phase == 1) && iters >= max_iters)
+    status = kIterationLimit;
+  __syncthreads();
+
+  if (kSmemTableau)
+    for (int i = tid; i < R * C; i += NT) Tg_lp[i] = s.T[i];
+  for (int j = tid; j < n; j += NT) g.flip[lp * n + j] = s.flip[j] != 0;
+  for (int i = tid; i < m; i += NT) g.basis[lp * m + i] = s.basis[i];
+  if (kRule != kDantzig)
+    for (int k = tid; k < NP; k += NT) g.w[lp * NP + k] = s.w[k];
+  if (tid == 0) {
+    g.phase[lp] = phase;
+    g.status[lp] = status;
+    g.iters[lp] = iters;
+    g.it[lp] = it;
+    for (int k = 0; k < kWorkCounters; ++k)
+      g.work[lp * kWorkCounters + k] = work[k];
+  }
+}
+
+template <int kRule, bool kSmemTableau, bool kFull>
+cudaError_t launch_segment(const SegmentState& g, int B, int m, int n,
+                           int steps, int max_iters, float tol, int threads,
+                           cudaStream_t stream) {
+  auto kernel = simplex_segment_kernel<kRule, kSmemTableau, kFull>;
+  const size_t smem =
+      sizeof(float) * layout(m, n, kRule, kSmemTableau, kFull).words;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, threads, smem, stream>>>(g, m, n, steps, max_iters, tol);
+  return cudaGetLastError();
+}
+
+template <int kRule, bool kFull>
+cudaError_t dispatch_segment(bool in_smem, const SegmentState& g, int B,
+                             int m, int n, int steps, int max_iters, float tol,
+                             int threads, cudaStream_t stream) {
+  if (in_smem)
+    return launch_segment<kRule, true, kFull>(g, B, m, n, steps, max_iters,
+                                              tol, threads, stream);
+  return launch_segment<kRule, false, kFull>(g, B, m, n, steps, max_iters,
+                                             tol, threads, stream);
+}
+
+template <int kRule>
+cudaError_t dispatch_segment(bool full, bool in_smem, const SegmentState& g,
+                             int B, int m, int n, int steps, int max_iters,
+                             float tol, int threads, cudaStream_t stream) {
+  if (full)
+    return dispatch_segment<kRule, true>(in_smem, g, B, m, n, steps,
+                                         max_iters, tol, threads, stream);
+  return dispatch_segment<kRule, false>(in_smem, g, B, m, n, steps, max_iters,
+                                        tol, threads, stream);
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory one block takes, with the tableau in
-// shared memory (tableau != 0) or left in device memory.
+// shared memory (tableau != 0) or left in device memory, for the full
+// tableau (full != 0: the whole-solve kernel, p1 segments) or the
+// compacted one (p2 segments).
 extern "C" long long simplex_tile_smem_bytes(int m, int n, int rule,
-                                             int tableau) {
-  return (long long)(sizeof(float) * layout(m, n, rule, tableau != 0).words);
+                                             int tableau, int full) {
+  return (long long)(sizeof(float) *
+                     layout(m, n, rule, tableau != 0, full != 0).words);
 }
 
-// Whether the launcher keeps the tableau in shared memory on the current
+// Whether a launcher keeps that tableau in shared memory on the current
 // device: 1 or 0, or minus a CUDA error code.
-extern "C" int simplex_tile_tableau_in_smem(int m, int n, int rule) {
+extern "C" int simplex_tile_tableau_in_smem(int m, int n, int rule,
+                                            int full) {
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return -(int)err;
-  return simplex_tile_smem_bytes(m, n, rule, 1) <= limit;
+  return simplex_tile_smem_bytes(m, n, rule, 1, full) <= limit;
 }
 
 // Launches one block per LP on `stream`; allocates nothing and does not
@@ -462,7 +627,7 @@ extern "C" int simplex_tile_launch(void* T, const void* basis,
   if (m < 1 || n < 1 || threads < 32 || threads > 1024 || threads % 32 ||
       rule < kDantzig || rule > kDevex)
     return cudaErrorInvalidValue;
-  const int in_smem = simplex_tile_tableau_in_smem(m, n, rule);
+  const int in_smem = simplex_tile_tableau_in_smem(m, n, rule, 1);
   if (in_smem < 0) return -in_smem;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* Tf = static_cast<float*>(T);
@@ -489,4 +654,42 @@ extern "C" int simplex_tile_launch(void* T, const void* basis,
   if (rule == kSteepestEdge) SIMPLEX_TILE_LAUNCH(kSteepestEdge, false);
   SIMPLEX_TILE_LAUNCH(kDevex, false);
 #undef SIMPLEX_TILE_LAUNCH
+}
+
+// Launches one segment block per LP on `stream`; allocates nothing and does
+// not synchronise.  Stage p1 (full != 0) works on T (B, m+2, n+2m+1), stage
+// p2 on T (B, m+1, n+m+1); every state array is updated in place: T, basis
+// (B, m), w (B, n+m; unread under dantzig), flip (B, n) bytes, phase,
+// status, iters (B,), work (B, 3); ub (B, n) and thr (B,) are read; `it`
+// (B,) receives the steps each LP took.  Returns the CUDA error code of the
+// launch (0 on success).
+extern "C" int simplex_segment_launch(void* T, void* basis, void* w,
+                                      void* flip, const void* ub, void* phase,
+                                      const void* thr, void* status,
+                                      void* iters, void* work, void* it,
+                                      int B, int m, int n, int full, int steps,
+                                      int max_iters, float tol, int rule,
+                                      int threads, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (m < 1 || n < 1 || threads < 32 || threads > 1024 || threads % 32 ||
+      rule < kDantzig || rule > kDevex)
+    return cudaErrorInvalidValue;
+  const int in_smem = simplex_tile_tableau_in_smem(m, n, rule, full);
+  if (in_smem < 0) return -in_smem;
+  const SegmentState g{static_cast<float*>(T),       static_cast<int*>(basis),
+                       static_cast<float*>(w),       static_cast<bool*>(flip),
+                       static_cast<const float*>(ub), static_cast<int*>(phase),
+                       static_cast<const float*>(thr), static_cast<int*>(status),
+                       static_cast<int*>(iters),     static_cast<int*>(work),
+                       static_cast<int*>(it)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rule == kDantzig)
+    return dispatch_segment<kDantzig>(full != 0, in_smem != 0, g, B, m, n,
+                                      steps, max_iters, tol, threads, st);
+  if (rule == kSteepestEdge)
+    return dispatch_segment<kSteepestEdge>(full != 0, in_smem != 0, g, B, m,
+                                           n, steps, max_iters, tol, threads,
+                                           st);
+  return dispatch_segment<kDevex>(full != 0, in_smem != 0, g, B, m, n, steps,
+                                  max_iters, tol, threads, st);
 }

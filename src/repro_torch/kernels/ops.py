@@ -1,24 +1,48 @@
-"""Batched entry point of the CUDA tableau kernel.
+"""Batched entry points of the CUDA kernels.
 
-``solve_batched_kernel`` is the counterpart of the tableau,
-``compaction=False`` branch of ``repro.kernels.ops.solve_batched_pallas``:
-same ``LPBatch`` -> ``LPResult`` contract as core/simplex.py
-``solve_batched_torch``, and what core/batching.py ``solve_batched`` runs on
-the card.  A ``GeneralLPBatch`` is canonicalized on ingestion and recovered
-on the way out.  ``pricing="partial"`` degrades to dantzig with a warning,
-as in the reference: the kernel keeps the whole cost row in shared memory,
-so block pricing saves nothing.  The kernel captures no warm-start state.
+``solve_batched_kernel`` is the counterpart of the tableau branch of
+``repro.kernels.ops.solve_batched_pallas``: same ``LPBatch`` -> ``LPResult``
+contract as core/simplex.py ``solve_batched_torch``, and what core/batching.py
+``solve_batched`` runs on the card.  With ``compaction=False`` one launch of
+the whole-solve kernel solves the batch; with ``compaction=True`` the
+scheduler of core/compaction.py drives the segment kernel through
+``KernelBackend``, the counterpart of the reference's ``PallasBackend``.  A
+``GeneralLPBatch`` is canonicalized on ingestion and recovered on the way
+out.  ``pricing="partial"`` degrades to dantzig with a warning, as in the
+reference: the kernels keep the whole cost row in shared memory, so block
+pricing saves nothing.  The kernels capture no warm-start state.
+
+``solve_hyperbox_kernel`` is the counterpart of ``solve_hyperbox_pallas``:
+box-LP support values through the hyperbox kernel, NumPy in and out.
 """
 from __future__ import annotations
 
 import warnings
+from typing import List, Optional
 
+import numpy as np
+import torch
+
+from ..core.compaction import SegmentStat, TorchBackend, schedule_batch
 from ..core.forms import ensure_canonical, finish_result
 from ..core.lp import LPBatch, LPResult, default_max_iters
 from ..core.pricing import canonicalize_rule
 from ..core.simplex import batch_tensors, default_tolerances
 from ..device import resolve_device
-from .simplex_tile import simplex_tile
+from .hyperbox_kernel import hyperbox_tile
+from .simplex_tile import segment_tile, simplex_tile
+
+
+class KernelBackend(TorchBackend):
+    """Scheduler backend whose segments run the CUDA segment kernel
+    (``segment_tile``; its plain version on CPU tensors).  State layout,
+    gathers and extraction are ``TorchBackend``'s: the kernel works on the
+    unpadded state, one block per LP, so there are no tiles to fill."""
+
+    def segment(self, state, steps: int, stage: str, max_iters: int):
+        return segment_tile(state, steps, stage=stage, m=self.m, n=self.n,
+                            max_iters=max_iters, tol=self.tol,
+                            pricing=self.rule)
 
 
 def solve_batched_kernel(batch: LPBatch, *, device=None,
@@ -27,9 +51,17 @@ def solve_batched_kernel(batch: LPBatch, *, device=None,
                          feas_tol: float | None = None,
                          pricing: str = "dantzig",
                          presolve: bool = True,
-                         scale: bool | None = None) -> LPResult:
-    """Solve a batch through ``kernels.simplex_tile`` (the kernel on cuda,
-    its plain version on ``device="cpu"``)."""
+                         scale: bool | None = None,
+                         compaction: bool = False,
+                         segment_k: Optional[int] = None,
+                         compact_threshold: Optional[float] = None,
+                         stats_out: Optional[List[SegmentStat]] = None
+                         ) -> LPResult:
+    """Solve a batch through the CUDA kernels (their plain versions on
+    ``device="cpu"``): one whole-solve launch, or with ``compaction=True``
+    segments of at most ``segment_k`` steps under the compaction scheduler
+    (``compact_threshold`` and ``stats_out`` as in
+    ``core.compaction.solve_batched_compacted``)."""
     batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     m, n = batch.m, batch.n
@@ -41,6 +73,11 @@ def solve_batched_kernel(batch: LPBatch, *, device=None,
             "nothing; using dantzig (identical certificates)")
         rule = "dantzig"
     tol, feas_tol = default_tolerances(tol, feas_tol)
+    if compaction:
+        runner = KernelBackend(m, n, tol, feas_tol, pricing=rule)
+        return finish_result(rec, schedule_batch(
+            runner, batch, dev, max_iters=max_iters, segment_k=segment_k,
+            compact_threshold=compact_threshold, stats_out=stats_out))
     if max_iters is None:
         max_iters = default_max_iters(m, n)
     A, b, c, ub = batch_tensors(batch, dev)
@@ -51,3 +88,16 @@ def solve_batched_kernel(batch: LPBatch, *, device=None,
     res = LPResult(x=host(x), objective=host(obj), status=host(status),
                    iterations=host(iters), y=host(y), z=host(z))
     return finish_result(rec, res)
+
+
+def solve_hyperbox_kernel(lo, hi, d, *, device=None) -> np.ndarray:
+    """Box-LP support values through ``hyperbox_tile`` on ``device`` (CUDA
+    unless ``device="cpu"``): lo, hi (B, n) and d (B, n) -> (B,), or d
+    (K, n) -> (B, K).  NumPy in, float32 NumPy out."""
+    dev = resolve_device(device)
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev).contiguous()
+
+    return hyperbox_tile(put(lo), put(hi), put(d)).cpu().numpy()

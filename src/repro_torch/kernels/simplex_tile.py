@@ -1,17 +1,24 @@
-"""Wrapper of the CUDA simplex kernel (csrc/simplex_tile.cu) and its plain
-PyTorch version.
+"""Wrappers of the CUDA simplex kernels (csrc/simplex_tile.cu) and their
+plain PyTorch versions.
 
-Counterpart of ``repro.kernels.simplex_tile.simplex_pallas`` and its
-``_simplex_kernel``: a whole two-phase bounded simplex per LP, one thread
-block per LP, the tableau in shared memory.  The wrapper builds the tableau
-on the device with torch ops (core/simplex.py ``build_tableau_torch``, as
-the reference builds it outside its kernel), launches the kernel on the
-current stream and returns ``(x, obj, status, iters, y, z)``.
+``simplex_tile`` is the counterpart of
+``repro.kernels.simplex_tile.simplex_pallas`` and its ``_simplex_kernel``: a
+whole two-phase bounded simplex per LP, one thread block per LP, the tableau
+in shared memory.  The wrapper builds the tableau on the device with torch
+ops (core/simplex.py ``build_tableau_torch``, as the reference builds it
+outside its kernel), launches the kernel on the current stream and returns
+``(x, obj, status, iters, y, z)``.
 
-On CPU tensors the wrapper runs the plain version, ``simplex_tile_plain``
-(the port's engine, which computes the same function bit for bit); on CUDA
-tensors it launches the kernel or raises.  ``simplex_tile.launches`` counts
-kernel launches.
+``segment_tile`` is the counterpart of ``segment_pallas`` and its
+``_segment_kernel``: one resumable segment of the compaction scheduler
+(core/compaction.py) over a ``CompactionState``, at most ``steps`` steps
+per LP, one thread block per LP.
+
+On CPU tensors each wrapper runs its plain version (``simplex_tile_plain``,
+``segment_tile_plain``: the port's engine, which computes the same function
+bit for bit); on CUDA tensors it launches the kernel or raises.
+``simplex_tile.launches`` and ``segment_tile.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import functools
 
 import torch
 
+from ..core.compaction import STAGES, CompactionState, run_segment
 from ..core.pricing import PRICING_RULES, canonicalize_rule
 from ..core.simplex import build_tableau_torch, solve_two_phase
 from . import _build
@@ -31,21 +39,24 @@ WORK_COUNTERS = 3
 
 
 def smem_bytes(m: int, n: int, rule: str = "dantzig", *,
-               tableau: bool = True) -> int:
+               tableau: bool = True, compacted: bool = False) -> int:
     """Dynamic shared memory of one block, with the tableau in shared
-    memory or (``tableau=False``) left in device memory, as the kernel lays
-    it out (csrc/simplex_tile.cu ``layout``).  Needs the built kernel."""
+    memory or (``tableau=False``) left in device memory, as the kernels lay
+    it out (csrc/simplex_tile.cu ``layout``): the full tableau (whole solve,
+    p1 segments) or the compacted one (``compacted=True``, p2 segments).
+    Needs the built kernel."""
     return int(_lib().simplex_tile_smem_bytes(m, n, RULE_CODES[
-        canonicalize_rule(rule)], int(tableau)))
+        canonicalize_rule(rule)], int(tableau), int(not compacted)))
 
 
-def tableau_in_smem(m: int, n: int, rule: str = "dantzig") -> bool:
-    """Whether the kernel keeps the tableau in shared memory on the current
-    card.  Replaces the reference's VMEM tiling rule ``pick_tile_b``; the
-    kernel's launcher makes the same choice.  Needs the built kernel and a
-    card."""
+def tableau_in_smem(m: int, n: int, rule: str = "dantzig", *,
+                    compacted: bool = False) -> bool:
+    """Whether the kernels keep that tableau in shared memory on the
+    current card.  Replaces the reference's VMEM tiling rule
+    ``pick_tile_b``; the launchers make the same choice.  Needs the built
+    kernel and a card."""
     got = _lib().simplex_tile_tableau_in_smem(m, n, RULE_CODES[
-        canonicalize_rule(rule)])
+        canonicalize_rule(rule)], int(not compacted))
     if got < 0:
         raise RuntimeError(f"simplex_tile: CUDA error {-got}")
     return bool(got)
@@ -64,11 +75,32 @@ def _lib():
         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.simplex_tile_launch.restype = ctypes.c_int
-    lib.simplex_tile_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.simplex_segment_launch.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.simplex_segment_launch.restype = ctypes.c_int
+    lib.simplex_tile_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.simplex_tile_smem_bytes.restype = ctypes.c_longlong
-    lib.simplex_tile_tableau_in_smem.argtypes = [ctypes.c_int] * 3
+    lib.simplex_tile_tableau_in_smem.argtypes = [ctypes.c_int] * 4
     lib.simplex_tile_tableau_in_smem.restype = ctypes.c_int
     return lib
+
+
+def _check_leaves(want: dict, device, contiguous=()):
+    """Raise unless every ``name: (tensor, shape, dtype)`` entry lies on
+    ``device`` with that dtype and shape, and the named ones are
+    contiguous."""
+    for name, (t, shape, dtype) in want.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    for name in contiguous:
+        if name in want and not want[name][0].is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _check(A, b, c, ub, work, m, n):
@@ -79,17 +111,7 @@ def _check(A, b, c, ub, work, m, n):
             "ub": (ub, (B, n), torch.float32)}
     if work is not None:
         want["work"] = (work, (B, WORK_COUNTERS), torch.int32)
-    for name, (t, shape, dtype) in want.items():
-        if t.device != A.device:
-            raise ValueError(f"{name} is on {t.device}, A on {A.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-    for name in ("ub", "work"):
-        if name in want and not want[name][0].is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_leaves(want, A.device, contiguous=("ub", "work"))
 
 
 def simplex_tile(A, b, c, ub, *, m: int, n: int, max_iters: int,
@@ -154,3 +176,80 @@ def simplex_tile_plain(A, b, c, ub, *, m: int, n: int, max_iters: int,
     return solve_two_phase(A, b, c, ub, m=m, n=n, max_iters=max_iters,
                            tol=tol, feas_tol=feas_tol, pricing=pricing,
                            work=work)
+
+
+def _check_segment(state: CompactionState, stage: str, m: int, n: int,
+                   rule: str):
+    B = state.T.shape[0]
+    rows, cols = (m + 2, n + 2 * m + 1) if stage == "p1" else (m + 1, n + m + 1)
+    w_cols = n + m if rule != "dantzig" else state.w.shape[-1]
+    f32, i32 = torch.float32, torch.int32
+    want = {"T": (state.T, (B, rows, cols), f32),
+            "basis": (state.basis, (B, m), i32),
+            "phase": (state.phase, (B,), i32),
+            "status": (state.status, (B,), i32),
+            "iters": (state.iters, (B,), i32),
+            "w": (state.w, (B, w_cols), f32),
+            "flip": (state.flip, (B, n), torch.bool),
+            "ub": (state.ub, (B, n), f32),
+            "thr": (state.thr, (B,), f32),
+            "work": (state.work, (B, WORK_COUNTERS), i32)}
+    _check_leaves(want, state.T.device, contiguous=tuple(want))
+
+
+def segment_tile(state: CompactionState, steps: int, *, stage: str, m: int,
+                 n: int, max_iters: int, tol: float = 1e-6,
+                 pricing: str = "dantzig"):
+    """One segment of ``stage`` ("p1": the full tableau, "p2": the
+    compacted one) with the CUDA kernel (the plain version on CPU tensors).
+    Each LP takes at most ``steps`` steps, stops at its own ``max_iters``
+    and, still running at that cap, is marked ITERATION_LIMIT.  Returns
+    ``(state, it)`` with ``it`` the (B,) int32 steps each LP took.
+
+    On the card the kernel updates the state's tensors in place and the
+    same tensors come back; the plain version builds new ones."""
+    rule = canonicalize_rule(pricing)
+    if rule not in RULE_CODES:
+        raise ValueError(f"the segment kernel prices with {PRICING_RULES}, "
+                         f"not {pricing!r}")
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    _check_segment(state, stage, m, n, rule)
+    dev = state.T.device
+    if dev.type == "cpu":
+        return segment_tile_plain(state, steps, stage=stage, m=m, n=n,
+                                  max_iters=max_iters, tol=tol, pricing=rule)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_tile runs on cuda or cpu, not {dev}")
+    B = state.T.shape[0]
+    it = torch.empty((B,), dtype=torch.int32, device=dev)
+    s = state
+    launch = _lib().simplex_segment_launch
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(
+            s.T.data_ptr(), s.basis.data_ptr(), s.w.data_ptr(),
+            s.flip.data_ptr(), s.ub.data_ptr(), s.phase.data_ptr(),
+            s.thr.data_ptr(), s.status.data_ptr(), s.iters.data_ptr(),
+            s.work.data_ptr(), it.data_ptr(), B, m, n, int(stage == "p1"),
+            int(steps), int(max_iters), float(tol), RULE_CODES[rule],
+            block_threads(m, n), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"segment_tile kernel launch failed: CUDA error {rc}")
+    segment_tile.launches += 1
+    return state, it
+
+
+segment_tile.launches = 0
+
+
+def segment_tile_plain(state: CompactionState, steps: int, *, stage: str,
+                       m: int, n: int, max_iters: int, tol: float = 1e-6,
+                       pricing: str = "dantzig"):
+    """The plain PyTorch version of one segment: the port's engine under
+    the same per-LP stopping rule (core/compaction.py ``run_segment``), on
+    any device."""
+    return run_segment(state, steps, stage=stage, m=m, n=n,
+                       max_iters=max_iters, tol=tol,
+                       rule=canonicalize_rule(pricing))

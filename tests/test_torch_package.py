@@ -18,13 +18,19 @@ import pytest
 import torch
 
 from repro_torch.core import batching
+from repro_torch.core.compaction import (CompactionState, TorchBackend,
+                                         segment_pending,
+                                         solve_batched_compacted)
 from repro_torch.core.forms import canonicalize
 from repro_torch.core.lp import LPBatch, canonicalize_backend, resolve_backend
 from repro_torch.core.reference import random_lp_batch
 from repro_torch.core.simplex import batch_tensors, solve_batched_torch
 from repro_torch.io import fixture_path, perturbed_batch, read_mps
-from repro_torch.kernels import _build, simplex_tile, simplex_tile_plain
-from repro_torch.kernels.ops import solve_batched_kernel
+from repro_torch.kernels import (_build, hyperbox_tile, hyperbox_tile_plain,
+                                  segment_tile, segment_tile_plain,
+                                  simplex_tile, simplex_tile_plain)
+from repro_torch.kernels.ops import (KernelBackend, solve_batched_kernel,
+                                     solve_hyperbox_kernel)
 from repro_torch.kernels.simplex_tile import (WORK_COUNTERS, block_threads,
                                               smem_bytes, tableau_in_smem)
 
@@ -234,3 +240,178 @@ def test_lp_batch_round_trips_through_interop():
     np.testing.assert_array_equal(again.A, batch.A)
     res = result_arrays(solve_batched_torch(again, device="cpu"))
     assert set(res) == {"x", "objective", "status", "iterations", "y", "z"}
+
+
+def test_new_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    batch = random_lp_batch(np.random.default_rng(0), B=2, m=3, n=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_batched_compacted(batch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batching.solve_batched(batch, compaction=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_batched_kernel(batch, compaction=True)
+    box = np.zeros((2, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_hyperbox_kernel(box, box + 1, box)
+    res = batching.solve_batched(batch, device="cpu", compaction=True)
+    assert (res.status == 0).all()
+
+
+def _segment_state(rule="dantzig", seed=0, B=6, m=4, n=5):
+    (A, b, c, ub), m, n = _small_inputs(seed, B, m, n)
+    return TorchBackend(m, n, 1e-6, 1e-5, pricing=rule).init(A, b, c, ub), m, n
+
+
+@pytest.mark.parametrize("stage", ["p1", "p2"])
+def test_segment_on_cpu_tensors_is_the_plain_version_with_no_launch(stage):
+    state, m, n = _segment_state("devex")
+    if stage == "p2":
+        be = TorchBackend(m, n, 1e-6, 1e-5, pricing="devex")
+        # the phase-1 LPs are out of stage p2, as stage p1's end leaves them
+        state = be.compact_columns(
+            be.deactivate(state, be.phase_host(state) != 1))
+    before = segment_tile.launches
+    got, it = segment_tile(state, 3, stage=stage, m=m, n=n, max_iters=100,
+                           pricing="devex")
+    want, want_it = segment_tile_plain(state, 3, stage=stage, m=m, n=n,
+                                       max_iters=100, pricing="devex")
+    assert segment_tile.launches == before
+    torch.testing.assert_close(it, want_it, rtol=0, atol=0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_segment_wrapper_rejects_what_the_kernel_does_not_take():
+    state, m, n = _segment_state()
+    kw = dict(stage="p1", m=m, n=n, max_iters=10)
+    with pytest.raises(ValueError, match="stage"):
+        segment_tile(state, 2, **dict(kw, stage="p3"))
+    with pytest.raises(ValueError, match="prices with"):
+        segment_tile(state, 2, pricing="partial", **kw)
+    with pytest.raises(ValueError, match="shape"):   # a p2 tableau in p1
+        segment_tile(state, 2, **dict(kw, stage="p2"))
+    bad = {"T": state.T.double(), "flip": state.flip.to(torch.int32),
+           "iters": state.iters.to(torch.int64),
+           "thr": state.thr.double()}
+    for leaf, value in bad.items():
+        with pytest.raises(TypeError, match=leaf):
+            segment_tile(state._replace(**{leaf: value}), 2, **kw)
+    with pytest.raises(ValueError, match="basis has shape"):
+        segment_tile(state._replace(basis=state.basis[:, :-1]), 2, **kw)
+    devex = _segment_state("devex")[0]
+    with pytest.raises(ValueError, match="w has shape"):
+        segment_tile(devex._replace(w=devex.w[:, :-1].contiguous()), 2,
+                     pricing="devex", **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_tile(state._replace(
+            ub=state.ub.t().contiguous().t()), 2, **kw)
+
+
+def test_segment_marks_an_lp_at_its_cap():
+    state, m, n = _segment_state(B=8, m=6, n=6)
+    got, it = segment_tile(state, 50, stage="p1", m=m, n=n, max_iters=1)
+    assert (it <= 1).all()
+    in_p1 = got.phase == 1
+    assert in_p1.any()
+    assert (got.status[in_p1] == 3).all()     # ITERATION_LIMIT
+    assert (got.status[~in_p1] == -1).all()   # parked for stage p2
+
+
+def test_hyperbox_wrapper_rejects_what_the_kernel_does_not_take():
+    lo = torch.zeros((4, 3))
+    hi = torch.ones((4, 3))
+    with pytest.raises(TypeError, match="float32"):
+        hyperbox_tile(lo.double(), hi, hi)
+    with pytest.raises(ValueError, match="hi has shape"):
+        hyperbox_tile(lo, hi[:3], hi)
+    with pytest.raises(ValueError, match="entries"):
+        hyperbox_tile(lo, hi, torch.ones((2, 4)))
+    with pytest.raises(ValueError, match="2-D"):
+        hyperbox_tile(lo, hi, torch.ones(3))
+    with pytest.raises(ValueError, match="contiguous"):
+        hyperbox_tile(lo, hi, torch.ones((3, 2)).t())
+
+
+def test_new_kernel_sources_are_built_with_the_others():
+    assert "hyperbox" in _build.SOURCES
+    assert (_build.CSRC / "hyperbox.cu").exists()
+    text = (_build.CSRC / "simplex_tile.cu").read_text()
+    assert "simplex_segment_launch" in text
+
+
+def _clone(state):
+    return CompactionState(*(leaf.clone() for leaf in state))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pricing", ["dantzig", "devex", "steepest_edge"])
+def test_segment_kernel_matches_plain_version_on_the_card(pricing):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    sc, _ = canonicalize(perturbed_batch(read_mps(fixture_path("sc205_like")),
+                                         4, rng))
+    for batch in (random_lp_batch(rng, B=64, m=30, n=24,
+                                  feasible_start=False), sc):
+        m, n = batch.m, batch.n
+        be = TorchBackend(m, n, 1e-6, 1e-5, pricing=pricing)
+        state = be.init(*batch_tensors(batch, dev))
+        for stage in ("p1", "p2"):
+            if stage == "p2":   # finish stage p1 within 60 steps first
+                while bool(segment_pending(state, "p1", 60).any()):
+                    state = segment_tile_plain(state, 8, stage="p1", m=m,
+                                               n=n, max_iters=60,
+                                               pricing=pricing)[0]
+                state = be.compact_columns(state)
+            kw = dict(stage=stage, m=m, n=n, max_iters=10 * (m + n) + 50,
+                      pricing=pricing)
+            before = segment_tile.launches
+            got, it = segment_tile(_clone(state), 7, **kw)
+            torch.cuda.synchronize()
+            assert segment_tile.launches == before + 1
+            want, want_it = segment_tile_plain(state, 7, **kw)
+            torch.testing.assert_close(it, want_it, rtol=0, atol=0)
+            for name, g, w in zip(CompactionState._fields, got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                           equal_nan=True, msg=name)
+            state = want
+
+
+@pytest.mark.gpu
+def test_scheduled_kernel_solve_matches_the_plain_scheduler_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    batch = random_lp_batch(np.random.default_rng(6), B=96, m=20, n=16,
+                            feasible_start=False)
+    for pricing in ("dantzig", "steepest_edge"):
+        kw = dict(device="cuda", segment_k=5, pricing=pricing)
+        before = segment_tile.launches
+        got = solve_batched_kernel(batch, compaction=True, **kw)
+        assert segment_tile.launches > before
+        want = solve_batched_compacted(batch, **kw)
+        for f in ("status", "iterations", "x", "objective", "y", "z"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+
+
+@pytest.mark.gpu
+def test_hyperbox_kernel_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(8)
+    for n in (1, 5, 33, 130):
+        lo = torch.tensor(rng.uniform(-4, 0, (1000, n)), dtype=torch.float32,
+                          device="cuda")
+        hi = lo + torch.tensor(rng.uniform(0.1, 3, (1000, n)),
+                               dtype=torch.float32, device="cuda")
+        for rows in (1000, 7):
+            d = torch.tensor(rng.normal(size=(rows, n)), dtype=torch.float32,
+                             device="cuda")
+            before = hyperbox_tile.launches
+            got = hyperbox_tile(lo, hi, d)
+            torch.cuda.synchronize()
+            assert hyperbox_tile.launches == before + 1
+            torch.testing.assert_close(got, hyperbox_tile_plain(lo, hi, d),
+                                       rtol=0, atol=0)
