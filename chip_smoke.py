@@ -39,6 +39,23 @@ the kernel's plain version (exact), the float64 oracle (rel 1e-5) and the
 same LPs through ``solve_batched`` (rel 1e-4); the kernel is timed there
 and at T = 50,000 (2,000,000 boxes).
 
+The revised path (before the box LP): ``solve_batched(lp_100d_50k,
+backend="revised")`` on all 50,000 LPs through the revised kernel, with
+Dantzig and with partial pricing, each held against the oracle and against
+the tableau run's statuses.  Warm starts: ``lp_afiro_100k`` solved cold
+through the revised kernel (member 0 at the published optimum), re-solved
+from its own ``warm_start()`` (every OPTIMAL member at 0 iterations), and
+step 1 of a 100,000-member perturbed AFIRO trajectory solved warm from
+step 0 against its cold solve (equal statuses, objectives within rel
+2e-3, no more iterations).  The kernel is held against its plain version
+on 2,048-LP slices of both batches for both rules (one launch of each
+stage leaf by leaf, then the whole solve, every output and work count
+equal) and on sc205_like's device-memory variant (plain version on the
+first 128, max_iters 600); ``compaction=True`` on the slices through the
+kernel equals the plain-backed schedule bit for bit and the whole solve in
+statuses (objectives within rel 1e-3).  Last, the kernel is timed on all
+50,000 LPs of lp_100d_50k beside its bound.
+
 Every launch counter is zeroed just before each main-path run and read just
 after.  Lines of JSON report each phase; the line before the last is the
 kernel table, then the card's name and power limit, and the last line is
@@ -73,17 +90,30 @@ def gpu_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
+def _wrappers():
+    from repro_torch.kernels import (hyperbox_tile, revised_segment_tile,
+                                     segment_tile, simplex_tile)
+    return {"simplex_tile": simplex_tile, "simplex_segment": segment_tile,
+            "hyperbox": hyperbox_tile,
+            "revised_segment": revised_segment_tile}
+
+
 def zero_counts():
-    from repro_torch.kernels import hyperbox_tile, segment_tile, simplex_tile
-    for wrapper in (simplex_tile, segment_tile, hyperbox_tile):
+    for wrapper in _wrappers().values():
         wrapper.launches = 0
 
 
 def counts() -> dict:
-    from repro_torch.kernels import hyperbox_tile, segment_tile, simplex_tile
-    return {"simplex_tile": simplex_tile.launches,
-            "simplex_segment": segment_tile.launches,
-            "hyperbox": hyperbox_tile.launches}
+    return {name: w.launches for name, w in _wrappers().items()}
+
+
+def only(name) -> int:
+    """The launches of kernel ``name`` since zero_counts(); fails unless it
+    launched and no other kernel did."""
+    got = counts()
+    assert got[name] > 0, (name, "launched no kernel", got)
+    assert all(v == 0 for k, v in got.items() if k != name), (name, got)
+    return got[name]
 
 
 def timed(fn):
@@ -125,7 +155,7 @@ def solve_main(name, batch, oracle_batch):
     wall = time.perf_counter() - t0
     launches = simplex_tile.launches
     assert launches > 0, f"{name}: the main path launched no kernel"
-    assert counts()["simplex_segment"] == 0, (name, counts())
+    assert only("simplex_tile") == launches
     B = res.status.shape[0]
     assert res.x.shape == (B, batch.n) and res.objective.shape == (B,)
     opt = res.status == 0
@@ -264,11 +294,13 @@ def state_bytes(m, n, rule, stage):
 IDLE_BLOCK_BYTES = 16   # phase, status, iterations read; step count written
 
 
-def timed_backend(cls):
+def timed_backend(cls, bytes_fn=None):
     """``cls`` (a scheduler backend) with each segment launch and each
     gather timed by CUDA events, and the state bytes each launch moves
-    summed: the LPs with steps to take load and store their state, the
-    others read three words and write one."""
+    summed (``bytes_fn``, by default the tableau's ``state_bytes``): the
+    LPs with steps to take load and store their state, the others read
+    three words and write one."""
+    bytes_fn = state_bytes if bytes_fn is None else bytes_fn
     from repro_torch.core.compaction import segment_pending
 
     class Timed(cls):
@@ -281,13 +313,13 @@ def timed_backend(cls):
             return sum(self.launch_bytes)
 
         def segment(self, state, steps, stage, max_iters):
-            bucket = state.T.shape[0]
+            bucket = state.status.shape[0]
             loaded = int(segment_pending(state, stage, max_iters).sum())
             out, ms = timed(lambda: super(Timed, self).segment(
                 state, steps, stage, max_iters))
             self.segment_ms.append(ms)
             self.launch_bytes.append(
-                loaded * state_bytes(self.m, self.n, self.rule, stage)
+                loaded * bytes_fn(self.m, self.n, self.rule, stage)
                 + (bucket - loaded) * IDLE_BLOCK_BYTES)
             return out
 
@@ -300,14 +332,17 @@ def timed_backend(cls):
 
 def schedule(backend, A, b, c, ub, *, max_iters):
     """Drive ``backend`` through run_schedule on device tensors; returns
-    (result, work (B, 3), stats, total ms)."""
+    (result, the per-LP work counts, stats, total ms)."""
     import numpy as np
     from repro_torch.core.compaction import run_schedule
-    work = np.zeros((A.shape[0], 3), np.int64)
     stats = []
-    res, ms = timed(lambda: run_schedule(
-        backend, backend.init(A, b, c, ub), max_iters=max_iters,
-        stats_out=stats, work_out=work))
+
+    def run():
+        state = backend.init(A, b, c, ub)
+        work = np.zeros(tuple(state.work.shape), np.int64)
+        return run_schedule(backend, state, max_iters=max_iters,
+                            stats_out=stats, work_out=work), work
+    (res, work), ms = timed(run)
     return res, work, stats, ms
 
 
@@ -336,8 +371,7 @@ def compaction_main(lp100, res_whole, wall_whole, full_batch):
     res = solve_batched(lp100, compaction=True, stats_out=stats)
     wall = time.perf_counter() - t0
     got = counts()
-    assert got["simplex_segment"] > 0, got
-    assert got["simplex_tile"] == 0 and got["hyperbox"] == 0, got
+    only("simplex_segment")
     peak = torch.cuda.max_memory_allocated()
     assert same_result(res, res_whole), "compaction != whole solve"
     head = LPBatch(A=lp100.A[:64], b=lp100.b[:64], c=lp100.c[:64])
@@ -592,8 +626,7 @@ def box_lp():
     sup = solve_hyperbox(tl, th, td)
     torch.cuda.synchronize()
     got = counts()
-    assert got["hyperbox"] == 1, got
-    assert got["simplex_tile"] == 0 and got["simplex_segment"] == 0, got
+    assert only("hyperbox") == 1, got
     assert sup.shape == (T * K,)
     assert torch.equal(sup, hyperbox_tile_plain(tl, th, td))
     ref = solve_hyperbox_ref(lo_e, hi_e, d_e)
@@ -633,6 +666,305 @@ def box_lp():
     del big
     torch.cuda.empty_cache()
     return main
+
+
+# ---- the revised simplex (core/revised.py, csrc/revised_tile.cu) ---------
+
+REVISED_RULES = ("dantzig", "partial")
+
+
+def revised_main(name, batch, oracle_batch, pricing, tableau_res=None):
+    """Drive solve_batched(backend="revised") once through the revised
+    kernel; hold the result against the oracle and, where given, count the
+    statuses that agree with the tableau run of the same batch."""
+    import numpy as np
+    import torch
+    from repro_torch.core import solve_batched, solve_batched_reference
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = solve_batched(batch, backend="revised", pricing=pricing)
+    wall = time.perf_counter() - t0
+    launches = only("revised_segment")
+    B = res.status.shape[0]
+    assert res.x.shape == (B, batch.n) and res.objective.shape == (B,)
+    opt = res.status == 0
+    assert np.isfinite(res.x[opt]).all() and np.isfinite(res.objective[opt]).all()
+    assert res.warm is not None and res.warm.basis.shape[0] == B
+    info = {"revised_main": name, "pricing": pricing, "lps": B,
+            "wall_s": wall, "lps_per_s": B / wall, "launches": launches,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "status_counts": np.bincount(res.status.astype(int),
+                                         minlength=4).tolist(),
+            "mean_iterations": float(res.iterations.mean())}
+    if tableau_res is not None:
+        info["status_agree_with_tableau"] = float(
+            (res.status == tableau_res.status).mean())
+        both = opt & (tableau_res.status == 0)
+        info["max_rel_obj_vs_tableau"] = float(np.max(
+            np.abs(res.objective[both] - tableau_res.objective[both])
+            / np.abs(tableau_res.objective[both]), initial=0.0))
+    info.update(check_oracle(f"{name} revised {pricing}", res,
+                             solve_batched_reference(oracle_batch)))
+    emit(info)
+    return res, launches
+
+
+def same_answers(cold, warm, rtol=2e-3):
+    """The reference's warm-start contract (tests/test_warm.py): equal
+    statuses, OPTIMAL objectives within rtol."""
+    import numpy as np
+    np.testing.assert_array_equal(cold.status, warm.status)
+    ok = cold.status == 0
+    np.testing.assert_allclose(warm.objective[ok], cold.objective[ok],
+                               rtol=rtol)
+    return float(np.max(np.abs(warm.objective[ok] - cold.objective[ok])
+                        / np.abs(cold.objective[ok]), initial=0.0))
+
+
+def revised_warm(afiro, g, g64, traj_lps):
+    """Warm starts through the revised kernel: lp_afiro_100k cold, then
+    re-solved from its own optimum (0 iterations on every OPTIMAL member),
+    then step 1 of a perturbed AFIRO trajectory warm from step 0, against
+    its cold solve."""
+    import numpy as np
+    from repro_torch.core import solve_batched
+    from repro_torch.io import perturbed_sequence
+    res, launches = revised_main("lp_afiro_100k", g, g64, "dantzig")
+    assert res.status[0] == 0
+    np.testing.assert_allclose(res.objective[0], AFIRO_OPT, rtol=1e-4)
+    zero_counts()
+    t0 = time.perf_counter()
+    again = solve_batched(g, backend="revised", warm=res.warm_start())
+    wall = time.perf_counter() - t0
+    launches += only("revised_segment")
+    opt = res.status == 0
+    assert (again.iterations[opt] == 0).all(), "warm re-solve pivoted"
+    rel_again = same_answers(res, again, rtol=1e-5)
+    seq = perturbed_sequence(afiro, traj_lps, 2, np.random.default_rng(2018))
+    zero_counts()
+    ws = solve_batched(seq[0], backend="revised").warm_start()
+    cold = solve_batched(seq[1], backend="revised")
+    t1 = time.perf_counter()
+    warm = solve_batched(seq[1], backend="revised", warm=ws)
+    wall_traj = time.perf_counter() - t1
+    launches += only("revised_segment")
+    rel = same_answers(cold, warm)
+    cold_it = int(cold.iterations.astype(np.int64).sum())
+    warm_it = int(warm.iterations.astype(np.int64).sum())
+    assert warm_it <= cold_it, (warm_it, cold_it)
+    emit({"revised_warm": "lp_afiro_100k", "member0_objective":
+          float(res.objective[0]), "published": AFIRO_OPT,
+          "resolve_wall_s": wall, "resolve_optimal_lps": int(opt.sum()),
+          "resolve_max_iterations": int(again.iterations[opt].max()),
+          "resolve_max_rel_obj": rel_again,
+          "trajectory_lps": traj_lps, "trajectory_step": 1,
+          "trajectory_status_counts": np.bincount(
+              warm.status.astype(int), minlength=4).tolist(),
+          "trajectory_max_rel_obj": rel, "cold_iterations_sum": cold_it,
+          "warm_iterations_sum": warm_it, "warm_wall_s": wall_traj,
+          "launches": launches})
+    return launches
+
+
+def revised_bound(m, n, B, work):
+    """Least time for the revised work this run's data needed, from the
+    kernel's per-LP counts (core/revised.py WORK_FIELDS: steps, pivots,
+    flips, refactorizations, columns priced): the larger of the operations
+    time and the bytes time.  Operations, at the f32 rate outside the
+    tensor cores: BTRAN 2m^2 a step, pricing 2m a priced column, FTRAN 2m^2
+    a pivot or flip, the eta update of Binv 2m^2 a pivot, a refactorization
+    2m^3.  Bytes: A, b, c and ub read once; x, y, z, the objective, status,
+    iterations, the basis and the bound flags written once."""
+    steps, pivots, flips, refactors, priced = (int(v) for v in
+                                               work.sum(axis=0))
+    flops = (2 * m * m * (steps + flips + 2 * pivots) + 2 * m * priced
+             + 2 * m ** 3 * refactors)
+    nbytes = B * (4 * (m * n + m + 2 * n) + 4 * (2 * n + 2 * m + 3) + n)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return {"steps": steps, "pivots": pivots, "flips": flips,
+            "refactors": refactors, "priced_columns": priced,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _revised_clone(state):
+    from repro_torch.core.revised import RevisedState
+    return RevisedState(*(leaf.clone() for leaf in state))
+
+
+def _revised_first(state, k):
+    from repro_torch.core.revised import RevisedState
+    return RevisedState(*(leaf[:k].contiguous() for leaf in state))
+
+
+def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
+                    max_iters=None):
+    """The revised kernel against its plain version on the first n_lp LPs
+    (plain: the first n_plain): one launch of each stage leaf by leaf, then
+    the whole solve (status, iterations, x, objective, y, z, basis, bound
+    flags and work counts equal, NaN where NaN)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lp import LPBatch, default_max_iters
+    from repro_torch.core.revised import (WORK_FIELDS, RevisedState,
+                                          auto_refactor_period,
+                                          solve_revised, warm_state)
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels.revised_tile import (revised_segment_tile,
+                                                  revised_segment_tile_plain,
+                                                  revised_tile,
+                                                  workspace_in_smem)
+    sub = LPBatch(A=lp.A[:n_lp], b=lp.b[:n_lp], c=lp.c[:n_lp],
+                  ub=None if lp.ub is None else lp.ub[:n_lp])
+    A, b, c, ub = batch_tensors(sub, torch.device("cuda"))
+    m, n, k = lp.m, lp.n, n_plain
+    if max_iters is None:
+        max_iters = default_max_iters(m, n)
+    K = auto_refactor_period(m, n)
+    kw = dict(m=m, n=n, max_iters=max_iters, tol=1e-6, refactor_period=K,
+              rule=rule)
+    state = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5)
+    one = {}
+    for stage in ("p1", "p2"):
+        got, it = revised_segment_tile(_revised_clone(state), 32,
+                                       stage=stage, **kw)
+        want, want_it = revised_segment_tile_plain(_revised_first(state, k),
+                                                   32, stage=stage, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(it[:k], want_it), (name, rule, stage, "steps")
+        for leaf, g, w in zip(RevisedState._fields, got, want):
+            torch.testing.assert_close(g[:k], w, rtol=0, atol=0,
+                                       equal_nan=True,
+                                       msg=f"{name} {rule} {stage} {leaf}")
+        one[stage] = {"steps_max": int(it.max()),
+                      "running_after": int((got.status == -1).sum())}
+        state = got
+    del state, got, want
+    wkw = dict(m=m, n=n, max_iters=max_iters, refactor_period=K,
+               pricing=rule)
+    work = torch.zeros((n_lp, len(WORK_FIELDS)), dtype=torch.int32,
+                       device="cuda")
+    work_plain = torch.zeros((k, len(WORK_FIELDS)), dtype=torch.int32,
+                             device="cuda")
+    got, ms = timed(lambda: revised_tile(A, b, c, ub, work=work, **wkw))
+    want, plain_ms = timed(lambda: solve_revised(
+        A[:k], b[:k], c[:k], ub[:k].contiguous(), tol=1e-6, feas_tol=1e-5,
+        work=work_plain, **wkw))
+    err = 0.0
+    for i, what in enumerate(("x", "objective", "status", "iterations", "y",
+                              "z", "basis", "onub")):
+        torch.testing.assert_close(got[i][:k], want[i], rtol=0, atol=0,
+                                   equal_nan=True,
+                                   msg=f"{name} {rule} whole {what}")
+        if got[i].dtype == torch.float32:
+            g, w = got[i][:k], want[i]
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            err = max(err, float((g - w).abs()[fin].max()) if fin.any()
+                      else 0.0)
+    assert torch.equal(work[:k], work_plain), (name, rule, "work")
+    status = got[2].cpu().numpy()
+    out = {"compare_revised": name, "pricing": rule, "lps": n_lp,
+           "plain_lps": k, "max_iters": max_iters, "refactor_period": K,
+           "workspace_in_smem": workspace_in_smem(m, n), "one_launch": one,
+           "status_counts": np.bincount(status.astype(int),
+                                        minlength=4).tolist(),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    out.update(revised_bound(m, n, n_lp, work.cpu().numpy()))
+    emit(out)
+    return out, got
+
+
+def compare_revised_schedule(name, lp, rule, whole, n_lp=SLICE):
+    """compaction=True for the revised engine on the first n_lp LPs: the
+    schedule through RevisedKernelBackend equals the one through the plain
+    RevisedBackend bit for bit; against the whole solve ``whole`` statuses
+    are equal and objectives within rel 1e-3 (the reference's contract,
+    tests/test_tile_parity.py)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lp import LPBatch, default_max_iters
+    from repro_torch.core.revised import RevisedBackend
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels.ops import RevisedKernelBackend
+    sub = LPBatch(A=lp.A[:n_lp], b=lp.b[:n_lp], c=lp.c[:n_lp],
+                  ub=None if lp.ub is None else lp.ub[:n_lp])
+    A, b, c, ub = batch_tensors(sub, torch.device("cuda"))
+    mi = default_max_iters(lp.m, lp.n)
+    args = (lp.m, lp.n, 1e-6, 1e-5)
+    kb = timed_backend(RevisedKernelBackend, revised_state_bytes)(
+        *args, pricing=rule)
+    pb = timed_backend(RevisedBackend, revised_state_bytes)(*args,
+                                                            pricing=rule)
+    zero_counts()
+    got, _, stats, ms = schedule(kb, A, b, c, ub, max_iters=mi)
+    assert counts()["revised_segment"] == len(stats), (counts(), len(stats))
+    want, _, _, plain_ms = schedule(pb, A, b, c, ub, max_iters=mi)
+    assert same_result(got, want, ("status", "iterations", "x", "objective",
+                                   "y", "z")), (name, rule, "schedules")
+    status = whole[2].cpu().numpy().astype(np.int8)
+    np.testing.assert_array_equal(got.status, status)
+    obj = whole[1].cpu().numpy()
+    ok = status == 0
+    rel = float(np.max(np.abs(got.objective[ok] - obj[ok]) / np.abs(obj[ok]),
+                       initial=0.0))
+    assert rel <= 1e-3, (name, rule, rel)
+    emit({"compare_revised_schedule": name, "pricing": rule, "lps": n_lp,
+          "segments": len(stats), "gathers": len(kb.gather_ms),
+          "ladder_stage_bucket_steps_survivors": ladder(stats),
+          "bitwise_equal_plain_schedule": True,
+          "max_rel_obj_vs_whole": rel,
+          "iteration_diffs_vs_whole": int((got.iterations != whole[3]
+                                           .cpu().numpy()).sum()),
+          "ms": sum(kb.segment_ms), "scheduled_ms": ms,
+          "plain_ms": sum(pb.segment_ms), "plain_scheduled_ms": plain_ms,
+          "state_bytes_moved": kb.moved})
+
+
+def revised_at_full_batch(name, lp):
+    """The revised wrapper once over a whole canonical batch (state build,
+    kernel, extraction), timed on the card with its bound; beside it, as a
+    yardstick for the refactorization alone, torch.linalg.inv on the
+    final basis matrices (the port never calls it)."""
+    import torch
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.core.revised import (WORK_FIELDS, auto_refactor_period,
+                                          warm_state)
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels.revised_tile import revised_tile
+    A, b, c, ub = batch_tensors(lp, torch.device("cuda"))
+    m, n = lp.m, lp.n
+    work = torch.zeros((lp.batch, len(WORK_FIELDS)), dtype=torch.int32,
+                       device="cuda")
+    out, ms = timed(lambda: revised_tile(
+        A, b, c, ub, m=m, n=n, max_iters=default_max_iters(m, n),
+        refactor_period=auto_refactor_period(m, n), work=work))
+    basis = out[6]
+    del out
+    Abar = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5).Abar
+    Bmat = Abar.gather(2, basis.long()[:, None, :].expand(-1, m, m))
+    del Abar
+    torch.cuda.empty_cache()
+    _, inv_ms = timed(lambda: torch.linalg.inv(Bmat))
+    info = {"revised_full_batch": name, "lps": lp.batch, "ms": ms,
+            "refactorizations_per_lp": float(work[:, 3].double().mean()),
+            "yardstick_linalg_inv_ms": inv_ms}
+    info.update(revised_bound(m, n, lp.batch, work.cpu().numpy()))
+    emit(info)
+    del A, b, c, ub, Bmat, work
+    torch.cuda.empty_cache()
+    return info
+
+
+def revised_state_bytes(m, n, rule, stage):
+    """Bytes one LP's revised segment state moves per launch when its block
+    loads it: Abar, cvec, ub and thr read; xB, basis, bound flags, phase,
+    status, iterations, y and work read and written; the step count
+    written."""
+    read = 4 * (m * (n + 2 * m) + (n + m) + n + 1)
+    rw = 4 * (3 * m + 3 + 5) + n
+    return read + 2 * rw + 4
 
 
 def main() -> int:
@@ -712,6 +1044,25 @@ def main() -> int:
     for rule in RULES:
         compare_schedule("sc205_like_2k", sc205, rule, n_plain=128,
                          max_iters=600)
+
+    # ---- revised path: the revised kernel, with warm starts ---------------
+    launches_rev = 0
+    for rule in REVISED_RULES:
+        _, got = revised_main("lp_100d_50k", lp100, head, rule, res_100)
+        launches_rev += got
+    launches_rev += revised_warm(afiro, g, g64, traj_lps=100_000)
+    rev_rows = []
+    for rule in REVISED_RULES:
+        row, whole = compare_revised("lp_100d_50k", lp100, rule)
+        rev_rows.append(row)
+        compare_revised_schedule("lp_100d_50k", lp100, rule, whole)
+        _, whole = compare_revised("lp_afiro_100k", lp_af, rule)
+        compare_revised_schedule("lp_afiro_100k", lp_af, rule, whole)
+        del whole
+    for rule in REVISED_RULES:   # the device-memory workspace
+        compare_revised("sc205_like_2k", sc205, rule, n_plain=128,
+                        max_iters=600)
+    rev_full = revised_at_full_batch("lp_100d_50k", lp100)
     del lp100, res_100, g, lp_af, sc205
     torch.cuda.empty_cache()
 
@@ -750,7 +1101,20 @@ def main() -> int:
         "bound_ms": box["bound_ms"], "bound_by": box["bound_by"],
         "library_ms": box["library_ms"], "library": box["library"],
         "parity": "equal to the plain version; rel 1e-5 to the float64 "
-                  "oracle"}]})
+                  "oracle"}, {
+        "name": "revised_segment", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/revised_tile.cu",
+        "replaces": "src/repro/kernels/revised_tile.py:221",
+        "launches": launches_rev,
+        "max_abs_err": rev_rows[0]["max_abs_err"], "ms": rev_rows[0]["ms"],
+        "plain_ms": rev_rows[0]["plain_ms"],
+        "bound_ms": rev_rows[0]["bound_ms"],
+        "bound_by": rev_rows[0]["bound_by"], "library_ms": None,
+        "full_batch_ms": rev_full["ms"],
+        "full_batch_bound_ms": rev_full["bound_ms"],
+        "parity": "one launch per stage leaf by leaf and the whole solve "
+                  "equal (NaN where NaN); both rules; the compaction "
+                  "schedule equal to the plain one"}]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ optionally sorted by difficulty and padded to a power of two, cut into
 chunks of at most ``N = floor(S / Y)`` LPs (Eq. 5: usable device bytes over
 bytes per LP), each chunk is solved, and the results are concatenated,
 unpadded and unpermuted.  On a card the budget is the card's memory and the
-solver the CUDA kernel (kernels/ops.py); on the CPU it is a stated constant
-and the plain PyTorch engine (core/simplex.py).
+solver the CUDA kernels (kernels/ops.py); on the CPU it is a stated
+constant and the plain PyTorch engine of the chosen backend
+(core/simplex.py, core/revised.py).  A warm-start carrier follows the
+batch through the sort, the padding and the chunks.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .forms import ensure_canonical, finish_result
-from .lp import LPBatch, LPResult, WarmStart, canonicalize_backend
+from .forms import ensure_canonical, finish_result, prepare_warm
+from .lp import (LPBatch, LPResult, WarmStart, canonicalize_backend,
+                 resolve_backend)
 
 # Planning budget for a CPU run (no device memory to size against).
 CPU_DEVICE_BYTES = 16 * 2 ** 30
@@ -79,36 +82,40 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
     """Chunked batched solve (Algorithm 1) on ``device`` (CUDA unless
     ``device="cpu"``; raises when neither is given nor available).
 
-    With ``solver=None`` the solver is the CUDA kernel on cuda
-    (``kernels.ops.solve_batched_kernel``) and the plain engine on the CPU
-    (``core.simplex.solve_batched_torch``); a custom ``solver`` takes the
-    canonical sub-batch plus ``device=`` and, when a non-default rule is
-    asked for, ``pricing=``.  ``sort_by_difficulty`` groups LPs of similar
-    difficulty into the same chunk (results are unpermuted);
+    With ``solver=None`` the solver is the CUDA kernels on cuda
+    (``kernels.ops.solve_batched_kernel``, with ``backend=``) and the
+    ``backend``'s plain engine on the CPU (``core/lp.py``
+    ``BACKEND_REGISTRY``: ``solve_batched_torch`` or
+    ``solve_batched_revised``, their scheduled forms with
+    ``compaction``); a custom ``solver`` takes the canonical sub-batch
+    plus ``device=`` and, when asked for, ``pricing=``, ``backend=``,
+    ``compaction=`` and ``warm=``.  ``sort_by_difficulty`` groups LPs of
+    similar difficulty into the same chunk (results are unpermuted);
     ``pad_to_bucket`` pads the batch to a power of two by replicating
-    members (the replicas' results are dropped).  A ``GeneralLPBatch`` is
-    canonicalized once up front and the concatenated result recovered at
-    the end.  ``warm`` is not ported yet and raises."""
+    members (the replicas' results are dropped).  ``warm``, a previous
+    solve's ``LPResult.warm_start()``, is validated once, follows the
+    sort and the padding, and is sliced per chunk; the chunks' captures
+    are concatenated and unpermuted into the result's ``warm``.  A
+    ``GeneralLPBatch`` is canonicalized once up front and the concatenated
+    result recovered at the end."""
     canonicalize_backend(backend)
-    if warm is not None:
-        raise NotImplementedError(
-            "warm starts are not ported to repro_torch yet (ROADMAP.md, "
-            "queue 1: warm starts)")
     dev = resolve_device(device)
     batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
+    warm = prepare_warm(warm, rec, batch)
     if solver is None:
         if dev.type == "cuda":
             from ..kernels.ops import solve_batched_kernel as solver
+            solver_kwargs["backend"] = backend
             if compaction:
                 solver_kwargs["compaction"] = True
-        elif compaction:
-            from .compaction import solve_batched_compacted as solver
         else:
-            from .simplex import solve_batched_torch as solver
+            solver = resolve_backend(backend, compacted=compaction)
         solver_kwargs["pricing"] = pricing
     else:
         for kw, value, wanted in (("compaction", compaction, compaction),
-                                  ("pricing", pricing, pricing != "dantzig")):
+                                  ("pricing", pricing, pricing != "dantzig"),
+                                  ("backend", backend, backend != "tableau"),
+                                  ("warm", warm, warm is not None)):
             if wanted and not _accepts(solver, kw):
                 raise ValueError(
                     f"{kw}={value!r} requested but solver "
@@ -118,18 +125,29 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
             solver_kwargs["compaction"] = True
         if pricing != "dantzig":
             solver_kwargs.setdefault("pricing", pricing)
+        if backend != "tableau":
+            solver_kwargs.setdefault("backend", backend)
     solver_kwargs["device"] = dev
+
+    def call(sub, sub_warm):
+        # each chunk gets its own slice of the carrier
+        if sub_warm is not None:
+            return solver(sub, warm=sub_warm, **solver_kwargs)
+        return solver(sub, **solver_kwargs)
 
     B = batch.batch
     perm = None
     if sort_by_difficulty and B > 1:
         perm = np.argsort(difficulty_proxy(batch), kind="stable")
         batch = _take_batch(batch, perm)
+        warm = None if warm is None else warm.take(perm)
     unpad_B = None
     if pad_to_bucket and B > 1:
         Bp = 1 << (B - 1).bit_length()
         if Bp != B:
-            batch = _take_batch(batch, np.arange(Bp) % B)
+            idx = np.arange(Bp) % B
+            batch = _take_batch(batch, idx)
+            warm = None if warm is None else warm.take(idx)
             unpad_B, B = B, Bp
 
     if chunk_size is None:
@@ -138,7 +156,7 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
         chunk_size = max_chunk_size(batch, device_bytes,
                                     compaction=compaction)
     if chunk_size >= B:
-        res = solver(batch, **solver_kwargs)
+        res = call(batch, warm)
         return finish_result(rec, _unpermute(_unpad(res, unpad_B), perm))
 
     parts = []
@@ -146,7 +164,7 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
         s, e = i * chunk_size, min((i + 1) * chunk_size, B)
         sub = LPBatch(A=batch.A[s:e], b=batch.b[s:e], c=batch.c[s:e],
                       ub=None if batch.ub is None else batch.ub[s:e])
-        parts.append(solver(sub, **solver_kwargs))
+        parts.append(call(sub, None if warm is None else warm.slice(s, e)))
 
     def cat(field):
         vals = [getattr(r, field) for r in parts]

@@ -26,10 +26,13 @@ keeps the results equal to that engine's when ``max_iters`` binds.
 
 ``TorchBackend`` runs the segments with the plain engine on any device; on
 the card ``kernels.ops.KernelBackend`` runs them through the CUDA segment
-kernel.  Telemetry, tracing, warm starts, the frontier scheduler
+kernel.  The revised engine has its own backends (core/revised.py
+``RevisedBackend``, ``kernels.ops.RevisedKernelBackend``) under the same
+scheduler.  A ``warm=`` carrier seeds the initial state; the warm-derived
+leaves then ride the gathers.  Telemetry, tracing, the frontier scheduler
 (``FrontierScheduler``, ``segment_combined``, the backends' ``scatter``)
-and the other engines are not ported yet and raise, naming their
-ROADMAP.md item.
+and the pdhg engine are not ported yet and raise, naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .forms import ensure_canonical, finish_result
+from .forms import ensure_canonical, finish_result, prepare_warm
 from .lp import (
     ITERATION_LIMIT,
     OPTIMAL,
@@ -50,19 +53,21 @@ from .lp import (
     WarmStart,
     canonicalize_backend,
     default_max_iters,
+    resolve_backend,
 )
-from .pricing import canonicalize_rule, init_weights
+from .pricing import canonicalize_rule
 from .simplex import (
     _RUNNING,
     SimplexState,
     _step,
     batch_tensors,
-    build_tableau_torch,
     compact_tableau,
     default_tolerances,
     extract_duals,
     extract_solution,
     tableau_elements,
+    warm_arrays,
+    warm_tableau,
 )
 
 STAGES = ("p1", "p2")
@@ -215,23 +220,26 @@ class TorchBackend:
         self.tol, self.feas_tol = float(tol), float(feas_tol)
         self.rule = canonicalize_rule(pricing)
 
-    def init(self, A, b, c, ub=None) -> CompactionState:
+    def init(self, A, b, c, ub=None,
+             warm: WarmStart | None = None) -> CompactionState:
+        """The initial state, cold or seeded per LP from ``warm`` (a
+        validated carrier; see ``core.simplex.warm_tableau``)."""
         m, n = self.m, self.n
-        T, basis, phase = build_tableau_torch(A, b, c)
-        B, dev = T.shape[0], T.device
+        B, dev = A.shape[0], A.device
         if ub is None:
-            ub = torch.full((B, n), torch.inf, dtype=T.dtype, device=dev)
+            ub = torch.full((B, n), torch.inf, dtype=A.dtype, device=dev)
+        T, basis, phase, flip, w = warm_tableau(
+            A, b, c, ub, m=m, n=n, feas_tol=self.feas_tol, rule=self.rule,
+            **warm_arrays(warm, self.rule, m, n))
         # dantzig and partial never read weights: a (B, 1) stub keeps the
         # segments and gathers from moving a dead (B, n+m) array
-        w = (init_weights(self.rule, T, m)[:, :n + m].contiguous()
-             if self.rule in WEIGHTED_RULES
+        w = (w[:, :n + m].contiguous() if self.rule in WEIGHTED_RULES
              else torch.ones((B, 1), dtype=T.dtype, device=dev))
         return CompactionState(
             T=T, basis=basis, phase=phase,
             status=torch.full((B,), _RUNNING, dtype=torch.int32, device=dev),
             iters=torch.zeros((B,), dtype=torch.int32, device=dev), w=w,
-            flip=torch.zeros((B, n), dtype=torch.bool, device=dev),
-            ub=ub.contiguous(),
+            flip=flip, ub=ub.contiguous(),
             thr=(self.feas_tol * torch.clamp(T[:, m + 1, -1], min=1.0)
                  ).contiguous(),
             work=torch.zeros((B, 3), dtype=torch.int32, device=dev))
@@ -264,11 +272,11 @@ class TorchBackend:
         return state._replace(status=torch.where(
             valid, state.status, ITERATION_LIMIT).to(torch.int32))
 
-    def take(self, state: CompactionState, idx) -> CompactionState:
+    def take(self, state, idx):
         """The bucket gather: every leaf's rows ``idx``, on the device."""
         idx = torch.as_tensor(np.asarray(idx), dtype=torch.long,
-                              device=state.T.device)
-        return CompactionState(*(leaf.index_select(0, idx) for leaf in state))
+                              device=state.status.device)
+        return type(state)(*(leaf.index_select(0, idx) for leaf in state))
 
     def status_host(self, state) -> np.ndarray:
         return state.status.cpu().numpy()
@@ -411,18 +419,15 @@ def run_schedule(backend, state: CompactionState, *,
                     iterations=out_iters, y=duals["y"], z=duals["z"])
 
 
-def check_deferred(*, backend="tableau", warm=None, telemetry=False,
+def check_deferred(*, backend="tableau", telemetry=False,
                    tracer=None) -> None:
-    """Raise for the scheduler options the port has not reached yet."""
+    """Raise for the scheduler options the port has not reached yet: the
+    pdhg engine, telemetry and tracing."""
     if backend in UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"backend={backend!r} under the scheduler is not ported to "
-            "repro_torch yet (ROADMAP.md, queue 1 items 9-10)")
+            "repro_torch yet (ROADMAP.md, queue 1 item 10)")
     canonicalize_backend(backend)
-    if warm is not None:
-        raise NotImplementedError(
-            "warm starts are not ported to repro_torch yet (ROADMAP.md, "
-            "queue 1 item 8)")
     if telemetry or tracer is not None:
         raise NotImplementedError(
             "telemetry and tracing are not ported to repro_torch yet "
@@ -430,11 +435,12 @@ def check_deferred(*, backend="tableau", warm=None, telemetry=False,
 
 
 def schedule_batch(runner, batch: LPBatch, dev, *, max_iters, segment_k,
-                   compact_threshold, stats_out) -> LPResult:
-    """Initialize ``runner`` (a backend) on a canonical batch and drive it
-    through ``run_schedule``; shared by the plain and kernel entry points."""
+                   compact_threshold, stats_out, warm=None) -> LPResult:
+    """Initialize ``runner`` (a backend) on a canonical batch, seeded from
+    ``warm`` (a validated carrier) when given, and drive it through
+    ``run_schedule``; shared by the plain and kernel entry points."""
     A, b, c, ub = batch_tensors(batch, dev)
-    state = runner.init(A, b, c, ub)
+    state = runner.init(A, b, c, ub, warm=warm)
     del A, b, c
     return run_schedule(runner, state, max_iters=max_iters,
                         segment_k=segment_k,
@@ -462,13 +468,20 @@ def solve_batched_compacted(batch: LPBatch, *, device=None,
     and recovered on the way out.
 
     Statuses, iterations, x and objectives equal ``solve_batched_torch``'s
-    with the same ``pricing`` bit for bit; only the executed work changes.
-    ``segment_k=None`` derives the segment length (``auto_segment_k``),
-    ``compact_threshold=None`` the gather eagerness
+    with the same ``pricing`` (and ``warm``) bit for bit; only the executed
+    work changes.  ``segment_k=None`` derives the segment length
+    (``auto_segment_k``), ``compact_threshold=None`` the gather eagerness
     (``auto_compact_threshold``); ``stats_out`` (a list) collects one
-    ``SegmentStat`` per segment.  Results carry no warm-start capture."""
-    check_deferred(backend=backend, warm=warm, telemetry=telemetry,
-                   tracer=tracer)
+    ``SegmentStat`` per segment.  ``warm`` seeds the initial state; results
+    carry no warm-start capture.  ``backend="revised"`` routes to
+    ``core.revised.solve_batched_revised_compacted``."""
+    check_deferred(backend=backend, telemetry=telemetry, tracer=tracer)
+    if backend != "tableau":
+        return resolve_backend(backend, compacted=True)(
+            batch, device=device, tol=tol, feas_tol=feas_tol,
+            max_iters=max_iters, segment_k=segment_k,
+            compact_threshold=compact_threshold, pricing=pricing,
+            stats_out=stats_out, presolve=presolve, scale=scale, warm=warm)
     batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     tol, feas_tol = default_tolerances(tol, feas_tol)
@@ -476,5 +489,6 @@ def solve_batched_compacted(batch: LPBatch, *, device=None,
     res = schedule_batch(runner, batch, dev, max_iters=max_iters,
                          segment_k=segment_k,
                          compact_threshold=compact_threshold,
-                         stats_out=stats_out)
+                         stats_out=stats_out,
+                         warm=prepare_warm(warm, rec, batch))
     return finish_result(rec, res)

@@ -42,3 +42,37 @@ def colsum_fma(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     for i in range(x.shape[1]):
         acc = fma(x[:, i], y[:, i], acc)
     return acc
+
+
+def dot_last(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``sum_j x[..., j] * y[..., j]`` over the last dim, in index order
+    with one rounding per term (a matrix-vector product row by row)."""
+    shape = torch.broadcast_shapes(x[..., 0].shape, y[..., 0].shape)
+    acc = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = fma(x[..., j], y[..., j], acc)
+    return acc
+
+
+def sum_products(x: torch.Tensor, y: torch.Tensor, dim: int) -> torch.Tensor:
+    """``sum_k x_k * y_k`` over ``dim`` (broadcasting) for float32 inputs:
+    each product is exact in float64, the products are added in index
+    order in float64 (one rounding per term) and the sum is rounded once
+    to float32.  The revised kernel sums its dot products this way
+    (``__dmul_rn``/``__dadd_rn``), so the two agree bit for bit; here it
+    costs one tensor operation per term, where an exactly rounded float32
+    multiply-add (``fma``) costs about fifteen."""
+    prods = (x.double() * y.double()).movedim(dim, 0)
+    acc = torch.zeros(prods.shape[1:], dtype=torch.float64, device=x.device)
+    for term in prods:
+        acc = acc + term
+    return acc.float()
+
+
+def rowsum(x: torch.Tensor) -> torch.Tensor:
+    """``sum_i x[:, i]`` over dim 1, added in row order (one rounding per
+    term), as the kernels sum."""
+    acc = torch.zeros(x[:, 0].shape, dtype=x.dtype, device=x.device)
+    for i in range(x.shape[1]):
+        acc = acc + x[:, i]
+    return acc

@@ -22,8 +22,8 @@ The simplex tableau layout follows Sec. 4.1/5.5 of the paper:
     columns n+m..n+2m-1     : artificial variables (zero columns when b_i >= 0)
     column  n+2m            : right-hand side
 
-Only the ``tableau`` backend is ported so far; ``revised`` and ``pdhg`` are
-known names that raise ``NotImplementedError`` until their engines arrive
+The ``tableau`` and ``revised`` backends are ported; ``pdhg`` is a known
+name that raises ``NotImplementedError`` until its engine arrives
 (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
@@ -59,9 +59,10 @@ class BackendSpec:
     single source of truth for ``backend=`` dispatch."""
 
     name: str
-    exact: bool   # pivot-exact simplex certificates
-    solve: str    # "module:attr" of the batched entry point, imported
-                  # lazily (the engine modules import this module)
+    exact: bool            # pivot-exact simplex certificates
+    solve: str             # "module:attr" of the batched entry point and
+    solve_compacted: str   # of the scheduled one, imported lazily (the
+                           # engine modules import this module)
 
 
 BACKEND_REGISTRY = {
@@ -69,11 +70,19 @@ BACKEND_REGISTRY = {
     # batched entry point runs the hand-written kernel (kernels/ops.py)
     "tableau": BackendSpec(
         name="tableau", exact=True,
-        solve="repro_torch.core.simplex:solve_batched_torch"),
+        solve="repro_torch.core.simplex:solve_batched_torch",
+        solve_compacted="repro_torch.core.compaction:solve_batched_compacted"),
+    # immutable constraint data, a dense basis inverse updated per pivot
+    # (core/revised.py); on cuda the kernel of kernels/csrc/revised_tile.cu
+    "revised": BackendSpec(
+        name="revised", exact=True,
+        solve="repro_torch.core.revised:solve_batched_revised",
+        solve_compacted=("repro_torch.core.revised:"
+                         "solve_batched_revised_compacted")),
 }
 
 # Engines of the reference package that the port has not reached yet.
-UNPORTED_BACKENDS = ("revised", "pdhg")
+UNPORTED_BACKENDS = ("pdhg",)
 
 BACKENDS = tuple(BACKEND_REGISTRY)
 
@@ -96,12 +105,15 @@ def backend_spec(backend: str) -> BackendSpec:
     return BACKEND_REGISTRY[canonicalize_backend(backend)]
 
 
-def resolve_backend(backend: str):
-    """Late-bound batched entry point of an engine.  Importing lazily keeps
-    the registry cycle-free (engine modules import this module)."""
+def resolve_backend(backend: str, *, compacted: bool = False):
+    """Late-bound batched entry point of an engine (its scheduled one when
+    ``compacted``).  Importing lazily keeps the registry cycle-free (engine
+    modules import this module)."""
     import importlib
 
-    module, attr = backend_spec(backend).solve.split(":")
+    spec = backend_spec(backend)
+    target = spec.solve_compacted if compacted else spec.solve
+    module, attr = target.split(":")
     return getattr(importlib.import_module(module), attr)
 
 

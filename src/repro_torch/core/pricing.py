@@ -56,6 +56,19 @@ def partial_geometry(ncand: int, block: int | None = None):
     return -(-ncand // blk), blk
 
 
+def partial_priced_candidates(ncand: int, block: int | None = None,
+                              partial: bool = True) -> int:
+    """Candidate columns priced per pivot: one block pass plus the
+    amortized full fallback (about once per block cycle); a single block
+    is full pricing."""
+    if not partial:
+        return ncand
+    n_blocks, blk = partial_geometry(ncand, block)
+    if n_blocks <= 1:
+        return ncand
+    return blk + ncand // n_blocks
+
+
 # ---------------------------------------------------------------------------
 # Batched torch dialect (core/simplex.py)
 # ---------------------------------------------------------------------------

@@ -17,7 +17,10 @@ and solutions are bit-identical across the three.  Each step builds new
 tensors rather than updating in place: the engine is the readable
 statement of what the kernel computes, not a fast path.
 
-Warm-start injection is not ported yet: ``warm=`` raises.
+A warm start (``warm=``, a ``WarmStart`` of a parent solve) rebuilds the
+tableau from the parent basis per LP (``inject_tableau_warm``: skip,
+repair or cold fallback), through ``_gauss_solve``, a per-LP Gauss-Jordan
+whose results do not depend on the batch size.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .forms import ensure_canonical, finish_result
-from .fp import fma
+from .forms import ensure_canonical, finish_result, prepare_warm
+from .fp import colsum_fma, dot_last, fma
 from .lp import (
     BIG,
     INFEASIBLE,
@@ -93,6 +96,104 @@ def build_tableau_torch(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
     basis = torch.where(neg, n + m + idx[None, :], n + idx[None, :])
     phase = torch.where(neg.any(dim=1), 1, 2)
     return T, basis.to(torch.int32), phase.to(torch.int32)
+
+
+def _gauss_solve(Bmat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Batched ``B^-1 @ rhs`` by Gauss-Jordan with partial pivoting (the
+    largest ``|entry|`` at or below the diagonal, lowest row on ties), one
+    LP at a time in effect: every operation is elementwise or per LP, so
+    the result does not depend on the batch size (a batched LU or
+    ``torch.linalg.solve`` may).  Each elimination rounds once
+    (``fma``), as the reference's CPU build does.  A singular matrix
+    divides by zero and yields non-finite rows: the callers' cold-fallback
+    signal.  Columns left of the pivot are exact zeros or ones after their
+    own step and are never read again, so each step updates the columns
+    from the pivot on."""
+    B, m, _ = Bmat.shape
+    aug = torch.cat([Bmat, rhs], dim=2)
+    rows = torch.arange(m, device=aug.device)
+    for k in range(m):
+        cand = torch.where(rows[None, :] >= k, aug[:, :, k].abs(), -torch.inf)
+        p = cand.argmax(dim=1)
+        swap = torch.where(rows[None, :] == k, p[:, None],
+                           torch.where(rows[None, :] == p[:, None], k,
+                                       rows[None, :]))
+        aug = aug.gather(1, swap[:, :, None].expand_as(aug))
+        col = aug[:, :, k]
+        pivrow = aug[:, k, k:] / aug[:, k, k][:, None]
+        upd = fma(-col[:, :, None], pivrow[:, None, :], aug[:, :, k:])
+        upd[:, k, :] = pivrow
+        aug = torch.cat([aug[:, :, :k], upd], dim=2)
+    return aug[:, :, m:]
+
+
+def inject_tableau_warm(A, b, c, ub, wb, wfl, *, m: int, n: int,
+                        feas_tol: float):
+    """Rebuild the two-phase tableau batch from a parent basis.
+
+    ``wb`` (B, m) int32 is the parent basis, ``wfl`` (B, n) bool its
+    nonbasic-at-upper flips.  Per LP, as the reference's
+    ``inject_tableau_warm``:
+
+    * **skip**: the parent basis is still primal-feasible on the new data,
+      so the tableau starts in phase 2 with no artificials;
+    * **repair**: rows whose basic value went negative get an artificial
+      (its physical column is ``-B e_i``, so negating the computed row
+      makes it basic at ``|x_B_i|``), and a phase-1 row summing exactly
+      those rows drives them out;
+    * **cold**: out-of-range indices or a singular basis matrix after the
+      artificial-to-slack remap (a non-finite solve): ``ok`` is False and
+      the caller keeps the cold tableau.
+
+    Flips on columns whose new bound is infinite are cleared.  Sums run in
+    index order with one rounding per term.  Returns
+    ``(T, basis, phase, flip, ok)``."""
+    B = A.shape[0]
+    dtype, dev = A.dtype, A.device
+    idx = torch.arange(m, device=dev)
+    wb = wb.to(torch.int64)
+    in_range = ((wb >= 0) & (wb < n + 2 * m)).all(dim=1)
+    wb2 = torch.where(wb >= n + m, wb - m, wb).clamp(0, n + m - 1)
+    wfl = wfl & torch.isfinite(ub)
+    ubz = torch.where(wfl, ub, 0.0).to(dtype)
+    # complement flipped structurals: x_j = ub_j - x'_j
+    Af = torch.where(wfl[:, None, :], -A, A)
+    bf = b - dot_last(A, ubz[:, None, :])
+    cf = torch.where(wfl, -c, c)
+    obj_off = dot_last(c, ubz)
+
+    eye = torch.eye(m, dtype=dtype, device=dev).expand(B, m, m)
+    Acols = torch.cat([Af, eye], dim=2)                       # (B, m, n+m)
+    Bmat = Acols.gather(2, wb2[:, None, :].expand(B, m, m))
+    body = _gauss_solve(Bmat, torch.cat([Acols, bf[:, :, None]], dim=2))
+    xB = body[:, :, -1]
+    eps = feas_tol * torch.clamp(bf.abs().amax(dim=1), min=1.0)
+    viol = xB < -eps[:, None]
+    D = torch.where(viol, -1.0, 1.0).to(dtype)
+    rows = D[:, :, None] * body
+    cext = torch.cat([cf, torch.zeros((B, m), dtype=dtype, device=dev)],
+                     dim=1)
+    cB = torch.where(viol, 0.0, cext.gather(1, wb2))
+    red = cext - colsum_fma(cB[:, :, None], rows[:, :, :n + m])
+
+    T = torch.zeros((B, m + 2, n + 2 * m + 1), dtype=dtype, device=dev)
+    T[:, :m, :n + m] = rows[:, :, :n + m]
+    T[:, idx, n + m + idx] = viol.to(dtype)
+    T[:, :m, -1] = rows[:, :, -1]
+    T[:, m, :n + m] = red
+    # -T[m, -1] is the true (unflipped) objective of the warm vertex
+    T[:, m, -1] = -(colsum_fma(cB, rows[:, :, -1]) + obj_off)
+    violf = viol.to(dtype)
+    p1 = torch.zeros((B, n + m + 1), dtype=dtype, device=dev)
+    for i in range(m):
+        p1 = p1 + rows[:, i, :] * violf[:, i, None]
+    T[:, m + 1, :n + m] = p1[:, :n + m]
+    T[:, m + 1, -1] = p1[:, -1]
+
+    basis = torch.where(viol, n + m + idx[None, :], wb2).to(torch.int32)
+    phase = torch.where(viol.any(dim=1), 1, 2).to(torch.int32)
+    ok = in_range & torch.isfinite(T).flatten(1).all(dim=1)
+    return T, basis, phase, wfl & ok[:, None], ok
 
 
 def _pivot_update(T, w, basis, factor, pivrow_raw, pe, e, l, do_pivot,
@@ -295,28 +396,65 @@ def extract_duals(T, *, m: int, n: int, flip):
     return y, torch.where(flip, -z, z)
 
 
+def warm_tableau(A, b, c, ub, *, m: int, n: int, feas_tol: float, rule: str,
+                 warm_basis=None, warm_at_upper=None, warm_weights=None):
+    """The starting tableau batch: cold (``build_tableau_torch``), or with
+    ``warm_basis`` seeded per LP from the parent basis
+    (``inject_tableau_warm``; an LP whose basis is unusable keeps the cold
+    tableau).  ``warm_weights`` (width >= n+m) overlays carried devex
+    weights where the injection held.  Returns
+    ``(T, basis, phase, flip, w)``."""
+    B, dev = A.shape[0], A.device
+    T, basis, phase = build_tableau_torch(A, b, c)
+    flip = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    ok = None
+    if warm_basis is not None:
+        wfl = (flip if warm_at_upper is None
+               else torch.as_tensor(warm_at_upper, dtype=torch.bool,
+                                    device=dev))
+        T_w, basis_w, phase_w, flip_w, ok = inject_tableau_warm(
+            A, b, c, ub, torch.as_tensor(warm_basis, device=dev), wfl,
+            m=m, n=n, feas_tol=feas_tol)
+        T = torch.where(ok[:, None, None], T_w, T)
+        basis = torch.where(ok[:, None], basis_w, basis)
+        phase = torch.where(ok, phase_w, phase)
+        flip = torch.where(ok[:, None], flip_w, flip)
+    w = init_weights(rule, T, m)
+    if ok is not None and warm_weights is not None:
+        ww = torch.as_tensor(warm_weights, dtype=w.dtype, device=dev)
+        w = w.clone()
+        w[:, :n + m] = torch.where(ok[:, None], ww[:, :n + m], w[:, :n + m])
+    return T, basis, phase, flip, w
+
+
 def solve_two_phase(A, b, c, ub=None, *, m: int, n: int, max_iters: int,
                     tol: float, feas_tol: float, pricing: str = "dantzig",
-                    full_state: bool = False, work=None):
+                    full_state: bool = False, work=None, warm_basis=None,
+                    warm_at_upper=None, warm_weights=None):
     """Two-phase solve of a float32 batch already on its device.
 
     Returns ``(x, obj, status, iters, y, z)``, and ``(basis, flip, w)``
     after them when ``full_state``; objectives and duals are NaN off
     OPTIMAL.  ``work``, a (B, 3) int32 tensor when given, is overwritten
-    with each LP's phase-1 pivots, phase-2 pivots and bound flips."""
+    with each LP's phase-1 pivots, phase-2 pivots and bound flips.
+    ``warm_basis`` (B, m) and ``warm_at_upper`` (B, n) seed the solve from
+    a parent basis (``warm_tableau``); ``warm_weights`` overlays carried
+    devex weights."""
     rule = canonicalize_rule(pricing)
     B = A.shape[0]
     if ub is None:
         ub = torch.full((B, n), torch.inf, dtype=A.dtype, device=A.device)
-    T, basis, phase = build_tableau_torch(A, b, c)
+    T, basis, phase, flip, w = warm_tableau(
+        A, b, c, ub, m=m, n=n, feas_tol=feas_tol, rule=rule,
+        warm_basis=warm_basis, warm_at_upper=warm_at_upper,
+        warm_weights=warm_weights)
     # phase-1 feasibility threshold, relative to the initial infeasibility
     feas_thr = feas_tol * torch.clamp(T[:, m + 1, -1], min=1.0)
     s = SimplexState(
         T=T, basis=basis, phase=phase,
         status=torch.full((B,), _RUNNING, dtype=torch.int32, device=A.device),
         iters=torch.zeros((B,), dtype=torch.int32, device=A.device),
-        w=init_weights(rule, T, m),
-        flip=torch.zeros((B, n), dtype=torch.bool, device=A.device),
+        w=w, flip=flip,
         ub=ub, work=torch.zeros((B, 3), dtype=torch.int32, device=A.device))
 
     it = 0
@@ -361,6 +499,29 @@ def batch_tensors(batch: LPBatch, device):
             put(batch.upper_bounds()))
 
 
+def warm_basis_arrays(warm: WarmStart | None) -> dict:
+    """The ``warm_basis``/``warm_at_upper`` arguments of a validated
+    carrier (none when it carries no basis)."""
+    if warm is None or warm.basis is None:
+        return dict(warm_basis=None, warm_at_upper=None)
+    return dict(warm_basis=np.asarray(warm.basis).astype(np.int32),
+                warm_at_upper=None if warm.at_upper is None
+                else np.asarray(warm.at_upper).astype(bool))
+
+
+def warm_arrays(warm: WarmStart | None, rule: str, m: int, n: int) -> dict:
+    """``warm_basis_arrays`` plus ``warm_weights``.  Carried weights mean
+    something only to devex (steepest edge recomputes them exactly,
+    dantzig and partial never read them), so only a devex carrier of width
+    >= n+m hands them on."""
+    out = dict(warm_basis_arrays(warm), warm_weights=None)
+    if (out["warm_basis"] is not None and rule == "devex"
+            and warm.pricing == rule and warm.weights is not None
+            and np.asarray(warm.weights).shape[1] >= n + m):
+        out["warm_weights"] = np.array(warm.weights, dtype=np.float32)
+    return out
+
+
 def solve_batched_torch(batch: LPBatch, *, device=None, tol: float | None = None,
                         feas_tol: float | None = None,
                         max_iters: int | None = None,
@@ -371,11 +532,10 @@ def solve_batched_torch(batch: LPBatch, *, device=None, tol: float | None = None
     ``device`` (CUDA unless ``device="cpu"``).  Counterpart of
     ``repro.core.simplex.solve_batched_jax``: a ``GeneralLPBatch`` is
     canonicalized on ingestion and recovered on the way out, and the result
-    carries the terminal ``WarmStart`` capture (basis, flips, weights)."""
-    if warm is not None:
-        raise NotImplementedError(
-            "warm-start injection is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1: warm starts)")
+    carries the terminal ``WarmStart`` capture (basis, flips, weights).
+    ``warm`` re-injects a previous solve's capture (validated by
+    ``forms.prepare_warm``; skip, repair or cold per LP); its weights are
+    reused only under devex, as in the reference."""
     batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     m, n = batch.m, batch.n
@@ -383,10 +543,12 @@ def solve_batched_torch(batch: LPBatch, *, device=None, tol: float | None = None
     tol, feas_tol = default_tolerances(tol, feas_tol)
     if max_iters is None:
         max_iters = default_max_iters(m, n)
+    warm = prepare_warm(warm, rec, batch)
     A, b, c, ub = batch_tensors(batch, dev)
     x, obj, status, iters, y, z, basis, flip, w = solve_two_phase(
         A, b, c, ub, m=m, n=n, max_iters=int(max_iters), tol=tol,
-        feas_tol=feas_tol, pricing=rule, full_state=True)
+        feas_tol=feas_tol, pricing=rule, full_state=True,
+        **warm_arrays(warm, rule, m, n))
     host = lambda t: t.cpu().numpy()  # noqa: E731
     capture = WarmStart(m=m, n=n, basis=host(basis), at_upper=host(flip),
                         weights=host(w), pricing=rule)

@@ -7,8 +7,10 @@ package's ``LPResult`` into a dict of NumPy arrays, so one input can be fed
 to both packages and their outputs compared field by field.
 ``segment_state_from_tile`` turns the reference's segment-kernel state into
 the port's ``CompactionState``, so one segment launch can be compared tile
-by tile.  All of them read attributes only; nothing here imports the
-reference package.
+by tile.  ``warm_from_reference`` and ``warm_to_reference`` carry a
+``WarmStart`` (the solver state one solve hands the next) either way, so
+one parent basis can seed both packages.  All of them read attributes
+only; nothing here imports the reference package.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from .core.compaction import CompactionState
 from .core.forms import GeneralLPBatch
-from .core.lp import LPBatch
+from .core.lp import LPBatch, WarmStart
 
 RESULT_FIELDS = ("x", "objective", "status", "iterations", "y", "z")
 
@@ -41,6 +43,26 @@ def result_arrays(res) -> dict:
     """``{field: numpy array or None}`` for the per-LP result fields."""
     return {f: None if getattr(res, f, None) is None
             else np.asarray(getattr(res, f)) for f in RESULT_FIELDS}
+
+
+def _warm_fields(ws) -> dict:
+    kw = {"m": int(ws.m), "n": int(ws.n), "pricing": ws.pricing}
+    for f in WarmStart._ARRAY_FIELDS:
+        v = getattr(ws, f, None)
+        kw[f] = None if v is None else np.array(v)
+    return kw
+
+
+def warm_from_reference(ws):
+    """The port's ``WarmStart`` with the leaves of a reference carrier
+    (``None`` stays ``None``)."""
+    return None if ws is None else WarmStart(**_warm_fields(ws))
+
+
+def warm_to_reference(ws, cls):
+    """A reference carrier of class ``cls`` (``repro.core.WarmStart``,
+    which the caller imports) with the leaves of the port's ``ws``."""
+    return None if ws is None else cls(**_warm_fields(ws))
 
 
 def segment_state_from_tile(tile, *, m: int, n: int, stage: str,

@@ -4,7 +4,11 @@ Each kernel source lives in ``csrc/`` and is built by ``_build`` at first
 use; importing this package builds and loads nothing."""
 from .hyperbox_kernel import hyperbox_tile, hyperbox_tile_plain  # noqa: F401
 from .ops import (  # noqa: F401
-    KernelBackend, solve_batched_kernel, solve_hyperbox_kernel,
+    KernelBackend, RevisedKernelBackend, solve_batched_kernel,
+    solve_hyperbox_kernel,
+)
+from .revised_tile import (  # noqa: F401
+    revised_segment_tile, revised_segment_tile_plain, revised_tile,
 )
 from .simplex_tile import (  # noqa: F401
     segment_tile, segment_tile_plain, simplex_tile, simplex_tile_plain,

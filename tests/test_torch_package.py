@@ -24,11 +24,20 @@ from repro_torch.core.compaction import (CompactionState, TorchBackend,
 from repro_torch.core.forms import canonicalize
 from repro_torch.core.lp import LPBatch, canonicalize_backend, resolve_backend
 from repro_torch.core.reference import random_lp_batch
+from repro_torch.core.revised import (RevisedState, solve_batched_revised,
+                                      solve_batched_revised_compacted,
+                                      warm_state)
 from repro_torch.core.simplex import batch_tensors, solve_batched_torch
 from repro_torch.io import fixture_path, perturbed_batch, read_mps
 from repro_torch.kernels import (_build, hyperbox_tile, hyperbox_tile_plain,
-                                  segment_tile, segment_tile_plain,
-                                  simplex_tile, simplex_tile_plain)
+                                  revised_segment_tile,
+                                  revised_segment_tile_plain, segment_tile,
+                                  segment_tile_plain, simplex_tile,
+                                  simplex_tile_plain)
+from repro_torch.kernels.revised_tile import block_threads as revised_threads
+from repro_torch.kernels.revised_tile import (smem_bytes as
+                                              revised_smem_bytes)
+from repro_torch.kernels.revised_tile import workspace_in_smem
 from repro_torch.kernels.ops import (KernelBackend, solve_batched_kernel,
                                      solve_hyperbox_kernel)
 from repro_torch.kernels.simplex_tile import (WORK_COUNTERS, block_threads,
@@ -142,11 +151,26 @@ def test_work_counts_add_up_to_the_iterations(pricing, feasible_start):
 
 def test_unported_backends_raise_and_unknown_names_are_rejected():
     assert resolve_backend("tableau") is solve_batched_torch
-    for name in ("revised", "pdhg"):
+    assert resolve_backend("tableau", compacted=True) \
+        is solve_batched_compacted
+    assert resolve_backend("revised") is solve_batched_revised
+    assert resolve_backend("revised", compacted=True) \
+        is solve_batched_revised_compacted
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        resolve_backend("pdhg")
+    for solve in (batching.solve_batched, solve_batched_kernel,
+                  solve_batched_compacted):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_backend(name)
+            solve(random_lp_batch(np.random.default_rng(0), B=2, m=3, n=3),
+                  device="cpu", backend="pdhg")
     with pytest.raises(ValueError):
         canonicalize_backend("simplex")
+    batch = random_lp_batch(np.random.default_rng(1), B=3, m=4, n=4)
+    res = batching.solve_batched(batch, device="cpu", backend="revised")
+    assert (res.status == 0).all()
+    np.testing.assert_allclose(
+        res.objective, solve_batched_torch(batch, device="cpu").objective,
+        rtol=1e-5)
 
 
 def test_partial_pricing_degrades_to_dantzig_with_a_warning():
@@ -415,3 +439,115 @@ def test_hyperbox_kernel_matches_plain_version_on_the_card():
             assert hyperbox_tile.launches == before + 1
             torch.testing.assert_close(got, hyperbox_tile_plain(lo, hi, d),
                                        rtol=0, atol=0)
+
+
+def test_revised_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    batch = random_lp_batch(np.random.default_rng(0), B=2, m=3, n=3)
+    for solve in (solve_batched_revised, solve_batched_revised_compacted):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            solve(batch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batching.solve_batched(batch, backend="revised")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_batched_kernel(batch, backend="revised")
+
+
+def _revised_state(seed=0, B=6, m=4, n=5, device="cpu"):
+    (A, b, c, ub), m, n = _small_inputs(seed, B, m, n)
+    state = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5)
+    return RevisedState(*(leaf.to(device) for leaf in state)), m, n
+
+
+def test_revised_wrapper_rejects_what_the_kernel_does_not_take():
+    state, m, n = _revised_state()
+    kw = dict(stage="p2", m=m, n=n, max_iters=10, refactor_period=2)
+    with pytest.raises(ValueError, match="stage"):
+        revised_segment_tile(state, 2, **dict(kw, stage="p3"))
+    with pytest.raises(ValueError, match="tableau-only"):
+        revised_segment_tile(state, 2, rule="devex", **kw)
+    bad = {"Abar": state.Abar.double(), "onub": state.onub.to(torch.int32),
+           "iters": state.iters.to(torch.int64), "work": state.work.float()}
+    for leaf, value in bad.items():
+        with pytest.raises(TypeError, match=leaf):
+            revised_segment_tile(state._replace(**{leaf: value}), 2, **kw)
+    with pytest.raises(ValueError, match="Abar has shape"):
+        revised_segment_tile(state._replace(Abar=state.Abar[:, :, :-1]), 2,
+                             **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        revised_segment_tile(state._replace(
+            xB=state.xB.t().contiguous().t()), 2, **kw)
+
+
+def test_revised_kernel_source_is_built_with_the_others():
+    assert "revised_tile" in _build.SOURCES
+    text = (_build.CSRC / "revised_tile.cu").read_text()
+    assert "revised_segment_launch" in text
+    assert "_revised_segment_kernel" in text   # names what it replaces
+    for m, n in ((100, 100), (35, 32), (246, 159)):
+        t = revised_threads(m, n)
+        assert t % 32 == 0 and 256 <= t <= 1024 and t >= min(n + m, 1024)
+
+
+@pytest.mark.gpu
+def test_revised_workspace_budget():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and the built kernel")
+    assert workspace_in_smem(100, 100)
+    assert workspace_in_smem(35, 32)
+    assert not workspace_in_smem(246, 159)
+    for m, n in ((100, 100), (246, 159)):
+        assert (revised_smem_bytes(m, n)
+                - revised_smem_bytes(m, n, workspace=False)) \
+            == 4 * 2 * m * m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pricing", ["dantzig", "partial"])
+def test_revised_kernel_matches_plain_version_on_the_card(pricing):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    sc, _ = canonicalize(perturbed_batch(read_mps(fixture_path("sc205_like")),
+                                         3, rng))
+    for batch in (random_lp_batch(rng, B=64, m=30, n=24,
+                                  feasible_start=False), sc):
+        m, n = batch.m, batch.n
+        A, b, c, ub = batch_tensors(batch, dev)
+        state = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5)
+        for stage in ("p1", "p2"):
+            kw = dict(stage=stage, m=m, n=n, max_iters=10 * (m + n) + 50,
+                      refactor_period=5, rule=pricing)
+            before = revised_segment_tile.launches
+            got, it = revised_segment_tile(
+                RevisedState(*(leaf.clone() for leaf in state)), 23, **kw)
+            torch.cuda.synchronize()
+            assert revised_segment_tile.launches == before + 1
+            want, want_it = revised_segment_tile_plain(state, 23, **kw)
+            torch.testing.assert_close(it, want_it, rtol=0, atol=0)
+            for name, g, w in zip(RevisedState._fields, got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                           equal_nan=True, msg=name)
+            state = want
+
+
+@pytest.mark.gpu
+def test_revised_warm_resolve_takes_no_pivots_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    batch = random_lp_batch(np.random.default_rng(6), B=200, m=20, n=16,
+                            feasible_start=False)
+    before = revised_segment_tile.launches
+    cold = solve_batched_kernel(batch, device="cuda", backend="revised")
+    warm = solve_batched_kernel(batch, device="cuda", backend="revised",
+                                warm=cold.warm_start())
+    assert revised_segment_tile.launches == before + 2
+    opt = cold.status == 0
+    assert opt.all() and (cold.iterations > 0).all()
+    assert (warm.iterations[opt] == 0).all()
+    np.testing.assert_array_equal(warm.status, cold.status)
+    np.testing.assert_allclose(warm.objective, cold.objective, rtol=1e-5)
+    plain = solve_batched_revised(batch, device="cuda")
+    for f in ("status", "iterations", "x", "objective", "y", "z"):
+        np.testing.assert_array_equal(getattr(cold, f), getattr(plain, f))
