@@ -56,6 +56,31 @@ kernel equals the plain-backed schedule bit for bit and the whole solve in
 statuses (objectives within rel 1e-3).  Last, the kernel is timed on all
 50,000 LPs of lp_100d_50k beside its bound.
 
+Restarted PDHG (after the revised path): ``solve_batched(lp_100d_50k,
+backend="pdhg")`` on all 50,000 LPs through the whole-solve PDHG kernel
+only (the first 64 against the oracle, statuses compared with the tableau
+run); ``compaction=True`` on all 50,000 through the segment kernel only,
+equal to the whole solve bit for bit; ``lp_afiro_100k`` cold (member 0 at
+the published optimum) and re-solved from its own ``warm_start()`` (equal
+statuses, objectives within rel 2e-3, at most a quarter of the cold mean
+iterations).  Each kernel is held against its plain version: the whole
+solve on 2,048-LP slices of lp_100d_50k (plain version on the first 512,
+``max_iters`` 20,000 for both) and lp_afiro_100k, Malitsky-Pock on
+lp_100d_50k (plain on 128, ``max_iters`` 1,600), sc205_like (A in shared
+memory, plain on 128, 4,000) and 256 LPs of lp_300d_2k (A in device
+memory, ``max_iters`` 40,000; plain on 64 of them, the members the kernel
+solved first and the rest from those at the cap, at least one OPTIMAL),
+every output equal; one segment launch from a mid-solve state leaf by
+leaf; the kernel-backed schedule equal to the plain-backed one (plain on
+512) and to the whole solve at ``max_iters`` 8,000.  The peak device
+memory of each main-path solve stays within the chunk plan's bytes per LP
+(``core.pdhg.pdhg_bytes_per_lp``).  The sparse engine runs
+SparseLPBatch.from_dense of sc205_like on the card against the dense
+kernel at ``max_iters`` 20,000 (equal statuses, objectives within rel
+1e-3; its sums follow the dense kernel's order, so every output is
+equal).  Last, the whole-solve kernel is timed on all 50,000 LPs beside
+its bound and a torch.bmm yardstick.
+
 Every launch counter is zeroed just before each main-path run and read just
 after.  Lines of JSON report each phase; the line before the last is the
 kernel table, then the card's name and power limit, and the last line is
@@ -91,11 +116,13 @@ def gpu_line() -> str:
 
 
 def _wrappers():
-    from repro_torch.kernels import (hyperbox_tile, revised_segment_tile,
+    from repro_torch.kernels import (hyperbox_tile, pdhg_segment_tile,
+                                     pdhg_tile, revised_segment_tile,
                                      segment_tile, simplex_tile)
     return {"simplex_tile": simplex_tile, "simplex_segment": segment_tile,
             "hyperbox": hyperbox_tile,
-            "revised_segment": revised_segment_tile}
+            "revised_segment": revised_segment_tile, "pdhg": pdhg_tile,
+            "pdhg_segment": pdhg_segment_tile}
 
 
 def zero_counts():
@@ -967,6 +994,427 @@ def revised_state_bytes(m, n, rule, stage):
     return read + 2 * rw + 4
 
 
+# ---- restarted PDHG (core/pdhg.py, csrc/pdhg_tile.cu) ---------------------
+
+PDHG_OUT = ("x", "objective", "status", "iterations", "y", "z", "warm_x",
+            "warm_y", "omega", "eta")
+PDHG_PLAIN_CAP = 20_000   # max_iters of the lp_100d_50k kernel/plain check
+
+
+def pdhg_bound(m, n, B, iters, check_every=16):
+    """Least time for the PDHG work this run's data needed, from the per-LP
+    iteration counts the kernel reports: the larger of the operations time
+    and the bytes time.  Operations, at the f32 rate outside the tensor
+    cores: 4mn an iteration (the two matvecs), 8mn a round of check_every
+    iterations (the two KKT evaluations of the check) and 2mn for the
+    extraction; the Farkas-ray matvecs (only once an iterate passes
+    RAY_MIN_NORM) and the linesearch's trial matvecs are left out, so this
+    is a floor.  Bytes, at the memory rate: A, b, c and ub read once; x,
+    z, y, the objective, status and iterations and the warm capture (x, y,
+    omega, eta) written once."""
+    import numpy as np
+    it = int(np.asarray(iters, np.int64).sum())
+    rounds = it // check_every
+    flops = 4 * m * n * it + 8 * m * n * rounds + 2 * m * n * B
+    nbytes = B * 4 * ((m * n + m + 2 * n) + (3 * n + 2 * m + 5))
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return {"iterations_sum": it, "rounds_sum": rounds,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _pdhg_info(res):
+    import numpy as np
+    return {"status_counts": np.bincount(np.asarray(res.status).astype(int),
+                                         minlength=4).tolist(),
+            "mean_iterations": float(np.mean(res.iterations)),
+            "max_iterations": int(np.max(res.iterations))}
+
+
+def planned_bytes(shape, B):
+    """The chunk plan's device bytes for B LPs of canonical ``shape`` on
+    the pdhg path (Eq. 5's Y, core/pdhg.py ``pdhg_bytes_per_lp``)."""
+    from repro_torch.core.pdhg import pdhg_bytes_per_lp
+    return B * pdhg_bytes_per_lp(*shape)
+
+
+def peak_since_reset(before):
+    """Device bytes the run allocated at its peak beyond what was alive
+    at ``reset_peak_memory_stats``."""
+    import torch
+    return torch.cuda.max_memory_allocated() - before
+
+
+def pdhg_main(name, batch, oracle_batch, shape, tableau_res=None):
+    """Drive solve_batched(backend="pdhg") once through the whole-solve
+    kernel (no segment launch); hold the result against the oracle and,
+    where given, count the statuses that agree with the tableau run.  The
+    peak device memory must stay within the chunk plan for the canonical
+    ``shape`` (m, n)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import solve_batched, solve_batched_reference
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = solve_batched(batch, backend="pdhg")
+    wall = time.perf_counter() - t0
+    launches = only("pdhg")
+    B = res.status.shape[0]
+    assert res.x.shape == (B, batch.n) and res.objective.shape == (B,)
+    opt = res.status == 0
+    assert np.isfinite(res.x[opt]).all() and np.isfinite(res.objective[opt]).all()
+    assert res.warm is not None and res.warm.omega.shape == (B,)
+    peak, plan = peak_since_reset(before), planned_bytes(shape, B)
+    assert peak <= plan, (name, peak, plan)
+    info = {"pdhg_main": name, "lps": B, "wall_s": wall, "lps_per_s": B / wall,
+            "launches": launches, "peak_device_bytes": peak,
+            "planned_device_bytes": plan}
+    info.update(_pdhg_info(res))
+    if tableau_res is not None:
+        info["status_agree_with_tableau"] = float(
+            (res.status == tableau_res.status).mean())
+        both = opt & (tableau_res.status == 0)
+        info["max_rel_obj_vs_tableau"] = float(np.max(
+            np.abs(res.objective[both] - tableau_res.objective[both])
+            / np.abs(tableau_res.objective[both]), initial=0.0))
+    info.update(check_oracle(f"{name} pdhg", res,
+                             solve_batched_reference(oracle_batch)))
+    emit(info)
+    return res, launches, wall
+
+
+def pdhg_compaction_main(lp100, res_whole, wall_whole):
+    """solve_batched(backend="pdhg", compaction=True) on every LP of
+    lp_100d_50k: only the segment kernel runs, and the result equals the
+    whole-solve run bit for bit (the per-LP round budget, the state carried
+    through device memory)."""
+    import torch
+    from repro_torch.core import solve_batched
+    stats = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = solve_batched(lp100, backend="pdhg", compaction=True,
+                        stats_out=stats)
+    wall = time.perf_counter() - t0
+    launches = only("pdhg_segment")
+    assert same_result(res, res_whole, ("status", "iterations", "x",
+                                        "objective", "y", "z")), \
+        "pdhg compaction != whole solve"
+    peak = peak_since_reset(before)
+    plan = planned_bytes((lp100.m, lp100.n), lp100.batch)
+    assert peak <= plan, ("pdhg compaction", peak, plan)
+    info = {"pdhg_compaction_main": "lp_100d_50k", "lps": lp100.batch,
+            "wall_s": wall, "lps_per_s": lp100.batch / wall,
+            "launches": launches, "segments": len(stats),
+            "buckets": sorted({s.bucket for s in stats}, reverse=True),
+            "ladder_stage_bucket_rounds_survivors": ladder(stats),
+            "bitwise_equal_whole_solve": True,
+            "peak_device_bytes": peak, "planned_device_bytes": plan,
+            "whole_solve_wall_s": wall_whole}
+    info.update(_pdhg_info(res))
+    emit(info)
+    return launches
+
+
+def pdhg_warm(g, g64, shape):
+    """Warm starts through the whole-solve kernel: lp_afiro_100k cold
+    (member 0 at the published optimum, the first 64 against the oracle),
+    then re-solved from its own warm_start(): equal statuses, objectives
+    within rel 2e-3 (the reference's contract), at most a quarter of the
+    cold mean iterations."""
+    import numpy as np
+    from repro_torch.core import solve_batched
+    cold, launches, wall_cold = pdhg_main("lp_afiro_100k", g, g64, shape)
+    assert cold.status[0] == 0
+    np.testing.assert_allclose(cold.objective[0], AFIRO_OPT, rtol=1e-4)
+    zero_counts()
+    t0 = time.perf_counter()
+    warm = solve_batched(g, backend="pdhg", warm=cold.warm_start())
+    wall = time.perf_counter() - t0
+    launches += only("pdhg")
+    rel = same_answers(cold, warm)
+    cold_mean = float(np.mean(cold.iterations))
+    warm_mean = float(np.mean(warm.iterations))
+    assert warm_mean <= 0.25 * cold_mean, (warm_mean, cold_mean)
+    emit({"pdhg_warm": "lp_afiro_100k",
+          "member0_objective": float(cold.objective[0]),
+          "published": AFIRO_OPT, "cold_wall_s": wall_cold,
+          "warm_wall_s": wall, "cold_mean_iterations": cold_mean,
+          "warm_mean_iterations": warm_mean,
+          "warm_max_iterations": int(np.max(warm.iterations)),
+          "warm_status_counts": np.bincount(warm.status.astype(int),
+                                            minlength=4).tolist(),
+          "max_rel_obj_warm_vs_cold": rel, "launches": launches})
+    return launches
+
+
+def _pdhg_sub(lp, k):
+    import torch
+    from repro_torch.core.lp import LPBatch
+    from repro_torch.core.simplex import batch_tensors
+    sub = LPBatch(A=lp.A[:k], b=lp.b[:k], c=lp.c[:k],
+                  ub=None if lp.ub is None else lp.ub[:k])
+    return sub, batch_tensors(sub, torch.device("cuda"))
+
+
+def max_err(pairs):
+    """Largest |kernel - plain| over the float entries finite on both
+    sides of (kernel, plain) tensor pairs."""
+    import torch
+    err = 0.0
+    for g, w in pairs:
+        if g.is_floating_point():
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            if fin.any():
+                err = max(err, float((g - w).abs()[fin].max()))
+    return err
+
+
+def _solved_first(status, iters, k):
+    """k members for a plain slice: up to three quarters the OPTIMAL ones
+    the kernel solved in the fewest iterations, the rest from the others
+    (so that the slice ends at the cap with both kinds in it)."""
+    import torch
+    opt = torch.nonzero(status == 0).flatten()
+    opt = opt[torch.argsort(iters[opt], stable=True)][:3 * k // 4]
+    rest = torch.nonzero(status != 0).flatten()[:k - len(opt)]
+    return torch.sort(torch.cat([opt, rest])).values
+
+
+def compare_pdhg(name, lp, rule, n_lp=SLICE, n_plain=512, max_iters=None,
+                 solved_first=False):
+    """The whole-solve kernel on the first n_lp LPs against its plain
+    version on n_plain of them (the first, or with ``solved_first`` those
+    of ``_solved_first``, at least one OPTIMAL): every output equal
+    (status, iterations, x, objective, y, z and the warm capture; NaN
+    where NaN)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pdhg import default_pdhg_max_iters
+    from repro_torch.kernels.pdhg_tile import (a_in_smem, pdhg_tile,
+                                               pdhg_tile_plain)
+    _, (A, b, c, ub) = _pdhg_sub(lp, n_lp)
+    m, n, k = lp.m, lp.n, n_plain
+    if max_iters is None:
+        max_iters = default_pdhg_max_iters(m, n)
+    kw = dict(m=m, n=n, max_iters=max_iters, step_rule=rule)
+    got, ms = timed(lambda: pdhg_tile(A, b, c, ub, **kw))
+    idx = (_solved_first(got[2], got[3], k) if solved_first
+           else torch.arange(k, device=A.device))
+    want, plain_ms = timed(lambda: pdhg_tile_plain(
+        A[idx], b[idx], c[idx], ub[idx], **kw))
+    got_k = [g[idx] for g in got]
+    for what, g, w in zip(PDHG_OUT, got_k, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{name} {rule} {what}")
+    plain_counts = np.bincount(got_k[2].cpu().numpy().astype(int),
+                               minlength=4).tolist()
+    if solved_first:
+        assert plain_counts[0] > 0, (name, "no OPTIMAL member compared")
+    iters = got[3].cpu().numpy()
+    out = {"compare_pdhg": name, "step_rule": rule, "lps": n_lp,
+           "plain_lps": k, "max_iters": max_iters,
+           "a_in_smem": a_in_smem(m, n),
+           "status_counts": np.bincount(got[2].cpu().numpy().astype(int),
+                                        minlength=4).tolist(),
+           "plain_status_counts": plain_counts,
+           "plain_members": "solved first" if solved_first else "first",
+           "mean_iterations": float(iters.mean()),
+           "max_iterations": int(iters.max()),
+           "max_abs_err": max_err(zip(got_k, want)),
+           "ms": ms, "plain_ms": plain_ms}
+    out.update(pdhg_bound(m, n, n_lp, iters))
+    emit(out)
+    return out, got
+
+
+def _pdhg_clone(state, k=None):
+    from repro_torch.core.pdhg import PdhgState
+    return PdhgState(*(leaf.clone() if k is None else leaf[:k].contiguous()
+                       for leaf in state))
+
+
+def compare_pdhg_segment(name, lp, n_lp=SLICE, n_plain=512, steps=8,
+                         max_rounds=4375):
+    """One segment launch (``steps`` rounds) from a mid-solve state (three
+    plain rounds from cold) on every LP, against the plain segment on the
+    first n_plain: every leaf and the rounds run equal."""
+    import torch
+    from repro_torch.core.pdhg import PdhgState, init_pdhg_state, segment_pdhg
+    from repro_torch.kernels.pdhg_tile import (pdhg_segment_tile,
+                                               pdhg_segment_tile_plain)
+    _, (A, b, c, ub) = _pdhg_sub(lp, n_lp)
+    mid, _ = segment_pdhg(init_pdhg_state(A, b, c, ub), 3, tol=1e-5,
+                          max_rounds=max_rounds)
+    k = n_plain
+    (got, it), ms = timed(lambda: pdhg_segment_tile(
+        _pdhg_clone(mid), steps, m=lp.m, n=lp.n, max_rounds=max_rounds))
+    (want, want_it), plain_ms = timed(lambda: pdhg_segment_tile_plain(
+        _pdhg_clone(mid, k), steps, max_rounds=max_rounds))
+    assert torch.equal(it[:k], want_it), (name, "rounds differ")
+    for leaf, g, w in zip(PdhgState._fields, got, want):
+        torch.testing.assert_close(g[:k], w, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{name} segment {leaf}")
+    out = {"compare_pdhg_segment": name, "lps": n_lp, "plain_lps": k,
+           "rounds": steps, "rounds_max": int(it.max()),
+           "running_after": int((got.status == -1).sum()),
+           "max_abs_err": max_err((g[:k], w) for g, w in zip(got, want)),
+           "ms": ms, "plain_ms": plain_ms}
+    emit(out)
+    return out
+
+
+def timed_pdhg_backend(cls):
+    """``cls`` (a PDHG scheduler backend) with each segment launch and each
+    gather timed by CUDA events."""
+    class Timed(cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.segment_ms, self.gather_ms = [], []
+
+        def segment(self, state, steps, stage, max_iters):
+            out, ms = timed(lambda: super(Timed, self).segment(
+                state, steps, stage, max_iters))
+            self.segment_ms.append(ms)
+            return out
+
+        def take(self, state, idx):
+            out, ms = timed(lambda: super(Timed, self).take(state, idx))
+            self.gather_ms.append(ms)
+            return out
+    return Timed
+
+
+def compare_pdhg_schedule(name, lp, n_lp=SLICE, n_plain=512,
+                          max_iters=8000):
+    """compaction=True on the first n_lp LPs through PdhgKernelBackend
+    against the plain PdhgBackend on the first n_plain: equal bit for bit
+    (status, iterations, x, objective, y, z); and equal to the whole-solve
+    kernel on the same LPs at the same cap."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pdhg import PdhgBackend, schedule_pdhg
+    from repro_torch.kernels.ops import PdhgKernelBackend
+    from repro_torch.kernels.pdhg_tile import pdhg_tile
+    sub, (A, b, c, ub) = _pdhg_sub(lp, n_lp)
+    whole = pdhg_tile(A, b, c, ub, m=lp.m, n=lp.n, max_iters=max_iters)
+    del A, b, c, ub
+    plain_sub, _ = _pdhg_sub(lp, n_plain)
+    dev = torch.device("cuda")
+    kb = timed_pdhg_backend(PdhgKernelBackend)(lp.m, lp.n)
+    pb = timed_pdhg_backend(PdhgBackend)(lp.m, lp.n)
+    stats = []
+    zero_counts()
+    kw = dict(max_iters=max_iters, segment_k=None, compact_threshold=None)
+    got, ms = timed(lambda: schedule_pdhg(kb, sub, dev, stats_out=stats,
+                                          **kw))
+    launches = counts()["pdhg_segment"]
+    assert launches == len(stats) and counts()["pdhg"] == 0, counts()
+    want, plain_ms = timed(lambda: schedule_pdhg(pb, plain_sub, dev,
+                                                 stats_out=None, **kw))
+    fields = ("status", "iterations", "x", "objective", "y", "z")
+    k = n_plain
+    for f in fields:
+        np.testing.assert_array_equal(np.asarray(getattr(got, f))[:k],
+                                      getattr(want, f),
+                                      err_msg=f"{name} schedule {f}")
+    for f, t in zip(("x", "objective", "status", "iterations", "y", "z"),
+                    whole[:6]):
+        np.testing.assert_array_equal(getattr(got, f), t.cpu().numpy(),
+                                      err_msg=f"{name} vs whole {f}")
+    err = max_err((torch.as_tensor(np.asarray(getattr(got, f))[:k]),
+                   torch.as_tensor(getattr(want, f)))
+                  for f in ("x", "objective", "y", "z"))
+    out = {"compare_pdhg_schedule": name, "lps": n_lp, "plain_lps": k,
+           "max_iters": max_iters, "segments": len(stats),
+           "gathers": len(kb.gather_ms),
+           "ladder_stage_bucket_rounds_survivors": ladder(stats),
+           "bitwise_equal_plain_schedule": True,
+           "bitwise_equal_whole_solve": True, "max_abs_err": err,
+           "ms": sum(kb.segment_ms), "gather_ms": sum(kb.gather_ms),
+           "scheduled_ms": ms, "plain_ms": sum(pb.segment_ms),
+           "plain_scheduled_ms": plain_ms}
+    out.update(pdhg_bound(lp.m, lp.n, n_lp, got.iterations))
+    emit(out)
+    return out
+
+
+def pdhg_sparse(name, lp, max_iters):
+    """SparseLPBatch.from_dense of a canonical batch through the sparse
+    engine on the card, against the dense kernel on the same LPs at the
+    same cap: equal statuses, objectives within rel 1e-3.  The sparse sums
+    follow the dense kernel's order, so every output is in fact equal."""
+    import numpy as np
+    from repro_torch.core.sparse import (SparseLPBatch,
+                                         solve_batched_pdhg_sparse)
+    from repro_torch.kernels.ops import solve_batched_kernel
+    sp = SparseLPBatch.from_dense(lp)
+    t0 = time.perf_counter()
+    res = solve_batched_pdhg_sparse(sp, max_iters=max_iters)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = solve_batched_kernel(lp, backend="pdhg", max_iters=max_iters)
+    wall_dense = time.perf_counter() - t0
+    np.testing.assert_array_equal(res.status, dense.status)
+    ok = dense.status == 0
+    rel = float(np.max(np.abs(res.objective[ok] - dense.objective[ok])
+                       / np.abs(dense.objective[ok]), initial=0.0))
+    assert rel <= 1e-3, (name, rel)
+    assert same_result(res, dense, ("status", "iterations", "x", "objective",
+                                    "y", "z")), (name, "sparse != dense")
+    out = {"pdhg_sparse": name, "lps": lp.batch, "nnz": sp.nnz,
+           "density": sp.density, "max_iters": max_iters, "wall_s": wall,
+           "dense_kernel_wall_s": wall_dense, "max_rel_obj_vs_dense": rel,
+           "bitwise_equal_dense_kernel": True}
+    out.update(_pdhg_info(res))
+    emit(out)
+
+
+def pdhg_full_batch(lp):
+    """The whole-solve wrapper (setup, kernel) once over all of a batch,
+    timed on the card with its bound; beside it, as a yardstick and not
+    used by the port, one torch.bmm pair (A x, A^T y) over the batch times
+    the mean iterations."""
+    import torch
+    from repro_torch.core.pdhg import default_pdhg_max_iters, init_pdhg_state
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels.pdhg_tile import pdhg_tile
+    A, b, c, ub = batch_tensors(lp, torch.device("cuda"))
+    m, n, B = lp.m, lp.n, lp.batch
+    out, ms = timed(lambda: pdhg_tile(
+        A, b, c, ub, m=m, n=n, max_iters=default_pdhg_max_iters(m, n)))
+    iters = out[3].cpu().numpy()
+    del out
+    _, setup_ms = timed(lambda: init_pdhg_state(A, b, c, ub))
+    As = init_pdhg_state(A, b, c, ub).A
+    del A
+    x = torch.ones((B, n, 1), device="cuda")
+    y = torch.ones((B, m, 1), device="cuda")
+
+    def pair():
+        torch.bmm(As, x)
+        torch.bmm(As.transpose(1, 2), y)
+    pair()
+    _, pair_ms = timed(lambda: [pair() for _ in range(5)])
+    pair_ms /= 5
+    info = {"pdhg_full_batch": "lp_100d_50k", "lps": B, "ms": ms,
+            "setup_ms": setup_ms, "mean_iterations": float(iters.mean()),
+            "yardstick_bmm_pair_ms": pair_ms,
+            "yardstick_bmm_pairs_times_mean_iterations_ms":
+                pair_ms * float(iters.mean())}
+    info.update(pdhg_bound(m, n, B, iters))
+    emit(info)
+    del As, x, y, b, c, ub
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1063,6 +1511,35 @@ def main() -> int:
         compare_revised("sc205_like_2k", sc205, rule, n_plain=128,
                         max_iters=600)
     rev_full = revised_at_full_batch("lp_100d_50k", lp100)
+
+    # ---- restarted PDHG: the whole-solve and segment kernels --------------
+    res_pdhg, launches_pdhg, wall_pdhg = pdhg_main(
+        "lp_100d_50k", lp100, head, (lp100.m, lp100.n), res_100)
+    launches_pdhg_seg = pdhg_compaction_main(lp100, res_pdhg, wall_pdhg)
+    del res_pdhg
+    launches_pdhg += pdhg_warm(g, g64, (lp_af.m, lp_af.n))
+    pdhg_row, _ = compare_pdhg("lp_100d_50k", lp100, "fixed",
+                               max_iters=PDHG_PLAIN_CAP)
+    pdhg_seg_row = compare_pdhg_schedule("lp_100d_50k", lp100)
+    pdhg_launch_row = compare_pdhg_segment("lp_100d_50k", lp100)
+    # the linesearch costs the plain version up to 13 matvecs an iteration:
+    # a shorter budget and the first 128 LPs
+    compare_pdhg("lp_100d_50k", lp100, "malitsky_pock", n_plain=128,
+                 max_iters=1600)
+    compare_pdhg("lp_afiro_100k", lp_af, "fixed")
+    # sc205_like: A in shared memory, one block per SM, at a budget that
+    # keeps the plain version's lockstep loop short; lp_300d_2k: the
+    # device-memory variant, whose members need 19,000 iterations and more,
+    # at a cap where some converge, the plain version on those the kernel
+    # solved first and on members still running at the cap
+    compare_pdhg("sc205_like_2k", sc205, "fixed", n_plain=128,
+                 max_iters=4000)
+    lp300 = random_lp_batch(np.random.default_rng(2018), B=256, m=300, n=300)
+    compare_pdhg("lp_300d_2k", lp300, "fixed", n_lp=256, n_plain=64,
+                 max_iters=40_000, solved_first=True)
+    del lp300
+    pdhg_sparse("sc205_like_2k", sc205, max_iters=20_000)
+    pdhg_full = pdhg_full_batch(lp100)
     del lp100, res_100, g, lp_af, sc205
     torch.cuda.empty_cache()
 
@@ -1114,7 +1591,36 @@ def main() -> int:
         "full_batch_bound_ms": rev_full["bound_ms"],
         "parity": "one launch per stage leaf by leaf and the whole solve "
                   "equal (NaN where NaN); both rules; the compaction "
-                  "schedule equal to the plain one"}]})
+                  "schedule equal to the plain one"}, {
+        "name": "pdhg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pdhg_tile.cu",
+        "replaces": "src/repro/kernels/pdhg_tile.py:268",
+        "launches": launches_pdhg,
+        "max_abs_err": pdhg_row["max_abs_err"], "ms": pdhg_row["ms"],
+        "plain_ms": pdhg_row["plain_ms"], "bound_ms": pdhg_row["bound_ms"],
+        "bound_by": pdhg_row["bound_by"], "library_ms": None,
+        "slice_max_iters": pdhg_row["max_iters"],
+        "plain_lps": pdhg_row["plain_lps"],
+        "full_batch_ms": pdhg_full["ms"],
+        "full_batch_bound_ms": pdhg_full["bound_ms"],
+        "parity": "every output equal (NaN where NaN): both step rules, "
+                  "lp_100d_50k, lp_afiro_100k, sc205_like (A in shared "
+                  "memory) and lp_300d_2k (A in device memory)"}, {
+        "name": "pdhg_segment", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pdhg_tile.cu",
+        "replaces": "src/repro/kernels/pdhg_tile.py:469",
+        "launches": launches_pdhg_seg,
+        "max_abs_err": max(pdhg_seg_row["max_abs_err"],
+                           pdhg_launch_row["max_abs_err"]),
+        "ms": pdhg_seg_row["ms"],
+        "plain_ms": pdhg_seg_row["plain_ms"],
+        "bound_ms": pdhg_seg_row["bound_ms"],
+        "bound_by": pdhg_seg_row["bound_by"], "library_ms": None,
+        "plain_lps": pdhg_seg_row["plain_lps"],
+        "parity": "one launch leaf by leaf; the kernel-backed schedule "
+                  "equal to the plain-backed one and to the whole solve; "
+                  "compaction=True on all 50,000 equal to the whole "
+                  "solve"}]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ bytes per LP), each chunk is solved, and the results are concatenated,
 unpadded and unpermuted.  On a card the budget is the card's memory and the
 solver the CUDA kernels (kernels/ops.py); on the CPU it is a stated
 constant and the plain PyTorch engine of the chosen backend
-(core/simplex.py, core/revised.py).  A warm-start carrier follows the
-batch through the sort, the padding and the chunks.
+(core/simplex.py, core/revised.py, core/pdhg.py).  A warm-start carrier
+follows the batch through the sort, the padding and the chunks: a basis
+for the simplex engines, the iterates x, y and the primal weight omega
+for pdhg.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ import torch
 
 from ..device import resolve_device
 from .forms import ensure_canonical, finish_result, prepare_warm
-from .lp import (LPBatch, LPResult, WarmStart, canonicalize_backend,
-                 resolve_backend)
+from .lp import (LPBatch, LPResult, WarmStart, backend_spec,
+                 canonicalize_backend, load_entry, resolve_backend)
 
 # Planning budget for a CPU run (no device memory to size against).
 CPU_DEVICE_BYTES = 16 * 2 ** 30
@@ -39,16 +41,23 @@ def device_bytes_of(device: torch.device) -> int:
 
 
 def max_chunk_size(batch: LPBatch, device_bytes: int = CPU_DEVICE_BYTES,
-                   *, compaction: bool = False) -> int:
+                   *, compaction: bool = False,
+                   backend: str = "tableau") -> int:
     """Paper Eq. (5): N = floor(S / Y), with S = usable device bytes and Y
-    the float32 bytes one LP needs.  Under the compaction scheduler
-    (``compaction=True``) Y counts two copies of the state: a survivor
+    the float32 bytes one LP needs on ``backend``'s path.  For the simplex
+    engines Y is the tableau's; under the compaction scheduler
+    (``compaction=True``) it counts two copies of the state: a survivor
     gather (at most a half-size bucket) and the one-shot phase compaction
     (a tableau two thirds the size or less) each copy it while the old one
-    is still alive."""
+    is still alive.  For pdhg Y is the setup's peak
+    (``core.pdhg.pdhg_bytes_per_lp``), which covers the gathers."""
     usable = int(device_bytes * BUDGET_FRACTION)
-    copies = 2 if compaction else 1
-    return max(1, usable // (copies * batch.bytes_per_lp(4)))
+    estimate = backend_spec(backend).bytes_per_lp
+    if estimate is None:
+        per_lp = (2 if compaction else 1) * batch.bytes_per_lp(4)
+    else:
+        per_lp = load_entry(estimate)(batch.m, batch.n)
+    return max(1, usable // per_lp)
 
 
 def difficulty_proxy(batch: LPBatch) -> np.ndarray:
@@ -85,9 +94,11 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
     With ``solver=None`` the solver is the CUDA kernels on cuda
     (``kernels.ops.solve_batched_kernel``, with ``backend=``) and the
     ``backend``'s plain engine on the CPU (``core/lp.py``
-    ``BACKEND_REGISTRY``: ``solve_batched_torch`` or
-    ``solve_batched_revised``, their scheduled forms with
-    ``compaction``); a custom ``solver`` takes the canonical sub-batch
+    ``BACKEND_REGISTRY``: ``solve_batched_torch``,
+    ``solve_batched_revised`` or ``solve_batched_pdhg``, their scheduled
+    forms with ``compaction``).  Engine options in ``solver_kwargs`` (for
+    pdhg ``tol``, ``max_iters`` and ``step_rule``) reach the solver of
+    every chunk; a custom ``solver`` takes the canonical sub-batch
     plus ``device=`` and, when asked for, ``pricing=``, ``backend=``,
     ``compaction=`` and ``warm=``.  ``sort_by_difficulty`` groups LPs of
     similar difficulty into the same chunk (results are unpermuted);
@@ -154,7 +165,7 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
         if device_bytes is None:
             device_bytes = device_bytes_of(dev)
         chunk_size = max_chunk_size(batch, device_bytes,
-                                    compaction=compaction)
+                                    compaction=compaction, backend=backend)
     if chunk_size >= B:
         res = call(batch, warm)
         return finish_result(rec, _unpermute(_unpad(res, unpad_B), perm))

@@ -28,11 +28,13 @@ keeps the results equal to that engine's when ``max_iters`` binds.
 the card ``kernels.ops.KernelBackend`` runs them through the CUDA segment
 kernel.  The revised engine has its own backends (core/revised.py
 ``RevisedBackend``, ``kernels.ops.RevisedKernelBackend``) under the same
-scheduler.  A ``warm=`` carrier seeds the initial state; the warm-derived
-leaves then ride the gathers.  Telemetry, tracing, the frontier scheduler
-(``FrontierScheduler``, ``segment_combined``, the backends' ``scatter``)
-and the pdhg engine are not ported yet and raise, naming their ROADMAP.md
-item.
+scheduler, and so has the first-order engine (core/pdhg.py
+``PdhgBackend``, ``kernels.ops.PdhgKernelBackend``; one step is one PDHG
+round and there is no phase 1).  A ``warm=`` carrier seeds the initial
+state; the warm-derived leaves then ride the gathers.  Telemetry, tracing
+and the frontier scheduler (``FrontierScheduler``, ``segment_combined``,
+the backends' ``scatter``) are not ported yet and raise, naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -47,7 +49,6 @@ from .forms import ensure_canonical, finish_result, prepare_warm
 from .lp import (
     ITERATION_LIMIT,
     OPTIMAL,
-    UNPORTED_BACKENDS,
     LPBatch,
     LPResult,
     WarmStart,
@@ -421,12 +422,8 @@ def run_schedule(backend, state: CompactionState, *,
 
 def check_deferred(*, backend="tableau", telemetry=False,
                    tracer=None) -> None:
-    """Raise for the scheduler options the port has not reached yet: the
-    pdhg engine, telemetry and tracing."""
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend={backend!r} under the scheduler is not ported to "
-            "repro_torch yet (ROADMAP.md, queue 1 item 10)")
+    """Validate ``backend`` and raise for the scheduler options the port
+    has not reached yet: telemetry and tracing."""
     canonicalize_backend(backend)
     if telemetry or tracer is not None:
         raise NotImplementedError(
@@ -474,7 +471,8 @@ def solve_batched_compacted(batch: LPBatch, *, device=None,
     (``auto_compact_threshold``); ``stats_out`` (a list) collects one
     ``SegmentStat`` per segment.  ``warm`` seeds the initial state; results
     carry no warm-start capture.  ``backend="revised"`` routes to
-    ``core.revised.solve_batched_revised_compacted``."""
+    ``core.revised.solve_batched_revised_compacted``, ``backend="pdhg"`` to
+    ``core.pdhg.solve_batched_pdhg_compacted``."""
     check_deferred(backend=backend, telemetry=telemetry, tracer=tracer)
     if backend != "tableau":
         return resolve_backend(backend, compacted=True)(

@@ -76,3 +76,30 @@ def rowsum(x: torch.Tensor) -> torch.Tensor:
     for i in range(x.shape[1]):
         acc = acc + x[:, i]
     return acc
+
+
+def tree_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``sum_k t_k`` over ``dim`` in the order of the PDHG kernels
+    (csrc/pdhg_tile.cu): the terms are zero-padded to the next power of
+    two L, then the upper half is added onto the lower one, ``s[i] +=
+    s[i + h]`` for h = L/2, L/4, ..., 1, one rounding per add.  That is
+    log2(L) tensor operations, and each entry of the result depends only
+    on its own terms, so the sum does not depend on the batch."""
+    dim = dim % t.dim()
+    L = t.shape[dim]
+    P = 1 << max(0, L - 1).bit_length()
+    if P != L:
+        pad = list(t.shape)
+        pad[dim] = P - L
+        t = torch.cat([t, t.new_zeros(pad)], dim)
+    while P > 1:
+        P //= 2
+        t = t.narrow(dim, 0, P) + t.narrow(dim, P, P)
+    return t.squeeze(dim)
+
+
+def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (``__fsqrt_rn``).  PyTorch's
+    vectorized float32 ``sqrt`` on the CPU is not; the float64 root of a
+    float32 value rounds to the correct float32 one."""
+    return torch.sqrt(t.double()).float()

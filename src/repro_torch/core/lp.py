@@ -22,14 +22,14 @@ The simplex tableau layout follows Sec. 4.1/5.5 of the paper:
     columns n+m..n+2m-1     : artificial variables (zero columns when b_i >= 0)
     column  n+2m            : right-hand side
 
-The ``tableau`` and ``revised`` backends are ported; ``pdhg`` is a known
-name that raises ``NotImplementedError`` until its engine arrives
-(ROADMAP.md, queue 1).
+All three engines of the reference are ported: ``tableau`` and ``revised``
+(exact simplex certificates) and ``pdhg`` (restarted PDHG, tolerance-based
+KKT convergence).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -63,6 +63,10 @@ class BackendSpec:
     solve: str             # "module:attr" of the batched entry point and
     solve_compacted: str   # of the scheduled one, imported lazily (the
                            # engine modules import this module)
+    # "module:attr" of ``(m, n) -> bytes``, the peak device bytes one LP
+    # needs on this engine's path, the scheduler's gathers included; None:
+    # the tableau's ``LPBatch.bytes_per_lp``, twice under the scheduler
+    bytes_per_lp: Optional[str] = None
 
 
 BACKEND_REGISTRY = {
@@ -79,21 +83,21 @@ BACKEND_REGISTRY = {
         solve="repro_torch.core.revised:solve_batched_revised",
         solve_compacted=("repro_torch.core.revised:"
                          "solve_batched_revised_compacted")),
+    # restarted primal-dual hybrid gradient, tolerance-based KKT
+    # convergence (core/pdhg.py); on cuda the kernels of
+    # kernels/csrc/pdhg_tile.cu; sparse batches go to core/sparse.py
+    "pdhg": BackendSpec(
+        name="pdhg", exact=False,
+        solve="repro_torch.core.pdhg:solve_batched_pdhg",
+        solve_compacted="repro_torch.core.pdhg:solve_batched_pdhg_compacted",
+        bytes_per_lp="repro_torch.core.pdhg:pdhg_bytes_per_lp"),
 }
-
-# Engines of the reference package that the port has not reached yet.
-UNPORTED_BACKENDS = ("pdhg",)
 
 BACKENDS = tuple(BACKEND_REGISTRY)
 
 
 def canonicalize_backend(backend: str) -> str:
-    """Validate a solver-engine name (shared by every ``backend=`` kwarg).
-    Reference engines the port has not reached raise ``NotImplementedError``."""
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1: 'Modules to port, in order')")
+    """Validate a solver-engine name (shared by every ``backend=`` kwarg)."""
     if backend not in BACKEND_REGISTRY:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
@@ -109,10 +113,14 @@ def resolve_backend(backend: str, *, compacted: bool = False):
     """Late-bound batched entry point of an engine (its scheduled one when
     ``compacted``).  Importing lazily keeps the registry cycle-free (engine
     modules import this module)."""
+    spec = backend_spec(backend)
+    return load_entry(spec.solve_compacted if compacted else spec.solve)
+
+
+def load_entry(target: str):
+    """The object a registry string ``"module:attr"`` names."""
     import importlib
 
-    spec = backend_spec(backend)
-    target = spec.solve_compacted if compacted else spec.solve
     module, attr = target.split(":")
     return getattr(importlib.import_module(module), attr)
 

@@ -9,8 +9,11 @@ to both packages and their outputs compared field by field.
 the port's ``CompactionState``, so one segment launch can be compared tile
 by tile.  ``warm_from_reference`` and ``warm_to_reference`` carry a
 ``WarmStart`` (the solver state one solve hands the next) either way, so
-one parent basis can seed both packages.  All of them read attributes
-only; nothing here imports the reference package.
+one parent basis can seed both packages.  ``pdhg_state_from_reference``
+turns the reference's PDHG state (engine or tile layout) into the port's
+``PdhgState``, so one round or one segment launch runs from the same
+state in both packages.  All of them read attributes only; nothing here
+imports the reference package.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from .core.compaction import CompactionState
 from .core.forms import GeneralLPBatch
 from .core.lp import LPBatch, WarmStart
+from .core.pdhg import PdhgState
 
 RESULT_FIELDS = ("x", "objective", "status", "iterations", "y", "z")
 
@@ -97,3 +101,38 @@ def segment_state_from_tile(tile, *, m: int, n: int, stage: str,
         ub=put(np.asarray(tile.ub)[:, :n], f32),
         thr=put(np.asarray(tile.thr).reshape(-1), f32),
         work=torch.zeros((B, 3), dtype=i32, device=device))
+
+
+def pdhg_state_from_reference(ref, *, m: int, n: int, batch=None,
+                              device="cpu") -> PdhgState:
+    """The port's ``PdhgState`` with the leaves of a reference
+    ``core.pdhg.PdhgState`` or of a ``kernels.pdhg_tile.PdhgTileState``
+    (rows padded to 8, lanes to 128, the batch to a tile multiple, (B, 1)
+    scalars; the padding is cut off, and the batch to its first ``batch``
+    members when given).  Telemetry lanes are not carried."""
+    B = np.asarray(ref.x).shape[0] if batch is None else int(batch)
+
+    def put(name, cols=None, dtype=torch.float32, shape=None):
+        a = np.asarray(getattr(ref, name))[:B]
+        if cols is not None:
+            a = a[:, :cols]
+        a = a.reshape(B) if shape == "B" else a.reshape(B, -1) \
+            if shape == "B1" else a
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    last = "last_res" if hasattr(ref, "last_res") else "last"
+    prev = "prev_res" if hasattr(ref, "prev_res") else "prev"
+    i32 = torch.int32
+    return PdhgState(
+        A=torch.as_tensor(np.array(np.asarray(ref.A)[:B, :m, :n]),
+                          dtype=torch.float32, device=device),
+        b=put("b", m), c=put("c", n), rsc=put("rsc", m), csc=put("csc", n),
+        ub=put("ub", n), eta=put("eta", shape="B1"),
+        omega=put("omega", shape="B1"), binf=put("binf", shape="B"),
+        cinf=put("cinf", shape="B"), x=put("x", n), y=put("y", m),
+        xs=put("xs", n), ys=put("ys", m), xr=put("xr", n), yr=put("yr", m),
+        cnt=put("cnt", shape="B"), last_res=put(last, shape="B"),
+        prev_res=put(prev, shape="B"), phase=put("phase", dtype=i32,
+                                                 shape="B"),
+        status=put("status", dtype=i32, shape="B"),
+        iters=put("iters", dtype=i32, shape="B"))

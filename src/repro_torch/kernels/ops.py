@@ -1,9 +1,10 @@
 """Batched entry points of the CUDA kernels.
 
-``solve_batched_kernel`` is the counterpart of the tableau and revised
-branches of ``repro.kernels.ops.solve_batched_pallas``: same ``LPBatch`` ->
-``LPResult`` contract as the engines (core/simplex.py, core/revised.py),
-and what core/batching.py ``solve_batched`` runs on the card.
+``solve_batched_kernel`` is the counterpart of the tableau, revised and
+pdhg branches of ``repro.kernels.ops.solve_batched_pallas``: same
+``LPBatch`` -> ``LPResult`` contract as the engines (core/simplex.py,
+core/revised.py, core/pdhg.py), and what core/batching.py
+``solve_batched`` runs on the card.
 
 * ``backend="tableau"``: with ``compaction=False`` one launch of the
   whole-solve kernel solves the batch; with ``compaction=True`` the
@@ -18,6 +19,13 @@ and what core/batching.py ``solve_batched`` runs on the card.
   (``revised_tile``), with ``warm=`` injected and the result's ``warm``
   capture, or under the scheduler through ``RevisedKernelBackend``, the
   counterpart of ``RevisedPallasBackend``.
+* ``backend="pdhg"``: one launch of the whole-solve PDHG kernel
+  (``pdhg_tile``, either ``step_rule``), with ``warm=`` injected (x, y,
+  omega; the reference's tile kernel starts cold) and the result's
+  ``warm`` capture (x, y, omega, eta), or under the scheduler through
+  ``PdhgKernelBackend``, the counterpart of ``PdhgPallasBackend`` (the
+  fixed step only, as in the reference).  ``tol`` is the relative KKT
+  tolerance and ``max_iters`` counts PDHG iterations.
 
 A ``GeneralLPBatch`` is canonicalized on ingestion and recovered on the
 way out.
@@ -37,6 +45,10 @@ from ..core.compaction import SegmentStat, TorchBackend, schedule_batch
 from ..core.forms import ensure_canonical, finish_result, prepare_warm
 from ..core.lp import (LPBatch, LPResult, WarmStart, canonicalize_backend,
                        default_max_iters)
+from ..core.pdhg import (DEFAULT_TOL, PdhgBackend,
+                         _check_pdhg_pricing, canonicalize_step_rule,
+                         check_compacted_step_rule, default_pdhg_max_iters,
+                         pdhg_result, schedule_pdhg, warm_tensors)
 from ..core.pricing import canonicalize_rule
 from ..core.revised import (RevisedBackend, auto_refactor_period,
                             canonicalize_revised_rule, revised_result)
@@ -44,6 +56,7 @@ from ..core.simplex import (batch_tensors, default_tolerances,
                             warm_basis_arrays)
 from ..device import resolve_device
 from .hyperbox_kernel import hyperbox_tile
+from .pdhg_tile import pdhg_segment_tile, pdhg_tile
 from .revised_tile import revised_segment_tile, revised_tile
 from .simplex_tile import segment_tile, simplex_tile
 
@@ -75,6 +88,21 @@ class RevisedKernelBackend(RevisedBackend):
                                     rule=self.rule)
 
 
+class PdhgKernelBackend(PdhgBackend):
+    """Scheduler backend whose segments run the CUDA PDHG kernel
+    (``pdhg_segment_tile``; its plain version on CPU tensors).  State
+    layout, gathers and extraction are ``PdhgBackend``'s: one block per
+    LP on the unpadded state, so there are no tiles to fill.  A round is
+    the kernel's ``CHECK_EVERY`` iterations."""
+
+    def __init__(self, m: int, n: int, tol: float = DEFAULT_TOL):
+        super().__init__(m, n, tol)
+
+    def segment(self, state, steps: int, stage: str, max_iters: int):
+        return pdhg_segment_tile(state, steps, m=self.m, n=self.n,
+                                 max_rounds=max_iters, tol=self.tol)
+
+
 def solve_batched_kernel(batch: LPBatch, *, device=None,
                          max_iters: int | None = None,
                          tol: float | None = None,
@@ -88,19 +116,27 @@ def solve_batched_kernel(batch: LPBatch, *, device=None,
                          stats_out: Optional[List[SegmentStat]] = None,
                          backend: str = "tableau",
                          refactor_period: Optional[int] = None,
-                         warm: Optional[WarmStart] = None) -> LPResult:
+                         warm: Optional[WarmStart] = None,
+                         step_rule: str = "fixed") -> LPResult:
     """Solve a batch through the CUDA kernels (their plain versions on
     ``device="cpu"``): one whole-solve launch, or with ``compaction=True``
     segments of at most ``segment_k`` steps under the compaction scheduler
     (``compact_threshold`` and ``stats_out`` as in
     ``core.compaction.solve_batched_compacted``).  ``backend`` is
-    "tableau" or "revised" (``refactor_period``: the revised eta clock);
-    ``warm`` a parent's ``WarmStart``, injected by the revised kernel path
-    and ignored with a warning by the tableau one."""
+    "tableau", "revised" (``refactor_period``: the revised eta clock) or
+    "pdhg" (``step_rule`` as in ``core.pdhg.solve_batched_pdhg``);
+    ``warm`` a parent's ``WarmStart``, injected by the revised and pdhg
+    kernel paths and ignored with a warning by the tableau one."""
     batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     m, n = batch.m, batch.n
     warm = prepare_warm(warm, rec, batch)
+    if canonicalize_backend(backend) == "pdhg":
+        return finish_result(rec, _solve_pdhg_kernel(
+            batch, dev, max_iters=max_iters, tol=tol, pricing=pricing,
+            compaction=compaction, segment_k=segment_k,
+            compact_threshold=compact_threshold, stats_out=stats_out,
+            warm=warm, step_rule=step_rule))
     if canonicalize_backend(backend) == "revised":
         return finish_result(rec, _solve_revised_kernel(
             batch, dev, max_iters=max_iters, tol=tol, feas_tol=feas_tol,
@@ -160,6 +196,31 @@ def _solve_revised_kernel(batch: LPBatch, dev, *, max_iters, tol, feas_tol,
                        tol=tol, feas_tol=feas_tol, refactor_period=K,
                        pricing=rule, **warm_basis_arrays(warm))
     return revised_result(out, m=m, n=n, rule=rule)
+
+
+def _solve_pdhg_kernel(batch: LPBatch, dev, *, max_iters, tol, pricing,
+                       compaction, segment_k, compact_threshold, stats_out,
+                       warm, step_rule) -> LPResult:
+    """The pdhg branch of ``solve_batched_kernel`` on a canonical batch
+    with a validated carrier."""
+    _check_pdhg_pricing(pricing)
+    canonicalize_step_rule(step_rule)
+    m, n = batch.m, batch.n
+    tol = DEFAULT_TOL if tol is None else float(tol)
+    if compaction:
+        check_compacted_step_rule(step_rule)
+        runner = PdhgKernelBackend(m, n, tol)
+        return schedule_pdhg(runner, batch, dev, max_iters=max_iters,
+                             segment_k=segment_k,
+                             compact_threshold=compact_threshold,
+                             stats_out=stats_out, warm=warm)
+    if max_iters is None:
+        max_iters = default_pdhg_max_iters(m, n)
+    A, b, c, ub = batch_tensors(batch, dev)
+    out = pdhg_tile(A, b, c, ub, m=m, n=n, max_iters=int(max_iters),
+                    tol=tol, step_rule=step_rule,
+                    **warm_tensors(warm, dev))
+    return pdhg_result(out, m=m, n=n)
 
 
 def solve_hyperbox_kernel(lo, hi, d, *, device=None) -> np.ndarray:

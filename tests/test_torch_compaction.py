@@ -198,7 +198,7 @@ def test_custom_solver_must_accept_compaction():
     (dict(telemetry=True), "item 11"),
     (dict(tracer=object()), "item 11"),
     (dict(backend="revised", tracer=object()), "item 11"),
-    (dict(backend="pdhg"), "item 10"),
+    (dict(backend="pdhg", telemetry=True), "item 11"),
 ])
 def test_deferred_options_raise_and_name_their_roadmap_item(kw, item):
     batch = random_lp_batch(np.random.default_rng(4), B=2, m=3, n=3)

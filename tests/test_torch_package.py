@@ -22,7 +22,12 @@ from repro_torch.core.compaction import (CompactionState, TorchBackend,
                                          segment_pending,
                                          solve_batched_compacted)
 from repro_torch.core.forms import canonicalize
-from repro_torch.core.lp import LPBatch, canonicalize_backend, resolve_backend
+from repro_torch.core.lp import (LPBatch, backend_spec, canonicalize_backend,
+                                 resolve_backend)
+from repro_torch.core.pdhg import (PdhgState, init_pdhg_state,
+                                   solve_batched_pdhg,
+                                   solve_batched_pdhg_compacted)
+from repro_torch.core.sparse import SparseLPBatch, solve_batched_pdhg_sparse
 from repro_torch.core.reference import random_lp_batch
 from repro_torch.core.revised import (RevisedState, solve_batched_revised,
                                       solve_batched_revised_compacted,
@@ -30,6 +35,8 @@ from repro_torch.core.revised import (RevisedState, solve_batched_revised,
 from repro_torch.core.simplex import batch_tensors, solve_batched_torch
 from repro_torch.io import fixture_path, perturbed_batch, read_mps
 from repro_torch.kernels import (_build, hyperbox_tile, hyperbox_tile_plain,
+                                  pdhg_segment_tile, pdhg_segment_tile_plain,
+                                  pdhg_tile, pdhg_tile_plain,
                                   revised_segment_tile,
                                   revised_segment_tile_plain, segment_tile,
                                   segment_tile_plain, simplex_tile,
@@ -40,6 +47,9 @@ from repro_torch.kernels.revised_tile import (smem_bytes as
 from repro_torch.kernels.revised_tile import workspace_in_smem
 from repro_torch.kernels.ops import (KernelBackend, solve_batched_kernel,
                                      solve_hyperbox_kernel)
+from repro_torch.kernels.pdhg_tile import a_in_smem as pdhg_a_in_smem
+from repro_torch.kernels.pdhg_tile import block_threads as pdhg_threads
+from repro_torch.kernels.pdhg_tile import smem_bytes as pdhg_smem_bytes
 from repro_torch.kernels.simplex_tile import (WORK_COUNTERS, block_threads,
                                               smem_bytes, tableau_in_smem)
 
@@ -150,19 +160,29 @@ def test_work_counts_add_up_to_the_iterations(pricing, feasible_start):
 
 
 def test_unported_backends_raise_and_unknown_names_are_rejected():
+    """Every engine of the reference is ported: pdhg resolves and solves
+    through each entry point (the same plain engine on the CPU, so the
+    results are equal bit for bit); unknown names are still rejected."""
     assert resolve_backend("tableau") is solve_batched_torch
     assert resolve_backend("tableau", compacted=True) \
         is solve_batched_compacted
     assert resolve_backend("revised") is solve_batched_revised
     assert resolve_backend("revised", compacted=True) \
         is solve_batched_revised_compacted
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_backend("pdhg")
+    assert resolve_backend("pdhg") is solve_batched_pdhg
+    assert resolve_backend("pdhg", compacted=True) \
+        is solve_batched_pdhg_compacted
+    assert not backend_spec("pdhg").exact
+    small = random_lp_batch(np.random.default_rng(0), B=2, m=3, n=3)
+    want = solve_batched_pdhg(small, device="cpu")
+    assert (want.status == 0).all()
     for solve in (batching.solve_batched, solve_batched_kernel,
-                  solve_batched_compacted):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solve(random_lp_batch(np.random.default_rng(0), B=2, m=3, n=3),
-                  device="cpu", backend="pdhg")
+                  solve_batched_compacted,
+                  lambda b, **kw: solve_batched_kernel(b, compaction=True,
+                                                       **kw)):
+        got = solve(small, device="cpu", backend="pdhg")
+        for f in ("status", "iterations", "x", "objective", "y", "z"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     with pytest.raises(ValueError):
         canonicalize_backend("simplex")
     batch = random_lp_batch(np.random.default_rng(1), B=3, m=4, n=4)
@@ -551,3 +571,154 @@ def test_revised_warm_resolve_takes_no_pivots_on_the_card():
     plain = solve_batched_revised(batch, device="cuda")
     for f in ("status", "iterations", "x", "objective", "y", "z"):
         np.testing.assert_array_equal(getattr(cold, f), getattr(plain, f))
+
+
+# ---- restarted PDHG (csrc/pdhg_tile.cu) -------------------------------------
+
+def test_pdhg_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    batch = random_lp_batch(np.random.default_rng(0), B=2, m=3, n=3)
+    for solve in (solve_batched_pdhg, solve_batched_pdhg_compacted,
+                  lambda b: batching.solve_batched(b, backend="pdhg"),
+                  lambda b: solve_batched_kernel(b, backend="pdhg"),
+                  lambda b: solve_batched_pdhg_sparse(
+                      SparseLPBatch.from_dense(b))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            solve(batch)
+
+
+def _pdhg_state(seed=0, B=6, m=4, n=5, device="cpu"):
+    (A, b, c, ub), m, n = _small_inputs(seed, B, m, n)
+    state = init_pdhg_state(A, b, c, ub)
+    return PdhgState(*(leaf.to(device) for leaf in state)), (A, b, c, ub), \
+        m, n
+
+
+@pytest.mark.parametrize("rule", ["fixed", "malitsky_pock"])
+def test_pdhg_cpu_tensors_take_the_plain_version_and_count_no_launch(rule):
+    _, (A, b, c, ub), m, n = _pdhg_state()
+    before = pdhg_tile.launches
+    got = pdhg_tile(A, b, c, ub, m=m, n=n, max_iters=2000, step_rule=rule)
+    want = pdhg_tile_plain(A, b, c, ub, m=m, n=n, max_iters=2000,
+                           step_rule=rule)
+    assert pdhg_tile.launches == before
+    assert len(got) == 10
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+def test_pdhg_segment_on_cpu_tensors_is_the_plain_version_with_no_launch():
+    state, _, m, n = _pdhg_state(seed=1)
+    before = pdhg_segment_tile.launches
+    got, it = pdhg_segment_tile(state, 5, m=m, n=n, max_rounds=100)
+    want, want_it = pdhg_segment_tile_plain(state, 5, max_rounds=100)
+    assert pdhg_segment_tile.launches == before
+    torch.testing.assert_close(it, want_it, rtol=0, atol=0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+def test_pdhg_wrapper_rejects_what_the_kernel_does_not_take():
+    state, (A, b, c, ub), m, n = _pdhg_state()
+    kw = dict(m=m, n=n, max_rounds=10)
+    bad = {"A": state.A.double(), "status": state.status.to(torch.int64),
+           "cnt": state.cnt.double()}
+    for leaf, value in bad.items():
+        with pytest.raises(TypeError, match=leaf):
+            pdhg_segment_tile(state._replace(**{leaf: value}), 2, **kw)
+    with pytest.raises(ValueError, match="eta has shape"):
+        pdhg_segment_tile(state._replace(eta=state.eta[:, 0]), 2, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        pdhg_segment_tile(state._replace(x=state.x.t().contiguous().t()), 2,
+                          **kw)
+    with pytest.raises(ValueError, match="step_rule"):
+        pdhg_tile(A, b, c, ub, m=m, n=n, max_iters=10, step_rule="armijo")
+
+
+def test_pdhg_kernel_source_is_built_with_the_others():
+    assert "pdhg_tile" in _build.SOURCES
+    text = (_build.CSRC / "pdhg_tile.cu").read_text()
+    assert "pdhg_launch" in text
+    for name in ("_pdhg_kernel", "_pdhg_segment_kernel"):  # what it replaces
+        assert name in text
+    for m, n in ((100, 100), (35, 32), (246, 159), (300, 300)):
+        assert pdhg_threads(m, n) in (128, 256)
+
+
+@pytest.mark.gpu
+def test_pdhg_shared_memory_budget():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and the built kernel")
+    assert pdhg_a_in_smem(100, 100) and pdhg_a_in_smem(35, 32)
+    assert pdhg_a_in_smem(246, 159)
+    assert not pdhg_a_in_smem(300, 300)
+    assert not pdhg_a_in_smem(300, 40)   # fits, but more than 256 rows
+    for m, n in ((100, 100), (246, 159)):
+        assert (pdhg_smem_bytes(m, n) - pdhg_smem_bytes(m, n, a_smem=False)) \
+            == 4 * m * (n | 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["fixed", "malitsky_pock"])
+def test_pdhg_kernel_matches_plain_version_on_the_card(rule):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    sc, _ = canonicalize(perturbed_batch(read_mps(fixture_path("sc205_like")),
+                                         3, rng))
+    for batch, cap in ((random_lp_batch(rng, B=64, m=30, n=24,
+                                        feasible_start=False), 4000),
+                       (sc, 320)):
+        m, n = batch.m, batch.n
+        A, b, c, ub = batch_tensors(batch, dev)
+        before = pdhg_tile.launches
+        got = pdhg_tile(A, b, c, ub, m=m, n=n, max_iters=cap, step_rule=rule)
+        torch.cuda.synchronize()
+        assert pdhg_tile.launches == before + 1
+        want = pdhg_tile_plain(A, b, c, ub, m=m, n=n, max_iters=cap,
+                               step_rule=rule)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_pdhg_segment_kernel_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    state, _, m, n = _pdhg_state(seed=2, B=64, m=30, n=24,
+                                 device=torch.device("cuda"))
+    for _ in range(3):
+        before = pdhg_segment_tile.launches
+        got, it = pdhg_segment_tile(PdhgState(*(t.clone() for t in state)),
+                                    7, m=m, n=n, max_rounds=40)
+        torch.cuda.synchronize()
+        assert pdhg_segment_tile.launches == before + 1
+        want, want_it = pdhg_segment_tile_plain(state, 7, max_rounds=40)
+        torch.testing.assert_close(it, want_it, rtol=0, atol=0)
+        for name, g, w in zip(PdhgState._fields, got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
+                                       msg=name)
+        state = want
+
+
+@pytest.mark.gpu
+def test_pdhg_compaction_equals_the_whole_solve_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    batch = random_lp_batch(np.random.default_rng(6), B=200, m=20, n=16,
+                            feasible_start=False)
+    before = (pdhg_tile.launches, pdhg_segment_tile.launches)
+    whole = solve_batched_kernel(batch, device="cuda", backend="pdhg")
+    sched = solve_batched_kernel(batch, device="cuda", backend="pdhg",
+                                 compaction=True, segment_k=5)
+    assert pdhg_tile.launches == before[0] + 1
+    assert pdhg_segment_tile.launches > before[1]
+    plain = solve_batched_pdhg(batch, device="cuda")
+    for f in ("status", "iterations", "x", "objective", "y", "z"):
+        np.testing.assert_array_equal(getattr(sched, f), getattr(whole, f))
+        np.testing.assert_array_equal(getattr(plain, f), getattr(whole, f))
+    warm = solve_batched_kernel(batch, device="cuda", backend="pdhg",
+                                warm=whole.warm_start())
+    assert warm.iterations.mean() <= 0.25 * whole.iterations.mean()
+    np.testing.assert_array_equal(warm.status, whole.status)
