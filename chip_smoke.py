@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
-source, in parallel), then drives the port's main path,
+source, in parallel), then drives the port's main paths: first
 ``repro_torch.core.solve_batched`` with no device argument, at two of the
 paper's workloads (src/repro/configs/paper_lp.py):
 
@@ -81,12 +81,30 @@ kernel at ``max_iters`` 20,000 (equal statuses, objectives within rel
 equal).  Last, the whole-solve kernel is timed on all 50,000 LPs beside
 its bound and a torch.bmm yardstick.
 
+Serving (after the box LP, once the LP data is freed): falcon-mamba-7b at
+its published config (64 layers, d_model 4096, d_inner 8192, bf16
+parameters drawn on the card from a seeded generator), as shipped (the
+card always scans with the CUDA kernel), serves 2 waves of 4 prompts of
+1,024 tokens (two 512-token scan chunks, so the carry reaches the kernel's
+h0) and 32 generated tokens through ``repro_torch.launch.serve.serve``;
+the scan kernel must launch exactly 64 x 2 x 2 = 256 times and no other
+kernel.  Tokens/s, time to first token, prefill and decode seconds, peak
+device memory and the matmul policy (no TF32, bf16 products reduced in
+float32) are printed.  The kernel is held against ``ssm_scan_plain`` on
+the inputs the served run handed it in layer 0's and layer 63's second
+chunk and at four odd shapes (``max_abs_err`` 0.0), prefill(511) + one
+decode step is compared with prefill(512) (recorded, not asserted, in
+bf16, and traced against a float32 twin of the model), and the kernel is
+timed at (4, 512, 8192, 16) beside its bytes bound, its plain version and
+a ``torch.add`` of the same bytes.
+
 Every launch counter is zeroed just before each main-path run and read just
 after.  Lines of JSON report each phase; the line before the last is the
 kernel table, then the card's name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero without that line; so does a run without a card.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -118,11 +136,11 @@ def gpu_line() -> str:
 def _wrappers():
     from repro_torch.kernels import (hyperbox_tile, pdhg_segment_tile,
                                      pdhg_tile, revised_segment_tile,
-                                     segment_tile, simplex_tile)
+                                     segment_tile, simplex_tile, ssm_scan)
     return {"simplex_tile": simplex_tile, "simplex_segment": segment_tile,
             "hyperbox": hyperbox_tile,
             "revised_segment": revised_segment_tile, "pdhg": pdhg_tile,
-            "pdhg_segment": pdhg_segment_tile}
+            "pdhg_segment": pdhg_segment_tile, "ssm_scan": ssm_scan}
 
 
 def zero_counts():
@@ -1415,6 +1433,262 @@ def pdhg_full_batch(lp):
     return info
 
 
+# ---- falcon-mamba-7b serving (models/, csrc/ssm_scan.cu) ------------------
+
+SERVE_ARCH = "falcon-mamba-7b"
+SERVE_SEED = 2018
+SERVE = {"batch": 4, "prompt_len": 1024, "gen": 32, "requests": 2}
+SCAN_CHUNK = 512             # mamba_apply's chunk: two per 1,024-token prompt
+ODD_SCANS = ((1, 8, 8, 2), (2, 16, 24, 4), (2, 33, 130, 16), (3, 7, 256, 16))
+
+
+def scan_vs_plain(dA, dBx, h0):
+    """One kernel launch against ssm_scan_plain on the same card tensors;
+    returns the largest |kernel - plain| over hs and hT."""
+    import torch
+    from repro_torch.kernels import ssm_scan_bt_ds, ssm_scan_plain
+    hs, hT = ssm_scan_bt_ds(dA, dBx, h0)
+    want_hs, want_hT = ssm_scan_plain(dA, dBx, h0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(hs).all() and torch.isfinite(hT).all()
+    return max(float((hs - want_hs).abs().max()),
+               float((hT - want_hT).abs().max()))
+
+
+def kernel_profile(fn, top=6):
+    """The device time of the kernels fn() launches, from torch.profiler:
+    (milliseconds summed over every kernel, the ``top`` largest by name
+    with their milliseconds and counts)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert kernels, "the profiler saw no device time"
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return total, [{"kernel": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                    "count": e.count} for e in kernels[:top]]
+
+
+@contextlib.contextmanager
+def scan_inputs_kept(calls):
+    """Keep the (dA, dBx, h0) that mamba_apply hands the scan kernel in
+    the calls numbered ``calls`` (from 0; layer l's chunk c of the first
+    prefill is call l * chunks + c).  Yields {call: (dA, dBx, h0)}; the
+    kernel runs and counts as it does without this."""
+    from repro_torch.models import mamba
+    real, kept, n = mamba.ssm_scan_bt_ds, {}, [0]
+
+    def keep(dA, dBx, h0):
+        if n[0] in calls:
+            kept[n[0]] = (dA, dBx, h0)
+        n[0] += 1
+        return real(dA, dBx, h0)
+
+    mamba.ssm_scan_bt_ds = keep
+    try:
+        yield kept
+    finally:
+        mamba.ssm_scan_bt_ds = real
+
+
+def float32_twin(model):
+    """The same LM in float32: its bf16 parameters widened (exactly),
+    activations and products in float32, the scan unchanged."""
+    import torch
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(model.cfg, dtype="float32",
+                              param_dtype="float32")
+    twin = LM(cfg, device=model.device)       # uninitialized, then copied
+    with torch.no_grad():
+        for dst, src in zip(twin.parameters(), model.parameters()):
+            assert dst.shape == src.shape
+            dst.copy_(src)
+    return twin
+
+
+def step_gap(model, prompts, n):
+    """prefill(n - 1) then one decode step against prefill(n): the two
+    last-position logits (float32, the real vocab)."""
+    import torch
+    V = model.cfg.vocab
+    pos = torch.full((prompts.shape[0],), n - 1, device=prompts.device)
+    _, caches = model.prefill(prompts[:, :n - 1])
+    stepped, _ = model.decode_step(caches, prompts[:, n - 1], pos)
+    whole, _ = model.prefill(prompts[:, :n])
+    return stepped[:, :V].float(), whole[:, :V].float(), caches, pos
+
+
+def logit_gap(got, want):
+    """Largest |got - want| over the logit scale (max |want|), and the
+    share of rows whose argmax agrees."""
+    scale = float(want.abs().max())
+    return {"max_abs_logit_diff": float((got - want).abs().max()),
+            "logit_scale": scale,
+            "max_rel_logit_diff": float((got - want).abs().max()) / scale,
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean())}
+
+
+def serving():
+    """falcon-mamba-7b at its published config (64 layers, bf16) served
+    through repro_torch.launch.serve.serve with the config as shipped (the
+    card always scans with the CUDA kernel); the kernel held against its
+    plain version on the inputs the served run handed it and at odd
+    shapes, prefill/decode consistency recorded and traced against a
+    float32 twin, the kernel timed."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssm_scan_bt_ds, ssm_scan_plain
+    from repro_torch.launch.serve import serve, set_matmul_policy
+    from repro_torch.models import build_model
+
+    policy = set_matmul_policy()
+    cfg = get_config(SERVE_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.param_dtype) == \
+        (64, 4096, 8192, "bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED)     # drawn on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+
+    # the first wave's second chunk in layers 0 and 63 (h0 != 0), kept as
+    # the served run hands them to the kernel
+    chunks = SERVE["prompt_len"] // SCAN_CHUNK
+    last = cfg.n_layers - 1
+    calls = {layer: layer * chunks + 1 for layer in (0, last)}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with scan_inputs_kept(set(calls.values())) as kept:
+        res = serve(cfg, model, seed=SERVE_SEED, **SERVE)
+    launches = only("ssm_scan")
+    assert launches == cfg.n_layers * chunks * SERVE["requests"] == 256, \
+        launches
+    peak = torch.cuda.max_memory_allocated()
+    real = {layer: kept[call] for layer, call in calls.items()}
+    kept_bytes = sum(t.numel() * 4 for ins in real.values() for t in ins)
+    tokens = res["tokens"]
+    assert tokens.shape == (SERVE["requests"], SERVE["batch"], SERVE["gen"])
+    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    wave_tokens = SERVE["batch"] * SERVE["gen"]
+    emit({"serve": SERVE_ARCH, "config": {
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+              "dt_rank": cfg.dt_rank, "vocab": cfg.vocab,
+              "dtype": cfg.dtype},
+          "params": n_params, "param_bytes": param_bytes,
+          "init_on_card_s": init_s, **SERVE, "seed": SERVE_SEED,
+          "matmul_policy": policy, "scan_launches": launches,
+          "tokens_per_s": res["tokens_per_s"], "wall_s": res["wall_s"],
+          "tokens_per_s_by_wave": [
+              wave_tokens / (p + d)
+              for p, d in zip(res["prefill_s"], res["decode_s"])],
+          "ttft_s": res["prefill_s"], "prefill_s": res["prefill_s"],
+          "decode_s": res["decode_s"],
+          "decode_ms_per_token_step": [
+              1e3 * d / (SERVE["gen"] - 1) for d in res["decode_s"]],
+          "peak_device_bytes": peak,
+          "peak_includes_kept_scan_input_bytes": kept_bytes,
+          "sample_tokens": tokens[:, 0, :8].tolist()})
+
+    rng = np.random.default_rng(SERVE_SEED)   # serve's first wave
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (SERVE["batch"], SERVE["prompt_len"])),
+        dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        # the kernel against its plain version on the kept inputs
+        errs = {}
+        for layer, (dA, dBx, h0) in real.items():
+            assert float(h0.abs().max()) > 0
+            errs[f"layer{layer}"] = scan_vs_plain(dA, dBx, h0)
+        for shape in ODD_SCANS:
+            g = np.random.default_rng(shape[1])
+            put = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                         device="cuda")
+            B, T, d, s = shape
+            errs[str(shape)] = scan_vs_plain(
+                put(g.uniform(0.5, 1.0, (B, T, d, s))),
+                put(g.normal(size=(B, T, d, s)) * 0.1),
+                put(g.normal(size=(B, d, s)) * 0.1))
+        max_err = max(errs.values())
+        assert max_err == 0.0, errs
+
+        # prefill(511) + one decode step against prefill(512): recorded,
+        # not asserted, in bf16 at depth 64 (the CPU and card tests assert
+        # it in float32).  The float32 twin computes the same function
+        # with the same scan: its own gap shows what the decode path adds,
+        # and its distance from the bf16 prefill what bf16 rounding does.
+        n = SCAN_CHUNK
+        stepped, whole, caches, pos = step_gap(model, prompts, n)
+        consistency = {"bf16_decode_vs_prefill": logit_gap(stepped, whole)}
+        twin = float32_twin(model)
+        stepped32, whole32, _, _ = step_gap(twin, prompts, n)
+        del twin
+        torch.cuda.empty_cache()
+        consistency["float32_decode_vs_prefill"] = logit_gap(stepped32,
+                                                             whole32)
+        consistency["bf16_vs_float32_prefill"] = logit_gap(whole, whole32)
+        consistency["bf16_vs_float32_decode"] = logit_gap(stepped, stepped32)
+        emit({"prefill_decode_consistency": consistency})
+
+        # the kernels' device time in one decode step and in one 1,024-token
+        # prefill; beside the served run's wall times (its last wave) they
+        # give the share of the time the card was busy.  The profiled
+        # prefill is wave 0's again: it must give wave 0's first tokens.
+        step_ms, step_top = kernel_profile(
+            lambda: model.decode_step(caches, prompts[:, n - 1], pos))
+        again = []
+        prefill_ms, prefill_top = kernel_profile(
+            lambda: again.append(model.prefill(prompts)[0]))
+        first_tok = again[0][:, :cfg.vocab].argmax(-1).cpu().numpy()
+        del caches, stepped, whole, stepped32, whole32, again
+    del model
+    torch.cuda.empty_cache()
+
+    # the kernel timed on layer 0's served inputs at the serving shape
+    dA, dBx, h0 = real[0]
+    del real, kept
+    hs = torch.empty_like(dA)
+    ms = timed_avg(lambda: ssm_scan_bt_ds(dA, dBx, h0))
+    plain_ms = timed_avg(lambda: ssm_scan_plain(dA, dBx, h0), reps=3)
+    yard_ms = timed_avg(lambda: torch.add(dA, dBx, out=hs))
+    # dA, dBx and h0 read once, hs and hT written once (float32)
+    B, T = dA.shape[:2]
+    L = dA.shape[2] * dA.shape[3]
+    nbytes = 4 * (3 * B * T * L + 2 * B * L)
+    info = {"kernel": "ssm_scan", "shape": list(dA.shape),
+            "first_token_reproduced": bool(
+                (first_tok == tokens[0, :, 0]).all()),
+            "kernel_vs_plain_max_abs_err": errs, "max_abs_err": max_err,
+            "decode_step_kernel_ms": step_ms,
+            "decode_busy_share": step_ms / (
+                1e3 * res["decode_s"][-1] / (SERVE["gen"] - 1)),
+            "decode_top_kernels": step_top,
+            "prefill_kernel_ms": prefill_ms,
+            "prefill_busy_share": prefill_ms / (1e3 * res["prefill_s"][-1]),
+            "prefill_top_kernels": prefill_top,
+            "ms": ms, "plain_ms": plain_ms, "yardstick_ms": yard_ms,
+            "yardstick": "torch.add(dA, dBx, out=hs): the same bytes; no "
+                         "PyTorch call computes the recurrence",
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "bound_by": "bytes", "launches": launches,
+            "achieved_bytes_per_s": nbytes / (ms * 1e-3)}
+    emit(info)
+    del dA, dBx, h0, hs
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1545,6 +1819,9 @@ def main() -> int:
 
     # ---- box LP: the hyperbox kernel --------------------------------------
     box = box_lp()
+
+    # ---- falcon-mamba-7b serving: the selective-scan kernel ----------------
+    scan = serving()
     emit({"total_s": time.perf_counter() - t_start})
 
     main_row = rows[0]   # lp_100d_50k slice, dantzig: the paper's rule
@@ -1620,7 +1897,18 @@ def main() -> int:
         "parity": "one launch leaf by leaf; the kernel-backed schedule "
                   "equal to the plain-backed one and to the whole solve; "
                   "compaction=True on all 50,000 equal to the whole "
-                  "solve"}]})
+                  "solve"}, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:44",
+        "launches": scan["launches"], "max_abs_err": scan["max_abs_err"],
+        "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
+        "library_ms": None, "yardstick_ms": scan["yardstick_ms"],
+        "yardstick": scan["yardstick"], "shape": scan["shape"],
+        "parity": "hs and hT equal to the plain version on layer 0's and "
+                  "layer 63's second-chunk inputs and at four odd "
+                  "shapes"}]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,49 @@
+"""Architecture registry of the port: the reference's ids, with the
+constructors of the architectures ported so far.
+
+``ARCH_IDS`` and ``CANONICAL`` are the reference's (``repro/configs``).
+Only falcon-mamba-7b runs in the port yet; ``get_config`` of any other id
+raises ``NotImplementedError`` (ROADMAP queue 1 item 15 lists the model
+modules and configs still to port).
+"""
+from importlib import import_module
+
+ARCH_IDS = (
+    "deepseek_v2_236b",
+    "llama4_scout_17b_a16e",
+    "falcon_mamba_7b",
+    "whisper_small",
+    "qwen3_32b",
+    "granite_20b",
+    "nemotron_4_340b",
+    "llama3_405b",
+    "hymba_1_5b",
+    "phi_3_vision_4_2b",
+)
+
+# canonical dashed ids from the assignment table
+CANONICAL = {
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "whisper-small": "whisper_small",
+    "qwen3-32b": "qwen3_32b",
+    "granite-20b": "granite_20b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "llama3-405b": "llama3_405b",
+    "hymba-1.5b": "hymba_1_5b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+}
+
+PORTED = ("falcon_mamba_7b",)
+
+
+def get_config(arch: str):
+    key = CANONICAL.get(arch, arch).replace("-", "_").replace(".", "_")
+    if key not in ARCH_IDS:
+        raise KeyError(f"unknown architecture {arch!r}")
+    if key not in PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported yet (ROADMAP queue 1 item 15); the port "
+            f"runs {', '.join(PORTED)}")
+    return import_module(f"repro_torch.configs.{key}").config()

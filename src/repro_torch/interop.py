@@ -12,8 +12,10 @@ by tile.  ``warm_from_reference`` and ``warm_to_reference`` carry a
 one parent basis can seed both packages.  ``pdhg_state_from_reference``
 turns the reference's PDHG state (engine or tile layout) into the port's
 ``PdhgState``, so one round or one segment launch runs from the same
-state in both packages.  All of them read attributes only; nothing here
-imports the reference package.
+state in both packages.  ``lm_from_reference`` turns the reference LM's
+parameter tree into the port's ``LM``, so both compute the same function.
+All of them read attributes only; nothing here imports the reference
+package.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from .core.compaction import CompactionState
 from .core.forms import GeneralLPBatch
 from .core.lp import LPBatch, WarmStart
 from .core.pdhg import PdhgState
+from .models.transformer import LM
 
 RESULT_FIELDS = ("x", "objective", "status", "iterations", "y", "z")
 
@@ -136,3 +139,36 @@ def pdhg_state_from_reference(ref, *, m: int, n: int, batch=None,
                                                  shape="B"),
         status=put("status", dtype=i32, shape="B"),
         iters=put("iters", dtype=i32, shape="B"))
+
+
+def lm_from_reference(cfg, params_np, device="cpu") -> LM:
+    """The port's ``LM`` of ``cfg`` on ``device`` with the reference LM's
+    parameters: ``params_np`` is ``jax.tree.map(np.asarray, params)`` of
+    ``repro.models.LM(cfg).init(key)[0]``, layers stacked on axis 0.  Both
+    keep weights as (in, out), so each leaf is a copy (through float32,
+    which holds bfloat16 exactly)."""
+    model = LM(cfg, device=torch.device(device))
+
+    def put(dst, src):
+        src = torch.from_numpy(np.array(src, dtype=np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"reference leaf has shape {tuple(src.shape)}, "
+                             f"the port's {tuple(dst.shape)}")
+        dst.copy_(src)
+
+    def put_group(dst, src, layer=None):
+        if set(src) != set(dst.keys()):
+            raise ValueError(f"reference leaves {sorted(src)} differ from "
+                             f"the port's {sorted(dst.keys())}")
+        for name, value in src.items():
+            put(dst[name],
+                value if layer is None else np.asarray(value)[layer])
+
+    with torch.no_grad():
+        put_group(model.embed, params_np["embed"])
+        for i, block in enumerate(model.blocks):
+            put_group(block.norm1, params_np["layers"]["norm1"], i)
+            put_group(block.ssm, params_np["layers"]["ssm"], i)
+        put_group(model.final_norm, params_np["final_norm"])
+        put_group(model.head, params_np.get("head") or {})
+    return model

@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("simplex_tile", "hyperbox", "revised_tile", "pdhg_tile")
+SOURCES = ("simplex_tile", "hyperbox", "revised_tile", "pdhg_tile",
+           "ssm_scan")
 # sm_90a: Hopper.  -fmad=false keeps nvcc from contracting a*b+c on its
 # own; the sources request every fused multiply-add explicitly.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,17 @@
+"""The port's model zoo: so far the ssm family (falcon-mamba-7b), whose
+prefill runs the CUDA selective-scan kernel on the card."""
+import torch
+
+from ..device import resolve_device
+from .config import SHAPES, ModelConfig, ShapeCell, shape_by_name  # noqa: F401
+from .transformer import LM  # noqa: F401
+
+
+def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> LM:
+    """The LM of ``cfg`` with parameters drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (the card unless ``device="cpu"``;
+    ``None`` without a card raises)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return LM(cfg, device=dev, generator=gen)

@@ -1,0 +1,104 @@
+"""Shared layers of the port's LM: parameter inits, norms, embedding and
+logits (the reference's ``models/layers.py``).
+
+Inits draw from an explicit ``torch.Generator`` at the reference's scales
+and dtypes: a normal sample in float32, scaled, then cast to the parameter
+dtype.  The two frameworks give different numbers from one seed, so tests
+carry the reference's parameters over with ``interop.lm_from_reference``;
+with ``gen=None`` an init allocates its tensor uninitialized for that.
+Weights keep the reference's (in, out) layout, so ``x @ w`` is the
+reference's product.  The MLPs, RoPE and the cross entropy wait for the
+slices that run them (ROADMAP queue 1 item 15).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .config import ModelConfig
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``torch.bfloat16`` for "bfloat16" and so on."""
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+def normal_init(gen, shape, scale: float, dtype, device) -> torch.Tensor:
+    """``normal(shape) * scale`` drawn in float32 from ``gen``, cast to
+    ``dtype``; uninitialized when ``gen`` is None."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return w.mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# param init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen, in_dim: int, out_dim: int, dtype, device) -> torch.Tensor:
+    """An (in_dim, out_dim) weight with entries N(0, 1/in_dim)."""
+    return normal_init(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim), dtype,
+                       device)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_init(d: int, kind: str, dtype, device) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": torch.ones(d, dtype=dtype, device=device)}
+    return {"scale": torch.ones(d, dtype=dtype, device=device),
+            "bias": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6):
+    """RMSNorm or LayerNorm over the last axis in float32, cast back to
+    ``x``'s dtype."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].float() \
+            + p["bias"].float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings & logits
+# ---------------------------------------------------------------------------
+
+def embed_init(gen, cfg: ModelConfig, device) -> dict:
+    shape = (cfg.vocab_padded, cfg.d_model)
+    return {"table": normal_init(gen, shape, 0.01,
+                                 torch_dtype(cfg.param_dtype), device)}
+
+
+def embed_lookup(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def logits_apply(p_head, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (..., D) -> (..., vocab_padded) float32 with padded entries
+    masked to -1e9."""
+    logits = x @ p_head["table"].T if "table" in p_head else x @ p_head["w"]
+    logits = logits.float()
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e9)
+    return logits
+
+
+def head_init(gen, cfg: ModelConfig, device) -> dict:
+    if cfg.tie_embeddings:
+        return {}
+    return {"w": dense_init(gen, cfg.d_model, cfg.vocab_padded,
+                            torch_dtype(cfg.param_dtype), device)}

@@ -52,6 +52,12 @@ from repro_torch.kernels.pdhg_tile import block_threads as pdhg_threads
 from repro_torch.kernels.pdhg_tile import smem_bytes as pdhg_smem_bytes
 from repro_torch.kernels.simplex_tile import (WORK_COUNTERS, block_threads,
                                               smem_bytes, tableau_in_smem)
+from repro_torch.configs import get_config
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bt_ds, \
+    ssm_scan_plain
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.serve import serve
+from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -64,7 +70,9 @@ def _is_reference(name: str) -> bool:
 
 def test_import_leaves_jax_and_the_reference_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.io, repro_torch.interop\n"
+            "repro_torch.io, repro_torch.interop, repro_torch.models, "
+            "repro_torch.configs, repro_torch.configs.falcon_mamba_7b, "
+            "repro_torch.launch, repro_torch.launch.serve\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -722,3 +730,140 @@ def test_pdhg_compaction_equals_the_whole_solve_on_the_card():
                                 warm=whole.warm_start())
     assert warm.iterations.mean() <= 0.25 * whole.iterations.mean()
     np.testing.assert_array_equal(warm.status, whole.status)
+
+
+# ---- the selective scan (csrc/ssm_scan.cu) and the serving path -----------
+
+def _scan_inputs(B, T, d, s, seed=0, device="cpu"):
+    rng = np.random.default_rng(seed)
+    put = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                 device=device)
+    return (put(rng.uniform(0.5, 1.0, (B, T, d, s))),
+            put(rng.normal(size=(B, T, d, s)) * 0.1),
+            put(rng.normal(size=(B, d, s)) * 0.1))
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch):
+    cfg = get_config("falcon-mamba-7b").reduced()
+    lm = build_model(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(cfg, lm, batch=1, prompt_len=4, gen=2, requests=1)
+    with pytest.raises(ValueError, match="the model is on cpu"):
+        serve(cfg, lm, batch=1, prompt_len=4, gen=2, requests=1,
+              device="meta")
+    # a tensor on neither the CPU nor a card: no plain fallback
+    meta = [t.to("meta") for t in _scan_inputs(1, 4, 8, 2)]
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        ssm_scan_bt_ds(*meta)
+    with pytest.raises(ValueError, match=">= 1"):
+        serve(cfg, lm, batch=1, prompt_len=4, gen=0, requests=1,
+              device="cpu")
+    res = serve(cfg, lm, batch=1, prompt_len=4, gen=2, requests=1,
+                device="cpu")
+    assert res["tokens"].shape == (1, 1, 2)
+
+
+def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take():
+    dA, dBx, h0 = _scan_inputs(2, 5, 8, 4)
+    with pytest.raises(ValueError, match="dA must be torch.float32"):
+        ssm_scan(dA.double(), dBx, h0)
+    with pytest.raises(ValueError, match="h0 must be contiguous"):
+        ssm_scan(dA, dBx, h0.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="dBx has shape"):
+        ssm_scan(dA, dBx[:, :4].contiguous(), h0)
+    with pytest.raises(ValueError, match="h0 has shape"):
+        ssm_scan(dA, dBx, h0[:1].contiguous())
+    with pytest.raises(ValueError, match="4-D"):
+        ssm_scan(dA[0], dBx[0], h0)
+    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
+        ssm_scan(dA.requires_grad_(), dBx, h0)
+
+
+def test_ssm_scan_source_is_built_with_the_others_and_not_at_import():
+    assert "ssm_scan" in _build.SOURCES
+    text = (_build.CSRC / "ssm_scan.cu").read_text()
+    assert "ssm_scan_fwd_launch" in text and "__fmaf_rn" in text
+    assert "src/repro/kernels/ssm_scan.py" in text and "_fwd_kernel" in text
+    code = ("import repro_torch.kernels.ssm_scan, repro_torch.models, "
+            "repro_torch.launch.serve\n"
+            "print(repro_torch.kernels._build.load.cache_info().currsize)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "0"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,d,s", [(1, 8, 8, 2), (2, 16, 24, 4),
+                                     (2, 33, 130, 16), (3, 7, 256, 16),
+                                     (2, 64, 130, 16), (1, 1, 1, 1)])
+def test_ssm_scan_kernel_matches_plain_version_on_the_card(B, T, d, s):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dA, dBx, h0 = _scan_inputs(B, T, d, s, seed=T, device="cuda")
+    before = ssm_scan.launches
+    hs, hT = ssm_scan_bt_ds(dA, dBx, h0)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want_hs, want_hT = ssm_scan_plain(dA, dBx, h0)
+    torch.testing.assert_close(hs, want_hs, rtol=0, atol=0)
+    torch.testing.assert_close(hT, want_hT, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_reduced_model_serves_through_the_kernel_on_the_card():
+    """The default config (``ssm_impl="assoc"``) scans with the kernel on
+    the card; prefill and three decode steps there match the CPU port's
+    (the kernel's plain scan) in logits and caches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    cfg = get_config("falcon-mamba-7b").reduced()
+    assert cfg.ssm_impl == "assoc" and cfg.dtype == "float32"
+    cpu = build_model(dataclasses.replace(cfg, ssm_impl="kernel"),
+                      device="cpu", seed=0)
+    card = build_model(cfg, device="cpu", seed=0).to("cuda")
+    before = ssm_scan.launches
+    res = serve(cfg, card, batch=2, prompt_len=64, gen=4, requests=2,
+                device="cuda")
+    assert ssm_scan.launches == before + cfg.n_layers * 1 * 2
+    assert res["tokens"].shape == (2, 2, 4)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 67)))
+
+    # float32 products in another summation order (cuBLAS, MKL): the
+    # reference's bar between its two scan paths
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+    with torch.inference_mode():
+        want, want_c = cpu.prefill(toks[:, :64])
+        got, got_c = card.prefill(toks[:, :64].cuda())
+        for g in range(4):
+            close(got, want)
+            close(got_c.h, want_c.h)
+            close(got_c.conv, want_c.conv)
+            if g == 3:
+                break
+            pos = torch.full((2,), 64 + g)
+            want, want_c = cpu.decode_step(want_c, toks[:, 64 + g], pos)
+            got, got_c = card.decode_step(got_c, toks[:, 64 + g].cuda(),
+                                          pos.cuda())
+
+
+@pytest.mark.gpu
+def test_serve_cli_scans_with_the_kernel_on_the_card(capsys):
+    """``python -m repro_torch.launch.serve`` with the config as shipped:
+    two 512-token chunks a layer, each one launch of the scan kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = get_config("falcon-mamba-7b").reduced()
+    before = ssm_scan.launches
+    res = serve_main(["--reduced", "--batch", "2", "--prompt-len", "1024",
+                      "--gen", "2", "--requests", "2"])
+    assert ssm_scan.launches == before + 2 * cfg.n_layers * 2
+    assert res["tokens"].shape == (2, 2, 2)
+    assert "[serve] wave 1: generated 2x2 tokens" in capsys.readouterr().out
