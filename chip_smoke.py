@@ -98,6 +98,27 @@ bf16, and traced against a float32 twin of the model), and the kernel is
 timed at (4, 512, 8192, 16) beside its bytes bound, its plain version and
 a ``torch.add`` of the same bytes.
 
+Training (after serving, once its model and kept tensors are freed):
+falcon-mamba-7b at its full published width in bf16 (d_model 4096,
+d_inner 8192, state 16, dt_rank 256, vocab 65,024), cut to 24 layers with
+the reference CLI's own depth override, since the whole model with AdamW
+(bf16 weights and gradients, a float32 accumulator and two float32
+moments, 16 bytes a parameter: 116 GB) does not fit the card's 80 GB.
+Parameters drawn on the card (seed 2018); 4 steps of
+``repro_torch.launch.train.train`` on ``DataPipeline(seed=2018)``: batch 4
+x 1,024 tokens, the config's 2 microbatches, ``remat="block"``, so each
+layer scans two 512-token chunks a microbatch and the carry's cotangent
+(g_hT != 0) reaches chunk 0.  The backward kernel must launch exactly
+n_layers x chunks x microbatches x steps = 384 times and the forward
+twice that (the recompute), and no other kernel; every loss and grad norm
+is finite and some bf16 parameter changed.  The backward kernel is held
+against ``ssm_scan_bwd_plain`` on the inputs layer 0's backward received
+for chunk 0 in the first microbatch and at odd shapes (T = 1, T not a
+multiple of the unroll, L not a multiple of the block; ``max_abs_err``
+0.0), and timed at (2, 512, 8192, 16) beside its bytes bound
+4(5BTL + 3BL), its plain version and a two-call yardstick that moves the
+same bytes.  Step seconds, tokens/s and peak device memory are printed.
+
 Every launch counter is zeroed just before each main-path run and read just
 after.  Lines of JSON report each phase; the line before the last is the
 kernel table, then the card's name and power limit, and the last line is
@@ -136,11 +157,13 @@ def gpu_line() -> str:
 def _wrappers():
     from repro_torch.kernels import (hyperbox_tile, pdhg_segment_tile,
                                      pdhg_tile, revised_segment_tile,
-                                     segment_tile, simplex_tile, ssm_scan)
+                                     segment_tile, simplex_tile, ssm_scan,
+                                     ssm_scan_bwd)
     return {"simplex_tile": simplex_tile, "simplex_segment": segment_tile,
             "hyperbox": hyperbox_tile,
             "revised_segment": revised_segment_tile, "pdhg": pdhg_tile,
-            "pdhg_segment": pdhg_segment_tile, "ssm_scan": ssm_scan}
+            "pdhg_segment": pdhg_segment_tile, "ssm_scan": ssm_scan,
+            "ssm_scan_bwd": ssm_scan_bwd}
 
 
 def zero_counts():
@@ -1689,6 +1712,188 @@ def serving():
     return info
 
 
+# ---- falcon-mamba-7b training (launch/train.py, csrc/ssm_scan.cu) --------
+
+TRAIN_LAYERS = 24            # full width, depth cut to fit AdamW in 80 GB
+TRAIN = {"batch": 4, "seq": 1024, "steps": 4, "lr": 3e-3}
+ODD_BWD = ((1, 1, 8, 2), (2, 13, 24, 4), (2, 33, 130, 16), (3, 7, 256, 16))
+
+
+def scan_bwd_vs_plain(dA, hs, h0, g_hs, g_hT):
+    """One backward kernel launch against ssm_scan_bwd_plain on the same
+    card tensors; returns the largest |kernel - plain| over ddA, ddBx and
+    dh0."""
+    import torch
+    from repro_torch.kernels import ssm_scan_bwd, ssm_scan_bwd_plain
+    got = ssm_scan_bwd(dA, hs, h0, g_hs, g_hT)
+    want = ssm_scan_bwd_plain(dA, hs, h0, g_hs, g_hT)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in got)
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def bwd_inputs_kept(call):
+    """Keep the (dA, hs, h0, g_hs, g_hT) that the scan's autograd backward
+    hands the backward kernel in call number ``call`` (from 0).  Yields a
+    dict that holds them under "args" once that call ran; the kernel runs
+    and counts as it does without this."""
+    import importlib
+    mod = importlib.import_module("repro_torch.kernels.ssm_scan")
+    real, kept, n = mod.ssm_scan_bwd, {}, [0]
+
+    def keep(*args):
+        if n[0] == call:
+            kept["args"] = args
+        n[0] += 1
+        mod.ssm_scan_bwd = real    # the wrapper counts on its module name
+        try:
+            return real(*args)
+        finally:
+            mod.ssm_scan_bwd = keep
+
+    mod.ssm_scan_bwd = keep
+    try:
+        yield kept
+    finally:
+        mod.ssm_scan_bwd = real
+
+
+def training():
+    """falcon-mamba-7b at full width, cut to TRAIN_LAYERS layers, trained
+    for a few steps through repro_torch.launch.train.train; the backward
+    kernel held against its plain version on the inputs the training run
+    handed it and at odd shapes, and timed."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssm_scan_bwd, ssm_scan_bwd_plain
+    from repro_torch.launch.serve import set_matmul_policy
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+
+    policy = set_matmul_policy()
+    full = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    assert (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+            cfg.vocab, cfg.param_dtype, cfg.remat) == \
+        (4096, 8192, 16, 256, 65024, "bfloat16", "block")
+    mb = cfg.train_microbatches
+    chunks = TRAIN["seq"] // SCAN_CHUNK
+    assert mb == 2 and chunks == 2
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED)      # drawn on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    # a slice of every parameter, to show that the steps moved them
+    before = [p.detach().flatten()[:64].clone() for p in params]
+    # layer 0's backward of chunk 0 in the first microbatch: the layers
+    # run backward from the last, and a layer's chunk 1 before its chunk 0
+    call = cfg.n_layers * chunks - 1
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with bwd_inputs_kept(call) as kept:
+        res = train(cfg, model, microbatches=mb, seed=SERVE_SEED,
+                    log_every=1, **TRAIN)
+    got = counts()
+    launches = cfg.n_layers * chunks * mb * TRAIN["steps"]
+    assert launches == 384
+    assert got["ssm_scan_bwd"] == launches, got
+    assert got["ssm_scan"] == 2 * launches, got
+    assert all(v == 0 for k, v in got.items()
+               if k not in ("ssm_scan", "ssm_scan_bwd")), got
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(res["losses"]).all(), res["losses"]
+    assert np.isfinite(res["grad_norms"]).all(), res["grad_norms"]
+    changed = [not torch.equal(b, p.detach().flatten()[:64])
+               for b, p in zip(before, params)]
+    assert any(c for c, p in zip(changed, params)
+               if p.dtype == torch.bfloat16), changed
+    assert all(torch.isfinite(p).all() for p in params)
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    # the kernels' device time in one microbatch's loss and gradients,
+    # beside the measured step time: the share of the time the card was
+    # busy, and where it went
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+    toks = torch.randint(0, cfg.vocab, (TRAIN["batch"] // mb, TRAIN["seq"]),
+                         generator=gen, device="cuda")
+    grad_ms, grad_top = kernel_profile(lambda: torch.autograd.grad(
+        model.loss_fn({"tokens": toks, "labels": toks}), params), top=8)
+    dA, hs, h0, g_hs, g_hT = (t.detach() for t in kept["args"])
+    assert float(h0.abs().max()) == 0 and float(g_hT.abs().max()) > 0
+    kept_bytes = sum(t.numel() * 4 for t in kept["args"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    emit({"train": SERVE_ARCH, "config": {
+              "n_layers": cfg.n_layers, "published_n_layers": full.n_layers,
+              "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+              "ssm_state": cfg.ssm_state, "dt_rank": cfg.dt_rank,
+              "vocab": cfg.vocab, "param_dtype": cfg.param_dtype,
+              "remat": cfg.remat, "microbatches": mb},
+          **TRAIN, "seed": SERVE_SEED, "params": n_params,
+          "param_bytes": param_bytes, "init_on_card_s": init_s,
+          "matmul_policy": policy,
+          "bwd_launches": got["ssm_scan_bwd"],
+          "fwd_launches": got["ssm_scan"], "losses": res["losses"],
+          "grad_norms": res["grad_norms"], "step_s": res["step_s"],
+          "data_s": res["data_s"], "tokens_per_step": tokens,
+          "tokens_per_s": res["tokens_per_s"],
+          "peak_device_bytes": peak,
+          "peak_includes_kept_bwd_input_bytes": kept_bytes,
+          "microbatch_grad_kernel_ms": grad_ms,
+          "microbatch_grad_top_kernels": grad_top,
+          "busy_share_of_last_step": mb * grad_ms / (
+              1e3 * res["step_s"][-1]),
+          "params_changed": sum(changed), "params_total": len(params)})
+    del model, params, before, res, toks
+    torch.cuda.empty_cache()
+
+    errs = {"layer0_chunk0": scan_bwd_vs_plain(dA, hs, h0, g_hs, g_hT)}
+    for shape in ODD_BWD:
+        g = np.random.default_rng(shape[1])
+        put = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                                     device="cuda")
+        B, T, d, s = shape
+        errs[str(shape)] = scan_bwd_vs_plain(
+            put(g.uniform(0.5, 1.0, (B, T, d, s))),
+            put(g.normal(size=(B, T, d, s))),
+            put(g.normal(size=(B, d, s))),
+            put(g.normal(size=(B, T, d, s))),
+            put(g.normal(size=(B, d, s))))
+    max_err = max(errs.values())
+    assert max_err == 0.0, errs
+
+    # the kernel timed on layer 0's inputs at the training shape
+    out = (torch.empty_like(dA), torch.empty_like(dA))
+    ms = timed_avg(lambda: ssm_scan_bwd(dA, hs, h0, g_hs, g_hT))
+    plain_ms = timed_avg(
+        lambda: ssm_scan_bwd_plain(dA, hs, h0, g_hs, g_hT), reps=3)
+
+    def yard():
+        torch.add(dA, hs, out=out[0])
+        torch.neg(g_hs, out=out[1])
+
+    yard_ms = timed_avg(yard)
+    # dA, hs, g_hs, h0 and g_hT read once; ddA, ddBx and dh0 written once
+    B, T = dA.shape[:2]
+    L = dA.shape[2] * dA.shape[3]
+    nbytes = 4 * (5 * B * T * L + 3 * B * L)
+    info = {"kernel": "ssm_scan_bwd", "shape": list(dA.shape),
+            "kernel_vs_plain_max_abs_err": errs, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "yardstick_ms": yard_ms,
+            "yardstick": "torch.add(dA, hs, out=o1) + torch.neg(g_hs, "
+                         "out=o2): the same 5BTL floats in two calls; no "
+                         "PyTorch call computes the reverse recurrence",
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "bound_by": "bytes", "launches": got["ssm_scan_bwd"],
+            "achieved_bytes_per_s": nbytes / (ms * 1e-3)}
+    emit(info)
+    del dA, hs, h0, g_hs, g_hT, out, kept
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1822,6 +2027,9 @@ def main() -> int:
 
     # ---- falcon-mamba-7b serving: the selective-scan kernel ----------------
     scan = serving()
+
+    # ---- falcon-mamba-7b training: the scan's backward kernel -------------
+    bwd = training()
     emit({"total_s": time.perf_counter() - t_start})
 
     main_row = rows[0]   # lp_100d_50k slice, dantzig: the paper's rule
@@ -1908,7 +2116,18 @@ def main() -> int:
         "yardstick": scan["yardstick"], "shape": scan["shape"],
         "parity": "hs and hT equal to the plain version on layer 0's and "
                   "layer 63's second-chunk inputs and at four odd "
-                  "shapes"}]})
+                  "shapes"}, {
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:57",
+        "launches": bwd["launches"], "max_abs_err": bwd["max_abs_err"],
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": None, "yardstick_ms": bwd["yardstick_ms"],
+        "yardstick": bwd["yardstick"], "shape": bwd["shape"],
+        "parity": "ddA, ddBx and dh0 equal to the plain version on layer "
+                  "0's chunk-0 inputs of the first microbatch and at four "
+                  "odd shapes"}]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

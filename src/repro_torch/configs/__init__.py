@@ -3,8 +3,8 @@ constructors of the architectures ported so far.
 
 ``ARCH_IDS`` and ``CANONICAL`` are the reference's (``repro/configs``).
 Only falcon-mamba-7b runs in the port yet; ``get_config`` of any other id
-raises ``NotImplementedError`` (ROADMAP queue 1 item 15 lists the model
-modules and configs still to port).
+raises ``NotImplementedError`` (ROADMAP: the rest of the LM scaffold lists
+the model modules and configs still to port).
 """
 from importlib import import_module
 
@@ -44,6 +44,6 @@ def get_config(arch: str):
         raise KeyError(f"unknown architecture {arch!r}")
     if key not in PORTED:
         raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP queue 1 item 15); the port "
-            f"runs {', '.join(PORTED)}")
+            f"{arch} is not ported yet (ROADMAP: the rest of the LM "
+            f"scaffold); the port runs {', '.join(PORTED)}")
     return import_module(f"repro_torch.configs.{key}").config()

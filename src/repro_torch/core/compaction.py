@@ -191,8 +191,8 @@ def run_segment(state: CompactionState, steps: int, *, stage: str, m: int,
 
 def _not_ported(name: str):
     raise NotImplementedError(
-        f"{name} is not ported to repro_torch yet (ROADMAP.md, queue 1 "
-        "item 12: branch-and-bound streams its frontier through it)")
+        f"{name} is not ported to repro_torch yet (ROADMAP: "
+        "core/branch_bound.py, whose frontier streams through it)")
 
 
 def segment_combined(state, steps, *, m, n, tol, rule="dantzig"):
@@ -428,7 +428,7 @@ def check_deferred(*, backend="tableau", telemetry=False,
     if telemetry or tracer is not None:
         raise NotImplementedError(
             "telemetry and tracing are not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1 item 11: obs/)")
+            "(ROADMAP: obs/, telemetry)")
 
 
 def schedule_batch(runner, batch: LPBatch, dev, *, max_iters, segment_k,

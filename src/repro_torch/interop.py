@@ -13,7 +13,8 @@ one parent basis can seed both packages.  ``pdhg_state_from_reference``
 turns the reference's PDHG state (engine or tile layout) into the port's
 ``PdhgState``, so one round or one segment launch runs from the same
 state in both packages.  ``lm_from_reference`` turns the reference LM's
-parameter tree into the port's ``LM``, so both compute the same function.
+parameter tree into the port's ``LM``, so both compute the same function;
+``lm_to_reference`` is its inverse, for parameters and for gradients.
 All of them read attributes only; nothing here imports the reference
 package.
 """
@@ -172,3 +173,33 @@ def lm_from_reference(cfg, params_np, device="cpu") -> LM:
         put_group(model.final_norm, params_np["final_norm"])
         put_group(model.head, params_np.get("head") or {})
     return model
+
+
+def lm_to_reference(model: LM, tensors=None) -> dict:
+    """The reference LM's NumPy parameter tree (layers stacked on axis 0)
+    with the port's ``model`` parameters, or with ``tensors``, a list that
+    matches ``model.parameters()`` (the gradients of a step, say): the
+    inverse of ``lm_from_reference``.  bfloat16 leaves come back as
+    float32, which holds them exactly."""
+    names = [name for name, _ in model.named_parameters()]
+    values = list(model.parameters()) if tensors is None else list(tensors)
+    if len(values) != len(names):
+        raise ValueError(f"{len(values)} tensors for {len(names)} "
+                         "parameters")
+
+    def numpy(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    leaf = {name: numpy(t) for name, t in zip(names, values)}
+
+    def group(prefix):
+        return {name[len(prefix):]: a for name, a in leaf.items()
+                if name.startswith(prefix)}
+
+    layers = {g: {k: np.stack([leaf[f"blocks.{i}.{g}.{k}"]
+                               for i in range(len(model.blocks))])
+                  for k in getattr(model.blocks[0], g).keys()}
+              for g in ("norm1", "ssm")} if len(model.blocks) else {}
+    return {"embed": group("embed."), "layers": layers,
+            "final_norm": group("final_norm."), "head": group("head.")}

@@ -17,4 +17,6 @@ from .simplex_tile import (  # noqa: F401
     segment_tile, segment_tile_plain, simplex_tile, simplex_tile_plain,
     smem_bytes, tableau_in_smem,
 )
-from .ssm_scan import ssm_scan, ssm_scan_bt_ds, ssm_scan_plain  # noqa: F401
+from .ssm_scan import (  # noqa: F401
+    ssm_scan, ssm_scan_bt_ds, ssm_scan_bwd, ssm_scan_bwd_plain, ssm_scan_plain,
+)

@@ -1,2 +1,2 @@
 """Drivers of the port: ``serve`` (prefill + greedy decode over request
-waves)."""
+waves) and ``train`` (AdamW steps with microbatching)."""

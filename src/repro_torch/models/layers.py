@@ -7,8 +7,8 @@ dtype.  The two frameworks give different numbers from one seed, so tests
 carry the reference's parameters over with ``interop.lm_from_reference``;
 with ``gen=None`` an init allocates its tensor uninitialized for that.
 Weights keep the reference's (in, out) layout, so ``x @ w`` is the
-reference's product.  The MLPs, RoPE and the cross entropy wait for the
-slices that run them (ROADMAP queue 1 item 15).
+reference's product.  The MLPs and RoPE wait for the slices that run them
+(ROADMAP: the rest of the LM scaffold).
 """
 from __future__ import annotations
 
@@ -102,3 +102,22 @@ def head_init(gen, cfg: ModelConfig, device) -> dict:
         return {}
     return {"w": dense_init(gen, cfg.d_model, cfg.vocab_padded,
                             torch_dtype(cfg.param_dtype), device)}
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (..., V) float32, labels (...) integer in [0, V) -> the
+    negative log likelihood of each label, logsumexp minus the gold
+    logit."""
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """logits (..., V) float32, labels (...) integer.  Mean negative log
+    likelihood, over ``mask`` where given."""
+    nll = token_nll(logits, labels)
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)

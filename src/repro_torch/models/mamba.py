@@ -7,12 +7,14 @@ tensors stay bounded.  Within a chunk the scan on the card is always the
 CUDA kernel (``kernels.ssm_scan.ssm_scan_bt_ds``).  On the CPU
 ``cfg.ssm_impl`` picks which reference path to reproduce: "kernel" the
 kernel's plain version, "assoc" a log-depth doubling scan in torch ops with
-the reference's ``combine``.  Decode is the exact O(1) recurrence.  Types follow the
+the reference's ``combine``.  Decode is the exact O(1) recurrence, its
+state update one fused multiply-add (``core/fp.py`` ``fma``), as the
+reference's jitted decode and the scan round it.  Types follow the
 reference op by op: activations and matmuls in the activation dtype; dt,
 dA, dBx, the scan, y, ``D``, ``A_log`` and the silu gate in float32, cast
-back where the reference casts.  There is no backward yet (the training
-slice, ROADMAP queue 2 item 7): train mode is the prefill body without a
-cache.
+back where the reference casts.  Train mode is the prefill body without a
+cache; autograd carries gradients through the conv, the discretization,
+the scan (its backward kernel on the card) and the y contraction.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.fp import fma
 from ..kernels.ssm_scan import ssm_scan_bt_ds
 from .config import ModelConfig
 from .layers import dense_init, normal_init, torch_dtype
@@ -67,7 +70,7 @@ def _ssm_coeffs(p, xc, cfg: ModelConfig):
                     + p["dt_bias"].float())                 # (B, T, di)
     A = -torch.exp(p["A_log"])                              # (di, st)
     # exp in place: at the serving shape each (B, T, di, st) temporary is
-    # a gigabyte
+    # a gigabyte (in training too: mul saves its inputs, not its output)
     dA = (dt[..., None] * A).exp_()                         # (B, T, di, st)
     dBx = (dt * xc.float())[..., None] \
         * B_ssm.float()[..., None, :]                       # (B, T, di, st)
@@ -118,7 +121,7 @@ def mamba_apply(p, x, cfg: ModelConfig, *, mode: str,
         xc = torch.einsum("bcd,cd->bd", conv_win, p["conv_w"]) + p["conv_b"]
         xc = F.silu(xc)[:, None]                            # (B, 1, di)
         dA, dBx, C_ssm = _ssm_coeffs(p, xc, cfg)
-        h = cache.h * dA[:, 0] + dBx[:, 0]                  # (B, di, st)
+        h = fma(cache.h, dA[:, 0], dBx[:, 0])               # (B, di, st)
         y = torch.einsum("bds,bs->bd", h, C_ssm[:, 0])[:, None]
         y = y + p["D"] * xc.float()
         new_cache = MambaCache(h=h, conv=conv_win[:, 1:])

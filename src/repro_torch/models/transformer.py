@@ -4,27 +4,30 @@ for the ssm family: falcon-mamba.
 ``LM`` is an ``nn.Module`` with a ``ModuleList`` of blocks; the reference's
 ``lax.scan`` over stacked layers becomes a Python loop, and the caches it
 returns are stacked on a leading layer axis as the reference's are.
-Parameters keep the reference's names and (in, out) layouts and are frozen
-(``requires_grad=False``): this slice serves, and training with its
-backward scan kernel is the next one (ROADMAP queue 2 item 7).  The other
-families (attention, MoE, MLA, hybrid, VLM) and ``loss_fn`` wait for their
-slices (ROADMAP queue 1 item 15).
+Parameters keep the reference's names and (in, out) layouts and are
+trainable; serving runs under ``torch.inference_mode()``.  ``loss_fn`` is
+the reference's sequence-chunked cross entropy, and ``remat="block"``
+checkpoints each block in train mode (``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint``), so the backward recomputes a block's
+forward, scan kernel included.  The other families (attention, MoE, MLA,
+hybrid, VLM) wait for their slices (ROADMAP: the rest of the LM
+scaffold).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (apply_norm, embed_init, embed_lookup, head_init,
-                     logits_apply, norm_init, torch_dtype)
+                     logits_apply, norm_init, token_nll, torch_dtype)
 from .mamba import MambaCache, TensorSpec, mamba_apply, mamba_cache_shape, \
     mamba_init
 
 
-def _frozen(tensors: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+def _params(tensors: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
 
 
 def check_ported(cfg: ModelConfig):
@@ -32,12 +35,12 @@ def check_ported(cfg: ModelConfig):
     port has: a pure-SSM stack without MLPs."""
     if cfg.family != "ssm" or cfg.attn_kind != "none":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP "
-            "queue 1 item 15); the port runs the ssm family")
+            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP: "
+            "the rest of the LM scaffold); the port runs the ssm family")
     if cfg.d_ff or cfg.mlp_kind == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: MLP blocks are not ported yet (ROADMAP queue 1 "
-            "item 15)")
+            f"{cfg.name}: MLP blocks are not ported yet (ROADMAP: the rest "
+            "of the LM scaffold)")
 
 
 class Block(nn.Module):
@@ -46,9 +49,9 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, gen, device):
         super().__init__()
         self.cfg = cfg
-        self.norm1 = _frozen(norm_init(cfg.d_model, cfg.norm_kind,
+        self.norm1 = _params(norm_init(cfg.d_model, cfg.norm_kind,
                                        torch_dtype(cfg.param_dtype), device))
-        self.ssm = _frozen(mamba_init(gen, cfg, device))
+        self.ssm = _params(mamba_init(gen, cfg, device))
 
     def forward(self, x, *, mode: str, cache: MambaCache | None = None):
         h = apply_norm(self.norm1, x, self.cfg.norm_kind)
@@ -67,13 +70,13 @@ class LM(nn.Module):
         check_ported(cfg)
         self.cfg = cfg
         gen = generator
-        self.embed = _frozen(embed_init(gen, cfg, device))
+        self.embed = _params(embed_init(gen, cfg, device))
         self.blocks = nn.ModuleList(Block(cfg, gen, device)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = _frozen(norm_init(cfg.d_model, cfg.norm_kind,
+        self.final_norm = _params(norm_init(cfg.d_model, cfg.norm_kind,
                                             torch_dtype(cfg.param_dtype),
                                             device))
-        self.head = _frozen(head_init(gen, cfg, device))
+        self.head = _params(head_init(gen, cfg, device))
 
     @property
     def device(self) -> torch.device:
@@ -85,27 +88,55 @@ class LM(nn.Module):
         return x.to(torch_dtype(self.cfg.dtype))
 
     def _run_layers(self, x, *, mode, caches: MambaCache | None = None):
+        if mode == "train":
+            for block in self.blocks:
+                if self.cfg.remat == "block":
+                    x, _ = checkpoint(block, x, mode=mode,
+                                      use_reentrant=False)
+                else:
+                    x, _ = block(x, mode=mode)
+            return x, None
         new = []
         for i, block in enumerate(self.blocks):
             cache_l = None if caches is None else MambaCache(caches.h[i],
                                                              caches.conv[i])
             x, c = block(x, mode=mode, cache=cache_l)
             new.append(c)
-        if mode == "train":
-            return x, None
         return x, MambaCache(h=torch.stack([c.h for c in new]),
                              conv=torch.stack([c.conv for c in new]))
 
+    def _head(self):
+        return self.head if len(self.head) else self.embed
+
     def _logits(self, x):
         x = apply_norm(self.final_norm, x, self.cfg.norm_kind)
-        head = self.head if len(self.head) else self.embed
-        return logits_apply(head, x[:, -1:], self.cfg)[:, 0]
+        return logits_apply(self._head(), x[:, -1:], self.cfg)[:, 0]
 
     # -- training loss --------------------------------------------------------
     def loss_fn(self, batch):
-        raise NotImplementedError(
-            "training is not ported yet: the next slice (ROADMAP queue 2 "
-            "item 7) adds the backward scan kernel and the loss")
+        """batch: {"tokens": (B, S) integer, "labels": (B, S) integer},
+        tensors on the model's device.  Labels < 0 are masked.  Returns
+        the mean next-token cross entropy (a float32 scalar)."""
+        x = self._embed_inputs(batch["tokens"])
+        x, _ = self._run_layers(x, mode="train")
+        x = apply_norm(self.final_norm, x, self.cfg.norm_kind)
+        return self._chunked_ce(x, batch["labels"])
+
+    def _chunked_ce(self, x, labels, chunk: int = 1024):
+        """Sequence-chunked cross entropy, so that the (S, vocab) logits
+        never materialize at once."""
+        S = x.shape[1]
+        chunk = min(chunk, S)
+        tot = x.new_zeros((), dtype=torch.float32)
+        cnt = x.new_zeros((), dtype=torch.float32)
+        for c0 in range(0, S, chunk):
+            ls = labels[:, c0:c0 + chunk]
+            logits = logits_apply(self._head(), x[:, c0:c0 + chunk],
+                                  self.cfg)
+            mask = ls >= 0
+            tot = tot + (token_nll(logits, ls.clamp(min=0)) * mask).sum()
+            cnt = cnt + mask.sum()
+        return tot / cnt.clamp(min=1.0)
 
     # -- serving --------------------------------------------------------------
     def prefill(self, tokens):

@@ -38,6 +38,7 @@ from repro_torch.models.mamba import MambaCache, mamba_apply
 
 ATOL = 1e-5
 ARCH = "falcon-mamba-7b"
+UNPORTED = "ROADMAP: the rest of the LM scaffold"
 
 
 def _cfgs(impl):
@@ -65,6 +66,8 @@ def _port(impl):
 
 
 def _close(got, want, name=""):
+    if isinstance(got, torch.Tensor):    # trainable parameters: detach
+        got = got.detach()
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=ATOL,
                                rtol=0, err_msg=name)
 
@@ -90,7 +93,7 @@ def test_config_registry_is_the_reference_one():
             dataclasses.asdict(ref.reduced())
     for arch in CANONICAL:
         if arch != ARCH:
-            with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+            with pytest.raises(NotImplementedError, match=UNPORTED):
                 get_config(arch)
     with pytest.raises(KeyError):
         get_config("gpt-2")
@@ -137,11 +140,11 @@ def test_parameters_have_the_reference_names_shapes_and_dtypes():
     for name, p in got.items():
         assert tuple(p.shape) == ref[name].shape, name
         assert str(p.dtype).removeprefix("torch.") == str(ref[name].dtype)
-        assert not p.requires_grad
+        assert p.requires_grad
     # the reference's scales: N(0, 1/in) weights, N(0, 0.01^2) embedding
-    w_in = lm.blocks[0].ssm["w_in"]
+    w_in = lm.blocks[0].ssm["w_in"].detach()
     assert abs(float(w_in.std()) - 64 ** -0.5) < 0.01
-    assert abs(float(lm.embed["table"].std()) - 0.01) < 0.001
+    assert abs(float(lm.embed["table"].detach().std()) - 0.01) < 0.001
     same = build_model(get_config(ARCH).reduced(), device="cpu", seed=0)
     other = build_model(get_config(ARCH).reduced(), device="cpu", seed=1)
     assert torch.equal(same.head["w"], lm.head["w"])
@@ -171,15 +174,12 @@ def test_cache_shapes_are_the_reference_ones():
         assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
 
 
-def test_unported_families_and_training_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+def test_unported_families_raise():
+    with pytest.raises(NotImplementedError, match=UNPORTED):
         LM(ref_get_config("qwen3-32b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match=UNPORTED):
         LM(dataclasses.replace(get_config(ARCH).reduced(), d_ff=128),
            device="cpu")
-    _, port = _port("assoc")
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        port.loss_fn({})
 
 
 # ---- mamba_apply ------------------------------------------------------------

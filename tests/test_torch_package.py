@@ -54,7 +54,7 @@ from repro_torch.kernels.simplex_tile import (WORK_COUNTERS, block_threads,
                                               smem_bytes, tableau_in_smem)
 from repro_torch.configs import get_config
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bt_ds, \
-    ssm_scan_plain
+    ssm_scan_bwd, ssm_scan_bwd_plain, ssm_scan_plain
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve
 from repro_torch.models import build_model
@@ -72,7 +72,9 @@ def test_import_leaves_jax_and_the_reference_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.io, repro_torch.interop, repro_torch.models, "
             "repro_torch.configs, repro_torch.configs.falcon_mamba_7b, "
-            "repro_torch.launch, repro_torch.launch.serve\n"
+            "repro_torch.launch, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.optim, "
+            "repro_torch.distributed, repro_torch.data\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -778,8 +780,6 @@ def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take():
         ssm_scan(dA, dBx, h0[:1].contiguous())
     with pytest.raises(ValueError, match="4-D"):
         ssm_scan(dA[0], dBx[0], h0)
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        ssm_scan(dA.requires_grad_(), dBx, h0)
 
 
 def test_ssm_scan_source_is_built_with_the_others_and_not_at_import():
@@ -787,8 +787,9 @@ def test_ssm_scan_source_is_built_with_the_others_and_not_at_import():
     text = (_build.CSRC / "ssm_scan.cu").read_text()
     assert "ssm_scan_fwd_launch" in text and "__fmaf_rn" in text
     assert "src/repro/kernels/ssm_scan.py" in text and "_fwd_kernel" in text
+    assert "ssm_scan_bwd_launch" in text and "_bwd_kernel" in text
     code = ("import repro_torch.kernels.ssm_scan, repro_torch.models, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.train\n"
             "print(repro_torch.kernels._build.load.cache_info().currsize)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -867,3 +868,70 @@ def test_serve_cli_scans_with_the_kernel_on_the_card(capsys):
     assert ssm_scan.launches == before + 2 * cfg.n_layers * 2
     assert res["tokens"].shape == (2, 2, 2)
     assert "[serve] wave 1: generated 2x2 tokens" in capsys.readouterr().out
+
+
+# ---- the scan's backward (csrc/ssm_scan.cu) and the training path ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,d,s", [(1, 1, 1, 1), (2, 7, 24, 4),
+                                     (2, 33, 130, 16), (3, 9, 256, 16),
+                                     (2, 64, 130, 16), (1, 8, 8, 2)])
+def test_ssm_scan_bwd_kernel_matches_plain_version_on_the_card(B, T, d, s):
+    """T = 1, T not a multiple of the unroll (8), L = d * s not a multiple
+    of the block (256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dA, dBx, h0 = _scan_inputs(B, T, d, s, seed=T, device="cuda")
+    g_hs, _, g_hT = _scan_inputs(B, T, d, s, seed=T + 1, device="cuda")
+    hs, _ = ssm_scan_bt_ds(dA, dBx, h0)
+    before = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(dA, hs, h0, g_hs, g_hT)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd.launches == before + 1
+    want = ssm_scan_bwd_plain(dA, hs, h0, g_hs, g_hT)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_reduced_model_train_step_on_the_card_matches_the_cpu_port():
+    """One microbatched train step of the reduced model (float32, remat
+    per block) on the card against the CPU port: loss within 1e-5,
+    gradients within 1e-4 (float32 products in another summation order),
+    and the scan kernels launched once a chunk and microbatch (backward)
+    and twice (forward and the recompute)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.serve import set_matmul_policy
+    from repro_torch.optim import adamw
+    set_matmul_policy()
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b").reduced(),
+                              remat="block")
+    cpu = build_model(dataclasses.replace(cfg, ssm_impl="kernel"),
+                      device="cpu", seed=0)
+    card = build_model(cfg, device="cpu", seed=0).to("cuda")
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 1024)))
+    batch = {"tokens": toks, "labels": toks}
+
+    def grads(model, dev):
+        loss = model.loss_fn({k: v.to(dev) for k, v in batch.items()})
+        return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+    want_loss, want = grads(cpu, "cpu")
+    got_loss, got = grads(card, "cuda")
+    assert abs(float(got_loss.detach()) - float(want_loss.detach())) < 1e-5
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4)
+    microbatches, chunks = 2, 1024 // 512
+    opt = adamw()
+    step = make_train_step(card, opt, microbatches=microbatches)
+    fwd, bwd = ssm_scan.launches, ssm_scan_bwd.launches
+    m = step(opt.init(list(card.parameters())),
+             {k: v.cuda() for k, v in batch.items()})
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    launches = cfg.n_layers * chunks * microbatches
+    assert ssm_scan_bwd.launches - bwd == launches
+    assert ssm_scan.launches - fwd == 2 * launches
