@@ -60,26 +60,33 @@ Restarted PDHG (after the revised path): ``solve_batched(lp_100d_50k,
 backend="pdhg")`` on all 50,000 LPs through the whole-solve PDHG kernel
 only (the first 64 against the oracle, statuses compared with the tableau
 run); ``compaction=True`` on all 50,000 through the segment kernel only,
-equal to the whole solve bit for bit; ``lp_afiro_100k`` cold (member 0 at
-the published optimum) and re-solved from its own ``warm_start()`` (equal
+equal to the whole solve bit for bit, its 65 launches timed by CUDA events
+and summed beside the bound; ``lp_afiro_100k`` cold (member 0 at the
+published optimum) and re-solved from its own ``warm_start()`` (equal
 statuses, objectives within rel 2e-3, at most a quarter of the cold mean
-iterations).  Each kernel is held against its plain version: the whole
-solve on 2,048-LP slices of lp_100d_50k (plain version on the first 512,
-``max_iters`` 20,000 for both) and lp_afiro_100k, Malitsky-Pock on
-lp_100d_50k (plain on 128, ``max_iters`` 1,600), sc205_like (A in shared
-memory, plain on 128, 4,000) and 256 LPs of lp_300d_2k (A in device
-memory, ``max_iters`` 40,000; plain on 64 of them, the members the kernel
-solved first and the rest from those at the cap, at least one OPTIMAL),
-every output equal; one segment launch from a mid-solve state leaf by
-leaf; the kernel-backed schedule equal to the plain-backed one (plain on
-512) and to the whole solve at ``max_iters`` 8,000.  The peak device
-memory of each main-path solve stays within the chunk plan's bytes per LP
+iterations).  Each kernel is held against its plain version in each of
+its three variants, every output equal, and each line names the variant
+that ran: registers (A in registers) on 2,048-LP slices of lp_100d_50k
+(plain version on the first 512, ``max_iters`` 20,000; Malitsky-Pock on
+the first 128 at 1,600) and lp_afiro_100k (both step rules; one warp an
+LP), shared (A in shared memory) on sc205_like (plain on 128 at 4,000;
+Malitsky-Pock on 32 at 800) and device (A in device memory) on 256 LPs of
+lp_300d_2k (``max_iters`` 40,000, plain on 64 of them, the members the
+kernel solved first and the rest from those at the cap, at least one
+OPTIMAL; Malitsky-Pock on 16 at 800); one segment launch from a mid-solve
+state leaf by leaf in each variant; the kernel-backed schedule equal to
+the plain-backed one (plain on 512) and to the whole solve at
+``max_iters`` 8,000.  The peak device memory of each main-path solve
+stays within the chunk plan's bytes per LP
 (``core.pdhg.pdhg_bytes_per_lp``).  The sparse engine runs
 SparseLPBatch.from_dense of sc205_like on the card against the dense
 kernel at ``max_iters`` 20,000 (equal statuses, objectives within rel
 1e-3; its sums follow the dense kernel's order, so every output is
-equal).  Last, the whole-solve kernel is timed on all 50,000 LPs beside
-its bound and a torch.bmm yardstick.
+equal).  Then the whole-solve kernel is timed on all 50,000 LPs beside
+its bound and a torch.bmm yardstick, and its cycles are counted by phase
+(a build with -DPDHG_TRACE, made beside the others) on the lp_100d_50k
+slice in the shared variant and in the registers variant, whose outputs
+must be equal.
 
 Serving (after the box LP, once the LP data is freed): falcon-mamba-7b at
 its published config (64 layers, d_model 4096, d_inner 8192, bf16
@@ -119,6 +126,13 @@ multiple of the unroll, L not a multiple of the block; ``max_abs_err``
 4(5BTL + 3BL), its plain version and a two-call yardstick that moves the
 same bytes.  Step seconds, tokens/s and peak device memory are printed.
 
+``python3 chip_smoke.py --pdhg-parent SRC`` runs only the PDHG kernel's
+trace and then times the kernel against the pdhg_tile.cu at SRC (another
+commit's, built beside this one) on the same inputs, in turns (SRC, this,
+this, SRC): the whole-solve kernel on the lp_100d_50k slice and on all
+50,000, and ``solve_batched(backend="pdhg")`` with and without
+compaction; every pair of results equal.
+
 Every launch counter is zeroed just before each main-path run and read just
 after.  Lines of JSON report each phase; the line before the last is the
 kernel table, then the card's name and power limit, and the last line is
@@ -131,6 +145,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1139,11 +1154,13 @@ def pdhg_compaction_main(lp100, res_whole, wall_whole):
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     zero_counts()
-    t0 = time.perf_counter()
-    res = solve_batched(lp100, backend="pdhg", compaction=True,
-                        stats_out=stats)
-    wall = time.perf_counter() - t0
+    with segment_events() as events:
+        t0 = time.perf_counter()
+        res = solve_batched(lp100, backend="pdhg", compaction=True,
+                            stats_out=stats)
+        wall = time.perf_counter() - t0
     launches = only("pdhg_segment")
+    assert len(events) == launches, (len(events), launches)
     assert same_result(res, res_whole, ("status", "iterations", "x",
                                         "objective", "y", "z")), \
         "pdhg compaction != whole solve"
@@ -1157,10 +1174,13 @@ def pdhg_compaction_main(lp100, res_whole, wall_whole):
             "ladder_stage_bucket_rounds_survivors": ladder(stats),
             "bitwise_equal_whole_solve": True,
             "peak_device_bytes": peak, "planned_device_bytes": plan,
-            "whole_solve_wall_s": wall_whole}
+            "whole_solve_wall_s": wall_whole,
+            "segment_kernel_ms": events_ms(events),
+            "variant": pdhg_variant(lp100.m, lp100.n)}
     info.update(_pdhg_info(res))
+    info.update(pdhg_bound(lp100.m, lp100.n, lp100.batch, res.iterations))
     emit(info)
-    return launches
+    return launches, info
 
 
 def pdhg_warm(g, g64, shape):
@@ -1238,8 +1258,8 @@ def compare_pdhg(name, lp, rule, n_lp=SLICE, n_plain=512, max_iters=None,
     import numpy as np
     import torch
     from repro_torch.core.pdhg import default_pdhg_max_iters
-    from repro_torch.kernels.pdhg_tile import (a_in_smem, pdhg_tile,
-                                               pdhg_tile_plain)
+    from repro_torch.kernels.pdhg_tile import (pdhg_tile, pdhg_tile_plain,
+                                               variant)
     _, (A, b, c, ub) = _pdhg_sub(lp, n_lp)
     m, n, k = lp.m, lp.n, n_plain
     if max_iters is None:
@@ -1261,7 +1281,7 @@ def compare_pdhg(name, lp, rule, n_lp=SLICE, n_plain=512, max_iters=None,
     iters = got[3].cpu().numpy()
     out = {"compare_pdhg": name, "step_rule": rule, "lps": n_lp,
            "plain_lps": k, "max_iters": max_iters,
-           "a_in_smem": a_in_smem(m, n),
+           "variant": variant(m, n),
            "status_counts": np.bincount(got[2].cpu().numpy().astype(int),
                                         minlength=4).tolist(),
            "plain_status_counts": plain_counts,
@@ -1289,7 +1309,8 @@ def compare_pdhg_segment(name, lp, n_lp=SLICE, n_plain=512, steps=8,
     import torch
     from repro_torch.core.pdhg import PdhgState, init_pdhg_state, segment_pdhg
     from repro_torch.kernels.pdhg_tile import (pdhg_segment_tile,
-                                               pdhg_segment_tile_plain)
+                                               pdhg_segment_tile_plain,
+                                               variant)
     _, (A, b, c, ub) = _pdhg_sub(lp, n_lp)
     mid, _ = segment_pdhg(init_pdhg_state(A, b, c, ub), 3, tol=1e-5,
                           max_rounds=max_rounds)
@@ -1303,7 +1324,8 @@ def compare_pdhg_segment(name, lp, n_lp=SLICE, n_plain=512, steps=8,
         torch.testing.assert_close(g[:k], w, rtol=0, atol=0, equal_nan=True,
                                    msg=f"{name} segment {leaf}")
     out = {"compare_pdhg_segment": name, "lps": n_lp, "plain_lps": k,
-           "rounds": steps, "rounds_max": int(it.max()),
+           "variant": variant(lp.m, lp.n), "rounds": steps,
+           "rounds_max": int(it.max()),
            "running_after": int((got.status == -1).sum()),
            "max_abs_err": max_err((g[:k], w) for g, w in zip(got, want)),
            "ms": ms, "plain_ms": plain_ms}
@@ -1454,6 +1476,256 @@ def pdhg_full_batch(lp):
     del As, x, y, b, c, ub
     torch.cuda.empty_cache()
     return info
+
+
+# ---- the PDHG kernel's builds: cycle counters, the parent's source --------
+
+TRACE_PHASES = ("aty", "ax", "update", "barrier", "kkt_matvecs",
+                "check_reductions", "ray_matvecs", "check_other", "other")
+
+
+def _pdhg_module():
+    import importlib
+    return importlib.import_module("repro_torch.kernels.pdhg_tile")
+
+
+def pdhg_variant(m, n):
+    return _pdhg_module().variant(m, n)
+
+
+def _pdhg_argtypes(lib, *extra):
+    import ctypes
+    fn = lib.pdhg_launch if not extra else lib.pdhg_launch_variant
+    fn.argtypes = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] + list(extra))
+    fn.restype = ctypes.c_int
+
+
+class _Forced:
+    """A traced pdhg_tile build whose pdhg_launch runs one variant."""
+
+    def __init__(self, lib, variant, threads):
+        self.lib, self.variant, self.threads = lib, variant, threads
+
+    def pdhg_launch(self, *args):
+        args = list(args)
+        args[-2] = self.threads(*args[28:30])   # (m, n) -> threads
+        return self.lib.pdhg_launch_variant(*args, self.variant)
+
+
+def old_threads(m, n):
+    """Threads a block of the warp design (the shared and device
+    variants)."""
+    return 128 if max(m, n) < 64 else 256
+
+
+@contextlib.contextmanager
+def pdhg_library(lib, threads=None):
+    """The PDHG wrappers launch through ``lib`` (a pdhg_tile build, or a
+    _Forced one), with ``threads(m, n)`` threads a block where given."""
+    mod = _pdhg_module()
+    saved = mod._lib, mod.block_threads
+    mod._lib = lambda: lib
+    if threads is not None:
+        mod.block_threads = threads
+    try:
+        yield
+    finally:
+        mod._lib, mod.block_threads = saved
+
+
+@contextlib.contextmanager
+def segment_events():
+    """CUDA events around every segment launch of the PDHG kernel inside
+    the block: yields the list of (start, end) pairs, read after a
+    synchronize."""
+    import torch
+    mod = _pdhg_module()
+    launch, events = mod._launch, []
+
+    def timed_launch(state, **kw):
+        if kw.get("mode") != "segment":
+            return launch(state, **kw)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        launch(state, **kw)
+        pair[1].record()
+        events.append(pair)
+    mod._launch = timed_launch
+    try:
+        yield events
+    finally:
+        mod._launch = launch
+
+
+def events_ms(events):
+    import torch
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events)
+
+
+def pdhg_trace_build():
+    """The pdhg_tile build with the cycle counters (-DPDHG_TRACE)."""
+    from repro_torch.kernels import _build
+    return _build.build(("pdhg_tile",), ("-DPDHG_TRACE",))
+
+
+def pdhg_ptxas():
+    """Registers, stack frame and spills of every pdhg_kernel
+    instantiation, from the build's -Xptxas -v report; fails on a
+    spill."""
+    import re
+    from repro_torch.kernels import _build
+    log = _build.library_path("pdhg_tile").with_suffix(".log").read_text()
+    rows, name, frame = [], None, None
+    for line in log.splitlines():
+        got = re.search(r"entry function '\S*pdhg_kernelILi(\d)ENS_\d+"
+                        r"(RegMv|WarpMv)I(\w*?)EE", line)
+        if got:
+            mode, kind, params = got.groups()
+            args = ",".join(re.findall(r"L[ib](\d+)", params))
+            name = f"mode {mode} {kind}<{args}>"
+            continue
+        got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", line)
+        if got and name:
+            frame = [int(v) for v in got.groups()]
+            continue
+        got = re.search(r"Used (\d+) registers", line)
+        if got and name and frame:
+            rows.append({"kernel": name, "registers": int(got.group(1)),
+                         "stack_bytes": frame[0],
+                         "spill_store_bytes": frame[1],
+                         "spill_load_bytes": frame[2]})
+            name = frame = None
+    # 3 modes x 4 matvec variants (2 register shapes, shared, device)
+    assert len(rows) == 12, rows
+    assert all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
+               for r in rows), rows
+    emit({"pdhg_ptxas": rows})
+    return rows
+
+
+def pdhg_trace(lp, name="lp_100d_50k", n_lp=SLICE, max_iters=PDHG_PLAIN_CAP):
+    """The whole-solve kernel's cycles by phase (thread 0 of each block,
+    clock64; the -DPDHG_TRACE build) on the first n_lp LPs, fixed step, in
+    the shared variant (the warp design, A in shared memory) and in the registers
+    variant, one after the other: each variant's shares, block cycles an
+    LP-iteration, and equal outputs."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pdhg_tile import VARIANTS, pdhg_tile
+    lib = _build.load("pdhg_tile", ("-DPDHG_TRACE",))
+    _pdhg_argtypes(lib)
+    _pdhg_argtypes(lib, ctypes.c_int)
+    nph = lib.pdhg_trace_phases()
+    assert nph == len(TRACE_PHASES), nph
+    _, (A, b, c, ub) = _pdhg_sub(lp, n_lp)
+    kw = dict(m=lp.m, n=lp.n, max_iters=max_iters)
+    outs, rows = {}, []
+    for variant in ("shared", "registers"):
+        threads = (old_threads if variant != "registers"
+                   else _pdhg_module().block_threads)
+        assert lib.pdhg_trace_reset() == 0
+        with pdhg_library(_Forced(lib, VARIANTS.index(variant), threads)):
+            got, ms = timed(lambda: pdhg_tile(A, b, c, ub, **kw))
+        buf = (ctypes.c_ulonglong * (nph + 1))()
+        assert lib.pdhg_trace_read(buf) == 0
+        cycles = list(buf[:nph])
+        total = sum(cycles)
+        iters = int(got[3].sum())
+        outs[variant] = got
+        row = {"pdhg_trace": name, "variant": variant, "lps": n_lp,
+               "max_iters": max_iters, "traced_ms": ms,
+               "blocks": int(buf[nph]), "iterations_sum": iters,
+               "block_cycles_per_lp_iteration": total / iters,
+               "shares": {k: v / total for k, v in zip(TRACE_PHASES, cycles)},
+               "cycles": dict(zip(TRACE_PHASES, cycles))}
+        emit(row)
+        rows.append(row)
+    for g, w in zip(outs["registers"], outs["shared"]):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    return rows
+
+
+def pdhg_ab(parent_src, lp):
+    """The parent's PDHG kernel (built from ``parent_src``) against this
+    tree's on the same inputs, in turns (parent, new, new, parent): the
+    whole-solve kernel on all of ``lp`` and on its first SLICE LPs at
+    max_iters PDHG_PLAIN_CAP, solve_batched(backend="pdhg") wall time, and
+    compaction=True with its segment launches summed.  Every pair of
+    outputs equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import solve_batched
+    from repro_torch.core.pdhg import default_pdhg_max_iters
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pdhg_tile import pdhg_tile
+    parent = _build.load("pdhg_tile_parent", src=parent_src)
+    _pdhg_argtypes(parent)
+    m, n = lp.m, lp.n
+    order = ("parent", "new", "new", "parent")
+
+    def turn(which):
+        return (pdhg_library(parent, old_threads) if which == "parent"
+                else contextlib.nullcontext())
+
+    A, b, c, ub = batch_tensors(lp, torch.device("cuda"))
+    for what, k, cap in (("slice", SLICE, PDHG_PLAIN_CAP),
+                         ("all", lp.batch, default_pdhg_max_iters(m, n))):
+        ms, first = {}, None
+        for which in order:
+            with turn(which):
+                got, t = timed(lambda: pdhg_tile(A[:k], b[:k], c[:k], ub[:k],
+                                                 m=m, n=n, max_iters=cap))
+            ms.setdefault(which, []).append(t)
+            if first is None:
+                first = got
+            else:
+                for g, w in zip(got, first):
+                    torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                               equal_nan=True)
+        iters = first[3].cpu().numpy()
+        out = {"pdhg_ab": "lp_100d_50k", "what": f"whole-solve kernel, {what}",
+               "lps": k, "max_iters": cap, "parent_ms": ms["parent"],
+               "new_ms": ms["new"], "variant": pdhg_variant(m, n),
+               "max_iterations": int(iters.max()),
+               "status_counts": np.bincount(
+                   first[2].cpu().numpy().astype(int), minlength=4).tolist(),
+               "bitwise_equal": True}
+        out.update(pdhg_bound(m, n, k, iters))
+        emit(out)
+        del first, got
+    del A, b, c, ub
+    torch.cuda.empty_cache()
+    for compaction in (False, True):
+        wall, kern, first = {}, {}, None
+        for which in order:
+            with turn(which), segment_events() as events:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve_batched(lp, backend="pdhg", compaction=compaction)
+                wall.setdefault(which, []).append(time.perf_counter() - t0)
+                if compaction:
+                    kern.setdefault(which, []).append(events_ms(events))
+            if first is None:
+                first = res
+            else:
+                assert same_result(res, first, ("status", "iterations", "x",
+                                                "objective", "y", "z"))
+        emit({"pdhg_ab": "lp_100d_50k",
+              "what": "solve_batched(backend='pdhg', compaction=%s)"
+                      % compaction,
+              "lps": lp.batch, "parent_wall_s": wall["parent"],
+              "new_wall_s": wall["new"],
+              "parent_segment_kernel_ms": kern.get("parent"),
+              "new_segment_kernel_ms": kern.get("new"),
+              "bitwise_equal": True})
+        del first, res
 
 
 # ---- falcon-mamba-7b serving (models/, csrc/ssm_scan.cu) ------------------
@@ -1894,11 +2166,37 @@ def training():
     return info
 
 
-def main() -> int:
+def pdhg_only(parent_src) -> int:
+    """Build, trace the PDHG kernel on the lp_100d_50k slice and time it
+    against the pdhg_tile.cu at ``parent_src`` in turns."""
+    import numpy as np
+    from repro_torch.core import random_lp_batch
+    from repro_torch.kernels import _build
+    took = _build.build(("pdhg_tile",))
+    pdhg_trace_build()
+    emit({"build": took})
+    pdhg_ptxas()
+    lp100 = random_lp_batch(np.random.default_rng(2018), B=50_000, m=100,
+                            n=100, feasible_start=False)
+    pdhg_trace(lp100)
+    pdhg_ab(parent_src, lp100)
+    print(gpu_line(), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pdhg-parent", metavar="SRC",
+                    help="run only the PDHG kernel's trace and its timing "
+                         "against the pdhg_tile.cu at SRC, in turns")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.pdhg_parent:
+        return pdhg_only(args.pdhg_parent)
     import numpy as np
     from repro_torch.core import LPBatch, canonicalize, random_lp_batch
     from repro_torch.io import fixture_path, perturbed_batch, read_mps
@@ -1906,6 +2204,9 @@ def main() -> int:
     from repro_torch.kernels.simplex_tile import tableau_in_smem
 
     t_start = time.perf_counter()
+    # the PDHG kernel with cycle counters builds beside the others
+    trace_build = threading.Thread(target=pdhg_trace_build)
+    trace_build.start()
     took = _build.build()
     ptxas = []
     for name in _build.SOURCES:
@@ -1914,6 +2215,7 @@ def main() -> int:
                   if "registers" in ln or "spill" in ln]
     emit({"build_s": time.perf_counter() - t_start, "nvcc_s": took,
           "ptxas": ptxas[:40]})
+    pdhg_ptxas()
     # create the CUDA context before any timed run, so that no main-path
     # wall time includes it
     t0 = time.perf_counter()
@@ -1994,31 +2296,49 @@ def main() -> int:
     # ---- restarted PDHG: the whole-solve and segment kernels --------------
     res_pdhg, launches_pdhg, wall_pdhg = pdhg_main(
         "lp_100d_50k", lp100, head, (lp100.m, lp100.n), res_100)
-    launches_pdhg_seg = pdhg_compaction_main(lp100, res_pdhg, wall_pdhg)
+    launches_pdhg_seg, pdhg_comp = pdhg_compaction_main(lp100, res_pdhg,
+                                                        wall_pdhg)
     del res_pdhg
     launches_pdhg += pdhg_warm(g, g64, (lp_af.m, lp_af.n))
-    pdhg_row, _ = compare_pdhg("lp_100d_50k", lp100, "fixed",
-                               max_iters=PDHG_PLAIN_CAP)
+    # every variant and step rule against the plain version: registers
+    # (lp_100d_50k 256 threads, lp_afiro_100k one warp), shared
+    # (sc205_like), device (lp_300d_2k)
+    pdhg_rows = [compare_pdhg("lp_100d_50k", lp100, "fixed",
+                              max_iters=PDHG_PLAIN_CAP)[0]]
     pdhg_seg_row = compare_pdhg_schedule("lp_100d_50k", lp100)
-    pdhg_launch_row = compare_pdhg_segment("lp_100d_50k", lp100)
+    seg_launch_rows = [compare_pdhg_segment("lp_100d_50k", lp100)]
     # the linesearch costs the plain version up to 13 matvecs an iteration:
     # a shorter budget and the first 128 LPs
-    compare_pdhg("lp_100d_50k", lp100, "malitsky_pock", n_plain=128,
-                 max_iters=1600)
-    compare_pdhg("lp_afiro_100k", lp_af, "fixed")
+    pdhg_rows.append(compare_pdhg("lp_100d_50k", lp100, "malitsky_pock",
+                                  n_plain=128, max_iters=1600)[0])
+    pdhg_rows.append(compare_pdhg("lp_afiro_100k", lp_af, "fixed")[0])
+    pdhg_rows.append(compare_pdhg("lp_afiro_100k", lp_af, "malitsky_pock",
+                                  n_plain=128, max_iters=1600)[0])
+    seg_launch_rows.append(compare_pdhg_segment("lp_afiro_100k", lp_af))
     # sc205_like: A in shared memory, one block per SM, at a budget that
     # keeps the plain version's lockstep loop short; lp_300d_2k: the
     # device-memory variant, whose members need 19,000 iterations and more,
     # at a cap where some converge, the plain version on those the kernel
     # solved first and on members still running at the cap
-    compare_pdhg("sc205_like_2k", sc205, "fixed", n_plain=128,
-                 max_iters=4000)
+    pdhg_rows.append(compare_pdhg("sc205_like_2k", sc205, "fixed",
+                                  n_plain=128, max_iters=4000)[0])
+    pdhg_rows.append(compare_pdhg("sc205_like_2k", sc205, "malitsky_pock",
+                                  n_plain=32, max_iters=800)[0])
+    seg_launch_rows.append(compare_pdhg_segment("sc205_like_2k", sc205,
+                                                n_plain=128))
     lp300 = random_lp_batch(np.random.default_rng(2018), B=256, m=300, n=300)
-    compare_pdhg("lp_300d_2k", lp300, "fixed", n_lp=256, n_plain=64,
-                 max_iters=40_000, solved_first=True)
+    pdhg_rows.append(compare_pdhg("lp_300d_2k", lp300, "fixed", n_lp=256,
+                                  n_plain=64, max_iters=40_000,
+                                  solved_first=True)[0])
+    pdhg_rows.append(compare_pdhg("lp_300d_2k", lp300, "malitsky_pock",
+                                  n_lp=256, n_plain=16, max_iters=800)[0])
+    seg_launch_rows.append(compare_pdhg_segment("lp_300d_2k", lp300,
+                                                n_lp=256, n_plain=64))
     del lp300
     pdhg_sparse("sc205_like_2k", sc205, max_iters=20_000)
     pdhg_full = pdhg_full_batch(lp100)
+    trace_build.join()
+    pdhg_trace(lp100)
     del lp100, res_100, g, lp_af, sc205
     torch.cuda.empty_cache()
 
@@ -2034,6 +2354,7 @@ def main() -> int:
 
     main_row = rows[0]   # lp_100d_50k slice, dantzig: the paper's rule
     seg_row = seg_rows[0]
+    pdhg_row = pdhg_rows[0]   # lp_100d_50k slice, fixed step
     emit({"kernels": [{
         "name": "simplex_tile", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/simplex_tile.cu",
@@ -2081,31 +2402,45 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/pdhg_tile.cu",
         "replaces": "src/repro/kernels/pdhg_tile.py:268",
         "launches": launches_pdhg,
-        "max_abs_err": pdhg_row["max_abs_err"], "ms": pdhg_row["ms"],
+        "max_abs_err": max(r["max_abs_err"] for r in pdhg_rows),
+        "ms": pdhg_row["ms"],
         "plain_ms": pdhg_row["plain_ms"], "bound_ms": pdhg_row["bound_ms"],
         "bound_by": pdhg_row["bound_by"], "library_ms": None,
+        "variant": pdhg_row["variant"],
         "slice_max_iters": pdhg_row["max_iters"],
         "plain_lps": pdhg_row["plain_lps"],
         "full_batch_ms": pdhg_full["ms"],
         "full_batch_bound_ms": pdhg_full["bound_ms"],
+        "shapes": [{k: r[k] for k in (
+            "compare_pdhg", "step_rule", "variant", "lps", "max_iters",
+            "ms", "bound_ms", "plain_ms", "plain_lps", "max_abs_err")}
+            for r in pdhg_rows],
         "parity": "every output equal (NaN where NaN): both step rules, "
-                  "lp_100d_50k, lp_afiro_100k, sc205_like (A in shared "
-                  "memory) and lp_300d_2k (A in device memory)"}, {
+                  "lp_100d_50k and lp_afiro_100k (A in registers), "
+                  "sc205_like (A in shared memory) and lp_300d_2k (A in "
+                  "device memory)"}, {
         "name": "pdhg_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pdhg_tile.cu",
         "replaces": "src/repro/kernels/pdhg_tile.py:469",
         "launches": launches_pdhg_seg,
-        "max_abs_err": max(pdhg_seg_row["max_abs_err"],
-                           pdhg_launch_row["max_abs_err"]),
+        "max_abs_err": max([pdhg_seg_row["max_abs_err"]]
+                           + [r["max_abs_err"] for r in seg_launch_rows]),
         "ms": pdhg_seg_row["ms"],
         "plain_ms": pdhg_seg_row["plain_ms"],
         "bound_ms": pdhg_seg_row["bound_ms"],
         "bound_by": pdhg_seg_row["bound_by"], "library_ms": None,
+        "variant": pdhg_comp["variant"],
         "plain_lps": pdhg_seg_row["plain_lps"],
-        "parity": "one launch leaf by leaf; the kernel-backed schedule "
-                  "equal to the plain-backed one and to the whole solve; "
-                  "compaction=True on all 50,000 equal to the whole "
-                  "solve"}, {
+        "full_batch_ms": pdhg_comp["segment_kernel_ms"],
+        "full_batch_bound_ms": pdhg_comp["bound_ms"],
+        "shapes": [{k: r[k] for k in (
+            "compare_pdhg_segment", "variant", "lps", "rounds", "ms",
+            "plain_ms", "plain_lps", "max_abs_err")}
+            for r in seg_launch_rows],
+        "parity": "one launch leaf by leaf in each variant; the "
+                  "kernel-backed schedule equal to the plain-backed one and "
+                  "to the whole solve; compaction=True on all 50,000 equal "
+                  "to the whole solve"}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:44",

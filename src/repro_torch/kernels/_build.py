@@ -41,25 +41,35 @@ def nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+def source(name: str, src=None) -> Path:
+    """The source of library ``name``: ``csrc/<name>.cu``, or ``src``."""
+    return CSRC / f"{name}.cu" if src is None else Path(src)
 
 
-def build(names=SOURCES) -> dict:
+def library_path(name: str, extra=(), src=None) -> Path:
+    """Where library ``name`` built from ``source(name, src)`` with the
+    extra nvcc flags ``extra`` lands."""
+    flags = " ".join(NVCC_FLAGS + tuple(extra)).encode()
+    digest = hashlib.sha256(source(name, src).read_bytes() + flags)
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES, extra=(), src=None) -> dict:
     """Compile every library in ``names`` that is not built yet, one nvcc
-    per source, all started together.  Returns ``{name: seconds}`` for the
-    ones compiled; raises with nvcc's output when one fails.  The compiler
-    report (-Xptxas -v) is kept beside each library as ``.log``."""
+    per source, all started together, with the extra flags ``extra`` (and
+    from ``src`` instead of csrc/, for one name).  Returns ``{name:
+    seconds}`` for the ones compiled; raises with nvcc's output when one
+    fails.  The compiler report (-Xptxas -v) is kept beside each library as
+    ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, extra, src)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+               str(source(name, src))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -75,7 +85,8 @@ def build(names=SOURCES) -> dict:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The built library ``name`` (building it first if needed)."""
-    build((name,))
-    return ctypes.CDLL(str(library_path(name)))
+def load(name: str, extra=(), src=None) -> ctypes.CDLL:
+    """The built library ``name`` (building it first if needed), with the
+    extra nvcc flags ``extra`` and from ``src`` where given."""
+    build((name,), extra, src)
+    return ctypes.CDLL(str(library_path(name, extra, src)))

@@ -3,7 +3,8 @@ PyTorch versions.
 
 ``pdhg_tile`` is the counterpart of ``repro.kernels.pdhg_tile.pdhg_pallas``
 and its ``_pdhg_kernel``: a whole restarted-PDHG solve per LP, one thread
-block per LP, the Ruiz-scaled ``A`` in shared memory.  Setup (Ruiz
+block per LP, the Ruiz-scaled ``A`` in registers, shared memory or device
+memory by shape (``variant``).  Setup (Ruiz
 equilibration, the power iteration, warm injection) runs in torch on the
 device (core/pdhg.py ``solve_pdhg``), as the reference runs it outside its
 kernel; the launch runs every round and writes the extraction and the warm
@@ -42,11 +43,20 @@ from .simplex_tile import _check_leaves
 MODES = {"segment": 0, "fixed": 1, "malitsky_pock": 2}
 # The kernel's tree sums hold at most 16 terms a lane (csrc/pdhg_tile.cu).
 MAX_DIM = 512
+VARIANTS = ("registers", "shared", "device")
+# The register shapes of csrc/pdhg_tile.cu (RegWarp, RegBlock): up to
+# (rows, columns), threads a block.
+REGISTER_SHAPES = ((64, 32, 32), (112, 112, 256))
 
 
 def block_threads(m: int, n: int) -> int:
-    """Threads per block: 256 (eight warps share the rows and columns of
-    the matvecs), 128 for LPs with fewer than 64 rows and columns."""
+    """Threads per block of the variant that runs (m, n): a register
+    shape's (32: one warp holds whole rows; 256: 16 x 16 threads), else
+    the warp design's 256 (eight warps share the rows and columns of the
+    matvecs), 128 for LPs with fewer than 64 rows and columns."""
+    for rows, cols, threads in REGISTER_SHAPES:
+        if m <= rows and n <= cols:
+            return threads
     return 128 if max(m, n) < 64 else 256
 
 
@@ -59,24 +69,27 @@ def _lib():
     lib.pdhg_launch.restype = ctypes.c_int
     lib.pdhg_tile_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.pdhg_tile_smem_bytes.restype = ctypes.c_longlong
-    lib.pdhg_tile_a_in_smem.argtypes = [ctypes.c_int] * 2
-    lib.pdhg_tile_a_in_smem.restype = ctypes.c_int
+    for fn in (lib.pdhg_tile_variant, lib.pdhg_tile_threads):
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
     return lib
 
 
 def smem_bytes(m: int, n: int, *, a_smem: bool = True) -> int:
-    """Dynamic shared memory of one block, with ``A`` in shared memory or
-    (``a_smem=False``) read from device memory.  Needs the built kernel."""
+    """Dynamic shared memory of one block of the shared variant, or
+    (``a_smem=False``) of the device variant.  Needs the built kernel."""
     return int(_lib().pdhg_tile_smem_bytes(m, n, int(a_smem)))
 
 
-def a_in_smem(m: int, n: int) -> bool:
-    """Whether the kernel keeps ``A`` in shared memory on the current card.
-    Needs the built kernel and a card."""
-    got = _lib().pdhg_tile_a_in_smem(m, n)
+def variant(m: int, n: int) -> str:
+    """The variant the kernel runs for (m, n) on the current card:
+    ``"registers"`` (``A`` in registers, m, n <= 112), ``"shared"`` (``A``
+    in shared memory: it fits, and m, n <= 256) or ``"device"``.  Needs the
+    built kernel and a card."""
+    got = _lib().pdhg_tile_variant(m, n)
     if got < 0:
         raise RuntimeError(f"pdhg_tile: CUDA error {-got}")
-    return bool(got)
+    return VARIANTS[got]
 
 
 def _check_state(state: PdhgState, m: int, n: int):

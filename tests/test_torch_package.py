@@ -47,7 +47,7 @@ from repro_torch.kernels.revised_tile import (smem_bytes as
 from repro_torch.kernels.revised_tile import workspace_in_smem
 from repro_torch.kernels.ops import (KernelBackend, solve_batched_kernel,
                                      solve_hyperbox_kernel)
-from repro_torch.kernels.pdhg_tile import a_in_smem as pdhg_a_in_smem
+from repro_torch.kernels.pdhg_tile import variant as pdhg_variant
 from repro_torch.kernels.pdhg_tile import block_threads as pdhg_threads
 from repro_torch.kernels.pdhg_tile import smem_bytes as pdhg_smem_bytes
 from repro_torch.kernels.simplex_tile import (WORK_COUNTERS, block_threads,
@@ -651,18 +651,39 @@ def test_pdhg_kernel_source_is_built_with_the_others():
     assert "pdhg_launch" in text
     for name in ("_pdhg_kernel", "_pdhg_segment_kernel"):  # what it replaces
         assert name in text
-    for m, n in ((100, 100), (35, 32), (246, 159), (300, 300)):
-        assert pdhg_threads(m, n) in (128, 256)
+    # the register shapes: one warp holds whole rows up to 64 x 32, 16 x 16
+    # threads up to 112 x 112; beyond them the warp design's 128 or 256
+    for (m, n), threads in {(35, 32): 32, (64, 32): 32, (4, 5): 32,
+                            (65, 32): 256, (64, 33): 256, (100, 100): 256,
+                            (112, 112): 256, (113, 40): 256,
+                            (40, 113): 256, (246, 159): 256,
+                            (300, 300): 256, (300, 40): 256}.items():
+        assert pdhg_threads(m, n) == threads, (m, n)
+    assert "pdhg_tile_variant" in text and "pdhg_tile_a_in_smem" not in text
+
+
+# (m, n): the variant the kernel runs, at and beside the register budget's
+# edges (64 x 32 for one warp, 112 x 112 for 256 threads)
+PDHG_VARIANTS = {(100, 100): "registers", (35, 32): "registers",
+                 (64, 32): "registers", (65, 33): "registers",
+                 (112, 112): "registers", (113, 112): "shared",
+                 (112, 113): "shared", (246, 159): "shared",
+                 (256, 256): "device", (300, 300): "device",
+                 (300, 40): "device"}
 
 
 @pytest.mark.gpu
 def test_pdhg_shared_memory_budget():
+    """The dispatch by shape: registers, shared or device memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and the built kernel")
-    assert pdhg_a_in_smem(100, 100) and pdhg_a_in_smem(35, 32)
-    assert pdhg_a_in_smem(246, 159)
-    assert not pdhg_a_in_smem(300, 300)
-    assert not pdhg_a_in_smem(300, 40)   # fits, but more than 256 rows
+    lib = _build.load("pdhg_tile")
+    for (m, n), want in PDHG_VARIANTS.items():
+        assert pdhg_variant(m, n) == want, (m, n)
+        # the launcher takes only the threads block_threads gives
+        assert lib.pdhg_tile_threads(m, n) == pdhg_threads(m, n), (m, n)
+    # 256 x 256 is within the warp design's 256 rows but A does not fit
+    assert pdhg_smem_bytes(256, 256) > 227 * 1024
     for m, n in ((100, 100), (246, 159)):
         assert (pdhg_smem_bytes(m, n) - pdhg_smem_bytes(m, n, a_smem=False)) \
             == 4 * m * (n | 1)
@@ -677,10 +698,18 @@ def test_pdhg_kernel_matches_plain_version_on_the_card(rule):
     rng = np.random.default_rng(5)
     sc, _ = canonicalize(perturbed_batch(read_mps(fixture_path("sc205_like")),
                                          3, rng))
-    for batch, cap in ((random_lp_batch(rng, B=64, m=30, n=24,
-                                        feasible_start=False), 4000),
-                       (sc, 320)):
+    # one shape of each variant: registers (one warp; 16 x 16 threads),
+    # shared, device
+    for batch, cap, want in (
+            (random_lp_batch(rng, B=64, m=30, n=24, feasible_start=False),
+             4000, "registers"),
+            (random_lp_batch(rng, B=6, m=100, n=100, feasible_start=False),
+             640, "registers"),
+            (sc, 320, "shared"),
+            (random_lp_batch(rng, B=4, m=300, n=40, feasible_start=False),
+             320, "device")):
         m, n = batch.m, batch.n
+        assert pdhg_variant(m, n) == want
         A, b, c, ub = batch_tensors(batch, dev)
         before = pdhg_tile.launches
         got = pdhg_tile(A, b, c, ub, m=m, n=n, max_iters=cap, step_rule=rule)
@@ -696,20 +725,28 @@ def test_pdhg_kernel_matches_plain_version_on_the_card(rule):
 def test_pdhg_segment_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    state, _, m, n = _pdhg_state(seed=2, B=64, m=30, n=24,
-                                 device=torch.device("cuda"))
-    for _ in range(3):
-        before = pdhg_segment_tile.launches
-        got, it = pdhg_segment_tile(PdhgState(*(t.clone() for t in state)),
-                                    7, m=m, n=n, max_rounds=40)
-        torch.cuda.synchronize()
-        assert pdhg_segment_tile.launches == before + 1
-        want, want_it = pdhg_segment_tile_plain(state, 7, max_rounds=40)
-        torch.testing.assert_close(it, want_it, rtol=0, atol=0)
-        for name, g, w in zip(PdhgState._fields, got, want):
-            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
-                                       msg=name)
-        state = want
+    # one shape of each variant: registers (one warp; 16 x 16 threads),
+    # shared, device
+    for (B, m, n), want_variant in (((64, 30, 24), "registers"),
+                                    ((6, 100, 100), "registers"),
+                                    ((4, 120, 130), "shared"),
+                                    ((4, 300, 40), "device")):
+        assert pdhg_variant(m, n) == want_variant
+        state, _, m, n = _pdhg_state(seed=2, B=B, m=m, n=n,
+                                     device=torch.device("cuda"))
+        for _ in range(3):
+            before = pdhg_segment_tile.launches
+            got, it = pdhg_segment_tile(
+                PdhgState(*(t.clone() for t in state)), 7, m=m, n=n,
+                max_rounds=40)
+            torch.cuda.synchronize()
+            assert pdhg_segment_tile.launches == before + 1
+            want, want_it = pdhg_segment_tile_plain(state, 7, max_rounds=40)
+            torch.testing.assert_close(it, want_it, rtol=0, atol=0)
+            for name, g, w in zip(PdhgState._fields, got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                           equal_nan=True, msg=name)
+            state = want
 
 
 @pytest.mark.gpu

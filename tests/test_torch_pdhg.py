@@ -215,6 +215,177 @@ def test_tree_sum_is_the_halving_order(L):
 
 
 # ---------------------------------------------------------------------------
+# the identity the kernel's register layout rests on (csrc/pdhg_tile.cu,
+# RegMv): within tree_sum's halving tree, the terms {r, r + S, ...} of a
+# power-of-two stride S form the subtree of node r at level S, so summing
+# each residue class in tree order, then the S partials, is tree_sum.
+# These helpers model the layout in numpy float32, one rounding an add.
+# ---------------------------------------------------------------------------
+
+def _pow2(L):
+    return 1 << max(0, L - 1).bit_length()
+
+
+def _terms(rng, shape):
+    """float32 terms over twelve decades (so the order of the adds shows
+    in the rounding), with +0 and -0 among them."""
+    t = rng.standard_normal(shape) * 10.0 ** rng.integers(-6, 7, shape)
+    t = t.astype(np.float32)
+    z = rng.random(shape)
+    t[z < 0.1] = -0.0
+    t[(z >= 0.1) & (z < 0.15)] = 0.0
+    return t
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+def _class_partials(t, S, P, K=None):
+    """The thread-local phase: class r of stride S (terms r + S k, K slots,
+    zero-padded) summed over the tree levels h = S hs that exist (2h <=
+    P), in tree order.  t (..., L) -> (..., S)."""
+    L = t.shape[-1]
+    K = K or _pow2(-(-L // S))
+    pad = np.zeros(t.shape[:-1] + (S * K - L,), np.float32)
+    u = np.concatenate([t, pad], -1).reshape(t.shape[:-1] + (K, S))
+    hs = K // 2
+    while hs >= 1:
+        lo = u[..., :hs, :]
+        u = lo + u[..., hs:2 * hs, :] if 2 * S * hs <= P else lo
+        hs //= 2
+    return u[..., 0, :]
+
+
+def _across(v, P, h_min=1):
+    """The levels h = S/2 ... h_min over the last axis (S partials), each
+    where it exists (2h <= P); returns the first h_min nodes."""
+    h = v.shape[-1] // 2
+    while h >= h_min:
+        lo = v[..., :h]
+        v = lo + v[..., h:2 * h] if 2 * h <= P else lo
+        h //= 2
+    return v
+
+
+def _halving(v, dists, P, unit=1):
+    """Recursive halving across lanes (RegMv's bfly): v (lanes, CNT); at
+    xor distance d a lane keeps the upper half of its values if its bit d
+    is set, else the lower half, and adds its partner's copy; once one
+    value is left both lanes add.  A level (h = d / unit) that the tree
+    lacks (2h > P) passes the lower lane's values on.  Returns the values
+    and each lane's first kept slot."""
+    lanes = np.arange(v.shape[0])
+    base = np.zeros_like(lanes)
+    for d in dists:
+        up = (lanes & d) != 0
+        ex = 2 * (d // unit) <= P
+        partner = lanes ^ d
+        cnt = v.shape[1]
+        if cnt > 1:
+            H = cnt // 2
+            keep = np.where(up[:, None], v[:, H:], v[:, :H])
+            send = np.where(up[:, None], v[:, :H], v[:, H:])
+            got = send[partner]
+            base = base + np.where(up, H, 0)
+        else:
+            keep, got = v, v[partner]
+        v = keep + got if ex else np.where(up[:, None], got, keep)
+    return v, base
+
+
+@pytest.mark.parametrize("S", [1 << k for k in range(10)])
+def test_class_sums_then_partials_equal_tree_sum(S):
+    """For every length 1 ... 512 (P up to 512) and stride S, S <= P or
+    not (a short sum: only the levels P/2 ... 1 exist), and with more
+    slots a class than it needs: equal to tree_sum bit for bit, signed
+    zeros included."""
+    rng = _rng(S)
+    for L in range(1, 513):
+        t = _terms(rng, (4, L))
+        P = _pow2(L)
+        want = tree_sum(torch.as_tensor(t), 1).numpy()
+        for K in {None, 2 * _pow2(-(-L // S))}:
+            got = _across(_class_partials(t, S, P, K), P)[..., 0]
+            np.testing.assert_array_equal(_bits(got), _bits(want),
+                                          err_msg=f"L={L} S={S} K={K}")
+
+
+def test_class_sums_keep_the_sign_of_a_zero_sum():
+    """A sum whose terms are all -0 is +0 in tree_sum (it adds +0
+    padding); the class sums keep the padded adds, so they agree."""
+    for L in (1, 3, 35, 100, 159, 246):
+        t = np.full((1, L), -0.0, np.float32)
+        P = _pow2(L)
+        want = tree_sum(torch.as_tensor(t), 1).numpy()
+        for S in (1, 4, 16, 32, 512):
+            got = _across(_class_partials(t, S, P), P)[..., 0]
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+    # a power-of-two length of -0 has no padding: -0 stays -0
+    t = np.full((1, 32), -0.0, np.float32)
+    assert _bits(tree_sum(torch.as_tensor(t), 1).numpy())[0] == 1 << 31
+    assert _bits(_across(_class_partials(t, 8, 32), 32)[..., 0])[0] == 1 << 31
+
+
+# (m, n, Sp, Sq, R, C): the kernel's two register shapes at the paper's
+# sizes, their edges, short sums, and the sizes of the other variants
+LAYOUTS = [(100, 100, 16, 16, 7, 7), (35, 32, 32, 1, 2, 32),
+           (112, 112, 16, 16, 7, 7), (64, 32, 32, 1, 2, 32),
+           (4, 5, 32, 1, 2, 32), (5, 100, 16, 16, 7, 7),
+           (100, 5, 16, 16, 7, 7), (65, 33, 16, 16, 7, 7),
+           (246, 159, 16, 16, 16, 10), (30, 24, 8, 4, 4, 6)]
+
+
+@pytest.mark.parametrize("m,n,sp,sq,R,C", LAYOUTS)
+def test_register_layout_matvecs_equal_tree_sum(m, n, sp, sq, R, C):
+    """A split into (p, q) classes, thread (p, q) holding A[i, j] for
+    i = p (mod Sp), j = q (mod Sq): A x from each row's q-class partials
+    and the halving across the Sq lanes, A^T y from each column's p-class
+    partials, the halving across the lanes of a warp (p's upper bits) and
+    the tree across the warps; every lane's kept values equal
+    tree_sum(A * x, 2) and tree_sum(A * y, 1) bit for bit."""
+    rng = _rng(m * n + sp)
+    A, x, y = _terms(rng, (m, n)), _terms(rng, (n,)), _terms(rng, (m,))
+    Pm, Pn = _pow2(m), _pow2(n)
+    ax = tree_sum(torch.as_tensor(A * x[None, :]), 1).numpy()
+    aty = tree_sum(torch.as_tensor(A * y[:, None]), 0).numpy()
+    Ap = np.zeros((sp * R, sq * C), np.float32)   # +0 outside the LP
+    Ap[:m, :n] = A
+    xp = np.zeros(sq * C, np.float32)
+    xp[:n] = x
+    yp = np.zeros(sp * R, np.float32)
+    yp[:m] = y
+    RP, CP = _pow2(R), _pow2(C)
+    # A x: per p, lanes q hold row partials (r = 0 .. RP-1), then halving
+    rows = _class_partials(Ap * xp[None, :], sq, Pn, CP)   # (sp R, sq)
+    for p in range(sp):
+        v = np.zeros((sq, RP), np.float32)
+        v[:, :R] = rows[p::sp].T
+        dists = [sq >> k for k in range(1, sq.bit_length())]
+        v, base = _halving(v, dists, Pn)
+        for q in range(sq):
+            for k in range(v.shape[1]):
+                i = p + sp * (base[q] + k)
+                if base[q] + k < R and i < m:
+                    assert _bits(v[q, k]) == _bits(ax[i]), (p, q, i)
+    # A^T y: lanes p of warp w hold column partials; halving over p's
+    # bits h = Sp/2 ... NW, then the NW warp nodes meet in a tree
+    nw = max(1, sp * sq // 32)
+    cols = _class_partials((Ap * yp[:, None]).T, sp, Pm, RP)   # (sq C, sp)
+    part = np.full((nw, sq * CP), np.nan, np.float32)
+    for q in range(sq):
+        v = np.zeros((sp, CP), np.float32)
+        v[:, :C] = cols[q::sq].T
+        dists = [h for h in (sp >> k for k in range(1, sp.bit_length()))
+                 if h >= nw]
+        v, base = _halving(v, dists, Pm)
+        for p in range(sp):
+            for k in range(v.shape[1]):
+                part[p % nw, q + sq * (base[p] + k)] = v[p, k]
+    got = _across(part[:, :n].T, Pm)[:, 0]
+    np.testing.assert_array_equal(_bits(got), _bits(aty))
+
+# ---------------------------------------------------------------------------
 # the plain kernels against the Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
