@@ -54,7 +54,11 @@ equal) and on sc205_like's device-memory variant (plain version on the
 first 128, max_iters 600); ``compaction=True`` on the slices through the
 kernel equals the plain-backed schedule bit for bit and the whole solve in
 statuses (objectives within rel 1e-3).  Last, the kernel is timed on all
-50,000 LPs of lp_100d_50k beside its bound.
+50,000 LPs of lp_100d_50k beside its bound, and its cycles are counted by
+phase (a build with -DREVISED_TRACE, made beside the others) on 2,048-LP
+slices of lp_100d_50k (both rules) and lp_afiro_100k; the registers,
+spills and stack of every instantiation are printed (``revised_ptxas``;
+any spill or stack fails the run).
 
 Restarted PDHG (after the revised path): ``solve_batched(lp_100d_50k,
 backend="pdhg")`` on all 50,000 LPs through the whole-solve PDHG kernel
@@ -125,6 +129,16 @@ multiple of the unroll, L not a multiple of the block; ``max_abs_err``
 0.0), and timed at (2, 512, 8192, 16) beside its bytes bound
 4(5BTL + 3BL), its plain version and a two-call yardstick that moves the
 same bytes.  Step seconds, tokens/s and peak device memory are printed.
+
+``python3 chip_smoke.py --revised-parent SRC`` runs only the revised
+kernel's trace and then times the kernel against the revised_tile.cu at SRC
+(another commit's, built beside this one) in turns (SRC, this, this, SRC),
+both rules: one whole-solve launch from the cold state over all 50,000 LPs
+of lp_100d_50k and over the 2,048-LP slices of lp_afiro_100k and
+sc205_like, with every leaf of the state and the steps taken equal, timed
+around the wrapper and around the launch alone; then
+``solve_batched(backend="revised")`` wall time on lp_100d_50k with every
+result equal.
 
 ``python3 chip_smoke.py --pdhg-parent SRC`` runs only the PDHG kernel's
 trace and then times the kernel against the pdhg_tile.cu at SRC (another
@@ -897,8 +911,7 @@ def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
     from repro_torch.core.simplex import batch_tensors
     from repro_torch.kernels.revised_tile import (revised_segment_tile,
                                                   revised_segment_tile_plain,
-                                                  revised_tile,
-                                                  workspace_in_smem)
+                                                  revised_tile, variant)
     sub = LPBatch(A=lp.A[:n_lp], b=lp.b[:n_lp], c=lp.c[:n_lp],
                   ub=None if lp.ub is None else lp.ub[:n_lp])
     A, b, c, ub = batch_tensors(sub, torch.device("cuda"))
@@ -950,7 +963,7 @@ def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
     status = got[2].cpu().numpy()
     out = {"compare_revised": name, "pricing": rule, "lps": n_lp,
            "plain_lps": k, "max_iters": max_iters, "refactor_period": K,
-           "workspace_in_smem": workspace_in_smem(m, n), "one_launch": one,
+           "variant": variant(m, n), "one_launch": one,
            "status_counts": np.bincount(status.astype(int),
                                         minlength=4).tolist(),
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
@@ -1048,6 +1061,281 @@ def revised_state_bytes(m, n, rule, stage):
     read = 4 * (m * (n + 2 * m) + (n + m) + n + 1)
     rw = 4 * (3 * m + 3 + 5) + n
     return read + 2 * rw + 4
+
+
+# ---- the revised kernel's builds: cycle counters, the parent's source -----
+
+REVISED_TRACE_PHASES = ("refactor", "btran", "price_partial", "price",
+                        "ftran", "ratio", "update", "barrier", "other")
+
+
+def _revised_module():
+    import importlib
+    return importlib.import_module("repro_torch.kernels.revised_tile")
+
+
+def _revised_argtypes(lib):
+    import ctypes
+    lib.revised_segment_launch.argtypes = (
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.revised_segment_launch.restype = ctypes.c_int
+    return lib
+
+
+class _ParentRevised:
+    """The parent's revised_tile build behind this tree's C interface: its
+    launch as it is, the variant from its revised_tile_aug_in_smem (1: the
+    workspace fits shared memory), its workspace m x 2m floats an LP."""
+
+    def __init__(self, lib):
+        self.lib = _revised_argtypes(lib)
+        self.revised_segment_launch = self.lib.revised_segment_launch
+
+    def revised_tile_variant(self, m, n):
+        got = self.lib.revised_tile_aug_in_smem(m, n)
+        return got if got < 0 else int(not got)
+
+    def revised_tile_workspace_floats(self, m):
+        return 2 * m * m
+
+
+class _TimedRevised:
+    """A revised_tile build whose launches are timed alone: a pair of CUDA
+    events around each call of revised_segment_launch, in ``events``."""
+
+    def __init__(self, lib):
+        self.lib, self.events = lib, []
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def revised_segment_launch(self, *args):
+        import torch
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        rc = self.lib.revised_segment_launch(*args)
+        pair[1].record()
+        self.events.append(pair)
+        return rc
+
+
+def parent_revised_threads(m, n):
+    """Threads a block of the parent's revised kernel: one per candidate,
+    256 to 1024."""
+    return int(min(1024, max(256, -(-(n + m) // 32) * 32)))
+
+
+@contextlib.contextmanager
+def revised_library(lib, threads=None):
+    """The revised wrappers launch through ``lib`` (a revised_tile build),
+    with ``threads(m, n)`` threads a block where given."""
+    mod = _revised_module()
+    saved = mod._lib, mod.block_threads
+    mod._lib = lambda: lib
+    if threads is not None:
+        mod.block_threads = threads
+    try:
+        yield
+    finally:
+        mod._lib, mod.block_threads = saved
+
+
+def revised_trace_build():
+    """The revised_tile build with the cycle counters (-DREVISED_TRACE)."""
+    from repro_torch.kernels import _build
+    return _build.build(("revised_tile",), ("-DREVISED_TRACE",))
+
+
+def revised_ptxas():
+    """Registers, stack frame, spills and static shared bytes of every
+    revised_segment_kernel instantiation, from the build's -Xptxas -v
+    report; fails on a spill or a stack frame."""
+    import re
+    from repro_torch.kernels import _build
+    log = _build.library_path("revised_tile").with_suffix(".log").read_text()
+    rows, name, frame = [], None, None
+    for line in log.splitlines():
+        got = re.search(r"entry function '\S*revised_segment_kernel"
+                        r"I(\w*?)EEv", line)
+        if got:
+            name = "revised_segment_kernel<%s>" % ",".join(
+                re.findall(r"L[ib](\d+)E", got.group(1)))
+            continue
+        got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", line)
+        if got and name:
+            frame = [int(v) for v in got.groups()]
+            continue
+        got = re.search(r"Used (\d+) registers", line)
+        if got and name and frame:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append({"kernel": name, "registers": int(got.group(1)),
+                         "stack_bytes": frame[0],
+                         "spill_store_bytes": frame[1],
+                         "spill_load_bytes": frame[2],
+                         "static_smem_bytes": int(smem.group(1)) if smem
+                         else 0})
+            name = frame = None
+    assert rows, log[-2000:]
+    emit({"revised_ptxas": rows})
+    assert all(r["spill_store_bytes"] == r["spill_load_bytes"]
+               == r["stack_bytes"] == 0 for r in rows), rows
+    return rows
+
+
+def _revised_slice(lp, k):
+    import torch
+    from repro_torch.core.lp import LPBatch
+    from repro_torch.core.simplex import batch_tensors
+    sub = LPBatch(A=lp.A[:k], b=lp.b[:k], c=lp.c[:k],
+                  ub=None if lp.ub is None else lp.ub[:k])
+    return batch_tensors(sub, torch.device("cuda"))
+
+
+def revised_trace(lp100, lp_af):
+    """The revised kernel's cycles by phase (thread 0 of each block,
+    clock64; the -DREVISED_TRACE build) on the first SLICE LPs of
+    lp_100d_50k under both rules and of lp_afiro_100k: shares, block cycles
+    an LP-step and a refactorization, and the steps, pivots and
+    refactorizations the counters cover."""
+    import ctypes
+    import torch
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.core.revised import WORK_FIELDS, auto_refactor_period
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.revised_tile import revised_tile
+    lib = _revised_module()._bind(_build.load("revised_tile",
+                                              ("-DREVISED_TRACE",)))
+    nph = lib.revised_trace_phases()
+    assert nph == len(REVISED_TRACE_PHASES), nph
+    rows = []
+    for name, lp, rule in (("lp_100d_50k", lp100, "dantzig"),
+                           ("lp_100d_50k", lp100, "partial"),
+                           ("lp_afiro_100k", lp_af, "dantzig")):
+        A, b, c, ub = _revised_slice(lp, SLICE)
+        m, n = lp.m, lp.n
+        work = torch.zeros((SLICE, len(WORK_FIELDS)), dtype=torch.int32,
+                           device="cuda")
+        assert lib.revised_trace_reset() == 0
+        with revised_library(lib):
+            _, ms = timed(lambda: revised_tile(
+                A, b, c, ub, m=m, n=n, max_iters=default_max_iters(m, n),
+                refactor_period=auto_refactor_period(m, n), pricing=rule,
+                work=work))
+        buf = (ctypes.c_ulonglong * (nph + 1))()
+        assert lib.revised_trace_read(buf) == 0
+        cycles = dict(zip(REVISED_TRACE_PHASES, buf[:nph]))
+        total = sum(cycles.values())
+        steps, pivots, flips, refactors, priced = (
+            int(v) for v in work.sum(dim=0).tolist())
+        row = {"revised_trace": name, "pricing": rule,
+               "lps": SLICE, "m": m, "n": n, "traced_ms": ms,
+               "blocks": int(buf[nph]), "steps": steps, "pivots": pivots,
+               "refactors": refactors, "priced_columns": priced,
+               "block_cycles_per_lp_step": total / steps,
+               "refactor_cycles_per_refactorization":
+                   cycles["refactor"] / max(refactors, 1),
+               "shares": {k: v / total for k, v in cycles.items()},
+               "cycles": cycles}
+        emit(row)
+        rows.append(row)
+        del A, b, c, ub
+    return rows
+
+
+def revised_ab(parent_src, lp100, slices):
+    """The parent's revised kernel (built from ``parent_src``) against
+    this tree's on the same inputs, in turns (parent, new, new, parent),
+    under both rules: one whole-solve launch from the cold state over all
+    of lp_100d_50k and over each of ``slices`` ((name, batch, max_iters)),
+    every leaf of the state and the steps taken equal, timed around the
+    wrapper and around the kernel's launch alone (CUDA events); then
+    solve_batched(backend="revised") wall time on lp_100d_50k, every result
+    equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import solve_batched
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.core.revised import (RevisedState, auto_refactor_period,
+                                          warm_state)
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.revised_tile import (revised_segment_tile,
+                                                  variant)
+    parent = _ParentRevised(_build.load("revised_tile_parent",
+                                        src=parent_src))
+    new = _revised_module()._lib()
+    order = ("parent", "new", "new", "parent")
+    cases = [("lp_100d_50k", lp100, default_max_iters(lp100.m, lp100.n))]
+    cases += list(slices)
+    for name, lp, mi in cases:
+        m, n = lp.m, lp.n
+        A, b, c, ub = batch_tensors(lp, torch.device("cuda"))
+        cold = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5)
+        del A, b, c, ub
+        for rule in REVISED_RULES:
+            ms, kernel_ms, first = {}, {}, None
+            for which in order:
+                state = RevisedState(*(leaf.clone() for leaf in cold))
+                lib = _TimedRevised(parent if which == "parent" else new)
+                with revised_library(lib, parent_revised_threads
+                                     if which == "parent" else None):
+                    (got, it), t = timed(lambda: revised_segment_tile(
+                        state, mi, stage="p2", m=m, n=n, max_iters=mi,
+                        refactor_period=auto_refactor_period(m, n),
+                        rule=rule))
+                ms.setdefault(which, []).append(t)
+                (start, end), = lib.events
+                kernel_ms.setdefault(which, []).append(
+                    start.elapsed_time(end))
+                if first is None:
+                    first = (got, it)
+                else:
+                    for leaf, g, w in zip(RevisedState._fields, got,
+                                          first[0]):
+                        torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                                   equal_nan=True, msg=leaf)
+                    assert torch.equal(it, first[1])
+                del state, got, it
+            st, it = first
+            work = st.work.sum(dim=0).tolist()
+            emit({"revised_ab": name, "pricing": rule,
+                  "what": "one whole-solve launch, all LPs", "lps": lp.batch,
+                  "max_iters": mi, "parent_ms": ms["parent"],
+                  "new_ms": ms["new"],
+                  "parent_kernel_ms": kernel_ms["parent"],
+                  "new_kernel_ms": kernel_ms["new"],
+                  "variant": variant(m, n), "status_counts": np.bincount(
+                      st.status.cpu().numpy().astype(int) + 1,
+                      minlength=5)[1:].tolist(),
+                  "mean_iterations": float(st.iters.double().mean()),
+                  "work": dict(zip(("steps", "pivots", "flips", "refactors",
+                                    "priced_columns"), work)),
+                  "bitwise_equal": True})
+            del first, st, it
+            torch.cuda.empty_cache()
+        del cold
+    for rule in REVISED_RULES:
+        wall, first = {}, None
+        for which in order:
+            with (revised_library(parent, parent_revised_threads)
+                  if which == "parent" else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve_batched(lp100, backend="revised", pricing=rule)
+                wall.setdefault(which, []).append(time.perf_counter() - t0)
+            if first is None:
+                first = res
+            else:
+                assert same_result(res, first, ("status", "iterations", "x",
+                                                "objective", "y", "z"))
+        emit({"revised_ab": "lp_100d_50k", "pricing": rule,
+              "what": "solve_batched(backend='revised')", "lps": lp100.batch,
+              "parent_wall_s": wall["parent"], "new_wall_s": wall["new"],
+              "bitwise_equal": True})
+        del first, res
 
 
 # ---- restarted PDHG (core/pdhg.py, csrc/pdhg_tile.cu) ---------------------
@@ -2184,12 +2472,51 @@ def pdhg_only(parent_src) -> int:
     return 0
 
 
+def revised_only(parent_src) -> int:
+    """Build, trace the revised kernel on the lp_100d_50k and lp_afiro_100k
+    slices and time it against the revised_tile.cu at ``parent_src`` in
+    turns: all of lp_100d_50k, and the 2,048-LP slices of lp_afiro_100k
+    and sc205_like (``device``, at the 600-step cap of its kernel check)."""
+    import numpy as np
+    from repro_torch.core import canonicalize, random_lp_batch
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.io import fixture_path, perturbed_batch, read_mps
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    builds = [threading.Thread(target=f) for f in (
+        revised_trace_build,
+        lambda: _build.load("revised_tile_parent", src=parent_src))]
+    for t in builds:
+        t.start()
+    took = _build.build(("revised_tile",))
+    for t in builds:
+        t.join()
+    emit({"build": took, "build_s": time.perf_counter() - t0})
+    revised_ptxas()
+    lp100 = random_lp_batch(np.random.default_rng(2018), B=50_000, m=100,
+                            n=100, feasible_start=False)
+    lp_af, _ = canonicalize(perturbed_batch(read_mps(fixture_path("afiro")),
+                                            SLICE))
+    sc205, _ = canonicalize(perturbed_batch(
+        read_mps(fixture_path("sc205_like")), SLICE))
+    revised_trace(lp100, lp_af)
+    revised_ab(parent_src, lp100, (
+        ("lp_afiro_100k", lp_af, default_max_iters(lp_af.m, lp_af.n)),
+        ("sc205_like_2k", sc205, 600)))
+    print(gpu_line(), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pdhg-parent", metavar="SRC",
                     help="run only the PDHG kernel's trace and its timing "
                          "against the pdhg_tile.cu at SRC, in turns")
+    ap.add_argument("--revised-parent", metavar="SRC",
+                    help="run only the revised kernel's trace and its "
+                         "timing against the revised_tile.cu at SRC, in "
+                         "turns")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2197,6 +2524,8 @@ def main(argv=None) -> int:
         return 2
     if args.pdhg_parent:
         return pdhg_only(args.pdhg_parent)
+    if args.revised_parent:
+        return revised_only(args.revised_parent)
     import numpy as np
     from repro_torch.core import LPBatch, canonicalize, random_lp_batch
     from repro_torch.io import fixture_path, perturbed_batch, read_mps
@@ -2204,9 +2533,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels.simplex_tile import tableau_in_smem
 
     t_start = time.perf_counter()
-    # the PDHG kernel with cycle counters builds beside the others
-    trace_build = threading.Thread(target=pdhg_trace_build)
-    trace_build.start()
+    # the PDHG and revised kernels with cycle counters build beside the
+    # others
+    trace_builds = [threading.Thread(target=f)
+                    for f in (pdhg_trace_build, revised_trace_build)]
+    for t in trace_builds:
+        t.start()
     took = _build.build()
     ptxas = []
     for name in _build.SOURCES:
@@ -2216,6 +2548,7 @@ def main(argv=None) -> int:
     emit({"build_s": time.perf_counter() - t_start, "nvcc_s": took,
           "ptxas": ptxas[:40]})
     pdhg_ptxas()
+    revised_ptxas()
     # create the CUDA context before any timed run, so that no main-path
     # wall time includes it
     t0 = time.perf_counter()
@@ -2292,6 +2625,8 @@ def main(argv=None) -> int:
         compare_revised("sc205_like_2k", sc205, rule, n_plain=128,
                         max_iters=600)
     rev_full = revised_at_full_batch("lp_100d_50k", lp100)
+    trace_builds[1].join()
+    revised_trace(lp100, lp_af)
 
     # ---- restarted PDHG: the whole-solve and segment kernels --------------
     res_pdhg, launches_pdhg, wall_pdhg = pdhg_main(
@@ -2337,7 +2672,7 @@ def main(argv=None) -> int:
     del lp300
     pdhg_sparse("sc205_like_2k", sc205, max_iters=20_000)
     pdhg_full = pdhg_full_batch(lp100)
-    trace_build.join()
+    trace_builds[0].join()
     pdhg_trace(lp100)
     del lp100, res_100, g, lp_af, sc205
     torch.cuda.empty_cache()
@@ -2393,6 +2728,7 @@ def main(argv=None) -> int:
         "plain_ms": rev_rows[0]["plain_ms"],
         "bound_ms": rev_rows[0]["bound_ms"],
         "bound_by": rev_rows[0]["bound_by"], "library_ms": None,
+        "variant": rev_rows[0]["variant"],
         "full_batch_ms": rev_full["ms"],
         "full_batch_bound_ms": rev_full["bound_ms"],
         "parity": "one launch per stage leaf by leaf and the whole solve "

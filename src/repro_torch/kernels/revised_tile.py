@@ -36,41 +36,61 @@ from . import _build
 from .simplex_tile import _check_leaves
 
 RULE_CODES = {rule: code for code, rule in enumerate(REVISED_RULES)}
+# Where the kernel keeps A and the Gauss-Jordan workspace (index = the C
+# code of revised_tile_variant).
+VARIANTS = ("shared", "device")
+MAX_THREADS = 384
 
 
 def block_threads(m: int, n: int) -> int:
-    """Threads per block: one per candidate column, 256 to 1024."""
-    return int(min(1024, max(256, -(-(n + m) // 32) * 32)))
+    """Threads per block: one per candidate column, rounded up to a warp,
+    at most 384."""
+    return int(min(MAX_THREADS, -(-(n + m) // 32) * 32))
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("revised_tile")
+def _bind(lib):
+    """Declares the C signatures of a revised_tile build's exports."""
     lib.revised_segment_launch.argtypes = (
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.revised_segment_launch.restype = ctypes.c_int
     lib.revised_tile_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.revised_tile_smem_bytes.restype = ctypes.c_longlong
-    lib.revised_tile_aug_in_smem.argtypes = [ctypes.c_int] * 2
-    lib.revised_tile_aug_in_smem.restype = ctypes.c_int
+    lib.revised_tile_workspace_floats.argtypes = [ctypes.c_int]
+    lib.revised_tile_workspace_floats.restype = ctypes.c_longlong
+    lib.revised_tile_variant.argtypes = [ctypes.c_int] * 2
+    lib.revised_tile_variant.restype = ctypes.c_int
     return lib
 
 
+@functools.cache
+def _lib():
+    return _bind(_build.load("revised_tile"))
+
+
 def smem_bytes(m: int, n: int, *, workspace: bool = True) -> int:
-    """Dynamic shared memory of one block, with the m x 2m Gauss-Jordan
-    workspace (whose right half is the basis inverse) in shared memory or
-    (``workspace=False``) in device memory.  Needs the built kernel."""
+    """Dynamic shared memory of one block: the vectors and, with
+    ``workspace`` (the shared variant), the scratch, A's region (which the
+    Gauss-Jordan left half reuses) and the basis inverse.  The kernel's
+    own accounting; needs the built kernel."""
     return int(_lib().revised_tile_smem_bytes(m, n, int(workspace)))
 
 
-def workspace_in_smem(m: int, n: int) -> bool:
-    """Whether the kernel keeps the workspace in shared memory on the
-    current card.  Needs the built kernel and a card."""
-    got = _lib().revised_tile_aug_in_smem(m, n)
+def workspace_floats(m: int) -> int:
+    """Floats of device-memory workspace an LP of the device variant
+    needs: the Gauss-Jordan left half, the basis inverse and the scratch.
+    The kernel's own accounting; needs the built kernel."""
+    return int(_lib().revised_tile_workspace_floats(m))
+
+
+def variant(m: int, n: int) -> str:
+    """The variant the kernel runs at (m, n) on the current card: "shared"
+    (A and the workspace in shared memory) or "device".  Needs the built
+    kernel and a card."""
+    got = _lib().revised_tile_variant(m, n)
     if got < 0:
         raise RuntimeError(f"revised_tile: CUDA error {-got}")
-    return bool(got)
+    return VARIANTS[got]
 
 
 def _check_state(state: RevisedState, m: int, n: int):
@@ -117,10 +137,11 @@ def revised_segment_tile(state: RevisedState, steps: int, *, stage: str,
     B = state.xB.shape[0]
     it = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = _lib()
-    aug = None
+    ws = None
     with torch.cuda.device(dev):
-        if not workspace_in_smem(m, n):
-            aug = torch.empty((B, m, 2 * m), dtype=torch.float32, device=dev)
+        if variant(m, n) == "device":
+            ws = torch.empty((B, workspace_floats(m)), dtype=torch.float32,
+                             device=dev)
         s = state
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.revised_segment_launch(
@@ -128,7 +149,7 @@ def revised_segment_tile(state: RevisedState, steps: int, *, stage: str,
             s.thr.data_ptr(), s.xB.data_ptr(), s.basis.data_ptr(),
             s.onub.data_ptr(), s.phase.data_ptr(), s.status.data_ptr(),
             s.iters.data_ptr(), s.y.data_ptr(), s.work.data_ptr(),
-            it.data_ptr(), None if aug is None else aug.data_ptr(), B, m, n,
+            it.data_ptr(), None if ws is None else ws.data_ptr(), B, m, n,
             int(stage == "p1"), int(steps), int(max_iters), float(tol),
             int(refactor_period), RULE_CODES[rule], block_threads(m, n),
             stream)

@@ -8,6 +8,7 @@ that has a card and no JAX (``python -m pytest -m gpu
 tests/test_torch_package.py``).
 """
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -44,7 +45,9 @@ from repro_torch.kernels import (_build, hyperbox_tile, hyperbox_tile_plain,
 from repro_torch.kernels.revised_tile import block_threads as revised_threads
 from repro_torch.kernels.revised_tile import (smem_bytes as
                                               revised_smem_bytes)
-from repro_torch.kernels.revised_tile import workspace_in_smem
+from repro_torch.kernels.revised_tile import variant as revised_variant
+from repro_torch.kernels.revised_tile import (workspace_floats as
+                                              revised_workspace_floats)
 from repro_torch.kernels.ops import (KernelBackend, solve_batched_kernel,
                                      solve_hyperbox_kernel)
 from repro_torch.kernels.pdhg_tile import variant as pdhg_variant
@@ -514,22 +517,37 @@ def test_revised_kernel_source_is_built_with_the_others():
     text = (_build.CSRC / "revised_tile.cu").read_text()
     assert "revised_segment_launch" in text
     assert "_revised_segment_kernel" in text   # names what it replaces
-    for m, n in ((100, 100), (35, 32), (246, 159)):
+    assert "revised_tile_variant" in text   # the one place that chooses
+    # one thread a candidate column, rounded up to a warp, at most 384
+    # (afiro's 67 candidates take three warps)
+    for (m, n), want in {(100, 100): 224, (35, 32): 96, (246, 159): 384,
+                         (4, 5): 32, (400, 300): 384}.items():
         t = revised_threads(m, n)
-        assert t % 32 == 0 and 256 <= t <= 1024 and t >= min(n + m, 1024)
+        assert t == want, (m, n)
+        assert t % 32 == 0 and 32 <= t <= 384 and t >= min(n + m, 384)
 
 
 @pytest.mark.gpu
 def test_revised_workspace_budget():
+    """The dispatch by shape and the layout: A's region (the Gauss-Jordan
+    left half reuses it), Binv (m x ld, ld = 4 mod 8) and the scratch in
+    shared memory at 100 x 100 and 35 x 32, in device memory at 246 x 159,
+    where shared memory keeps the vectors only."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and the built kernel")
-    assert workspace_in_smem(100, 100)
-    assert workspace_in_smem(35, 32)
-    assert not workspace_in_smem(246, 159)
-    for m, n in ((100, 100), (246, 159)):
+    assert revised_variant(100, 100) == "shared"
+    assert revised_variant(35, 32) == "shared"
+    assert revised_variant(246, 159) == "device"
+    for m, n in ((100, 100), (35, 32), (246, 159)):
+        ld = m + (12 - m % 8) % 8
+        region = -(-m * max(n, ld) // 4) * 4
+        scratch = revised_workspace_floats(m) - 2 * m * ld
+        assert scratch > 0
         assert (revised_smem_bytes(m, n)
                 - revised_smem_bytes(m, n, workspace=False)) \
-            == 4 * 2 * m * m
+            == 4 * (scratch + region + m * ld)
+        assert revised_smem_bytes(m, n, workspace=False) < 4 * (
+            4 * n + 13 * m + 64)
 
 
 @pytest.mark.gpu
@@ -560,6 +578,83 @@ def test_revised_kernel_matches_plain_version_on_the_card(pricing):
                 torch.testing.assert_close(g, w, rtol=0, atol=0,
                                            equal_nan=True, msg=name)
             state = want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pricing", ["dantzig", "partial"])
+@pytest.mark.parametrize("shape", ["shared", "afiro", "device"])
+def test_revised_variant_matches_plain_version_on_the_card(shape, pricing):
+    """One shape of each variant (and afiro's three-warp block), both
+    rules: a whole-solve launch equal to the plain version, every leaf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(7)
+    if shape == "shared":
+        batch = random_lp_batch(rng, B=48, m=100, n=100, feasible_start=False)
+    else:
+        name = "afiro" if shape == "afiro" else "sc205_like"
+        batch, _ = canonicalize(perturbed_batch(read_mps(fixture_path(name)),
+                                                16 if shape == "afiro" else 2,
+                                                rng))
+    m, n = batch.m, batch.n
+    assert revised_variant(m, n) == ("device" if shape == "device"
+                                     else "shared")
+    A, b, c, ub = batch_tensors(batch, torch.device("cuda"))
+    state = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5)
+    kw = dict(stage="p2", m=m, n=n, max_iters=10 * (m + n) + 50,
+              refactor_period=max(4, min(64, m // 2)), rule=pricing)
+    steps = 400 if shape == "device" else kw["max_iters"]
+    before = revised_segment_tile.launches
+    got, it = revised_segment_tile(
+        RevisedState(*(leaf.clone() for leaf in state)), steps, **kw)
+    torch.cuda.synchronize()
+    assert revised_segment_tile.launches == before + 1
+    want, want_it = revised_segment_tile_plain(state, steps, **kw)
+    torch.testing.assert_close(it, want_it, rtol=0, atol=0)
+    for name, g, w in zip(RevisedState._fields, got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pricing", ["dantzig", "partial"])
+@pytest.mark.parametrize("m,n,threads,want", [
+    (800, 400, None, "device"),      # 384 threads, 402 elimination groups
+    (132, 64, 32, "shared"),         # one warp: 33 eta groups, 66 and fewer
+    (200, 100, 32, "device"),        # elimination groups
+])
+def test_revised_kernel_runs_any_basis_size_on_the_card(m, n, threads, want,
+                                                        pricing,
+                                                        monkeypatch):
+    """A basis larger than any block's column groups: the device variant
+    at m = 800, and blocks of one warp, where the elimination and the eta
+    update loop over their column groups; every leaf equal to the plain
+    version after a segment with several refactorizations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if threads is not None:
+        monkeypatch.setattr(importlib.import_module(
+            "repro_torch.kernels.revised_tile"), "block_threads",
+            lambda m, n: threads)
+    batch = random_lp_batch(np.random.default_rng(9), B=2 if m > 400 else 8,
+                            m=m, n=n, feasible_start=False)
+    assert revised_variant(m, n) == want
+    A, b, c, ub = batch_tensors(batch, torch.device("cuda"))
+    state = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5)
+    steps = 40 if m > 400 else 300
+    kw = dict(stage="p2", m=m, n=n, max_iters=10 * (m + n) + 50,
+              refactor_period=16, rule=pricing)
+    before = revised_segment_tile.launches
+    got, it = revised_segment_tile(
+        RevisedState(*(leaf.clone() for leaf in state)), steps, **kw)
+    torch.cuda.synchronize()
+    assert revised_segment_tile.launches == before + 1
+    assert int(got.work[:, 3].min()) >= 2        # refactorizations
+    want_state, want_it = revised_segment_tile_plain(state, steps, **kw)
+    torch.testing.assert_close(it, want_it, rtol=0, atol=0)
+    for name, g, w in zip(RevisedState._fields, got, want_state):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
 
 
 @pytest.mark.gpu
