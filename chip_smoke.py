@@ -33,7 +33,14 @@ The segment kernel is held against its plain version on 2,048-LP slices of
 lp_100d_50k and lp_afiro_100k and on sc205_like (plain version on the first
 128) for every rule: one launch of each stage, leaf by leaf, and the whole
 scheduled solve (status, iterations and work equal; x, objective, y, z
-within rel 1e-5).  Last, the box LP: the Table-7 flow-pipe (n = 5, T = 500,
+within rel 1e-5).  Then the simplex kernels' cycles are counted by phase,
+phase-1 and phase-2 steps apart (a build with -DSIMPLEX_TRACE, made beside
+the others), on the 2,048-LP slices of lp_100d_50k (every rule, the whole
+solve and the compaction schedule) and lp_afiro_100k, and the registers,
+spills and stack of every instantiation are printed (``simplex_ptxas``;
+any spill or stack fails the run); each kernel line names its variant
+(``shared``: the live columns in shared memory; ``device``).  Last, the box
+LP: the Table-7 flow-pipe (n = 5, T = 500,
 K = 40, so 20,000 box LPs) through ``solve_hyperbox`` on the card, against
 the kernel's plain version (exact), the float64 oracle (rel 1e-5) and the
 same LPs through ``solve_batched`` (rel 1e-4); the kernel is timed there
@@ -129,6 +136,17 @@ multiple of the unroll, L not a multiple of the block; ``max_abs_err``
 0.0), and timed at (2, 512, 8192, 16) beside its bytes bound
 4(5BTL + 3BL), its plain version and a two-call yardstick that moves the
 same bytes.  Step seconds, tokens/s and peak device memory are printed.
+
+``python3 chip_smoke.py --simplex-parent SRC`` runs only the simplex
+kernels' trace and then times them against the simplex_tile.cu at SRC
+(another commit's, built beside this one) in turns (SRC, this, this, SRC),
+Dantzig: the whole-solve kernel on all 50,000 LPs of lp_100d_50k and on the
+2,048-LP slices of lp_afiro_100k and sc205_like (at a 600-step cap),
+around the wrapper and around the launch alone, x, objective, status,
+iterations, y, z and work equal at atol 0; the compaction schedule on all
+50,000, its segment launches summed, once more with every segment launched
+by both builds from one state and every state leaf compared; then
+``solve_batched`` wall time with and without compaction.
 
 ``python3 chip_smoke.py --revised-parent SRC`` runs only the revised
 kernel's trace and then times the kernel against the revised_tile.cu at SRC
@@ -226,6 +244,47 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+@contextlib.contextmanager
+def kernel_library(module, lib, threads=None):
+    """The wrappers of repro_torch.kernels.<module> launch through ``lib``
+    (a build of its source, or a stand-in for one), with ``threads(m, n)``
+    threads a block where given."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    saved = mod._lib, mod.block_threads
+    mod._lib = lambda: lib
+    if threads is not None:
+        mod.block_threads = threads
+    try:
+        yield
+    finally:
+        mod._lib, mod.block_threads = saved
+
+
+class _TimedLaunches:
+    """A kernel build whose launch functions ``names`` are timed alone: a
+    pair of CUDA events around each C call, in ``events``."""
+
+    def __init__(self, lib, names):
+        self.lib, self.names, self.events = lib, names, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name not in self.names:
+            return fn
+
+        def timed_call(*args):
+            import torch
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            rc = fn(*args)
+            pair[1].record()
+            self.events.append(pair)
+            return rc
+        return timed_call
+
+
 def check_oracle(name, res, ref):
     """The reference's tolerance against the float64 oracle."""
     import numpy as np
@@ -277,8 +336,7 @@ def compare(name, lp, rule, n_lp=SLICE, n_plain=SLICE, max_iters=None):
     from repro_torch.core.lp import LPBatch, default_max_iters
     from repro_torch.core.simplex import batch_tensors
     from repro_torch.kernels.simplex_tile import (WORK_COUNTERS, simplex_tile,
-                                                  simplex_tile_plain,
-                                                  tableau_in_smem)
+                                                  simplex_tile_plain)
     sub = LPBatch(A=lp.A[:n_lp], b=lp.b[:n_lp], c=lp.c[:n_lp],
                   ub=None if lp.ub is None else lp.ub[:n_lp])
     A, b, c, ub = batch_tensors(sub, torch.device("cuda"))
@@ -316,7 +374,7 @@ def compare(name, lp, rule, n_lp=SLICE, n_plain=SLICE, max_iters=None):
                                    err_msg=f"{name} {rule} {what}")
     out = {"compare": name, "pricing": rule, "lps": n_lp, "plain_lps": k,
            "max_iters": max_iters,
-           "tableau_in_smem": tableau_in_smem(lp.m, lp.n, rule),
+           "variant": simplex_variant(lp.m, lp.n, rule),
            "status_counts": np.bincount(got[2].astype(int),
                                         minlength=4).tolist(),
            "status_equal": st_eq, "iteration_diffs": it_diff,
@@ -327,20 +385,31 @@ def compare(name, lp, rule, n_lp=SLICE, n_plain=SLICE, max_iters=None):
     return out
 
 
-def bound(m, n, B, work):
+def simplex_variant(m, n, rule="dantzig", stage="whole"):
+    """The simplex kernels' variant for ``stage`` (whole, p1, p2):
+    ``shared`` (the live columns in shared memory) or ``device``."""
+    from repro_torch.kernels.simplex_tile import tableau_in_smem
+    return "shared" if tableau_in_smem(m, n, rule, stage=stage) else "device"
+
+
+def bound(m, n, B, work, segment=False):
     """Least time for the work this run's data needs, from the kernel's
     per-LP counts (phase-1 pivots, phase-2 pivots, bound flips): the larger
     of the operations time and the bytes time.
 
     Operations, at the f32 rate outside the tensor cores: a phase-1 pivot
-    divides the pivot row of the full (m+2) x (n+2m+1) tableau and updates
-    its other m+1 rows (2 flops an entry); a phase-2 pivot does the same on
-    the compacted (m+1) x (n+m+1) view; a flip updates one rhs entry per
-    row.  Pricing and the ratio test are left out, so this is a floor.
-    Bytes, at the memory rate: A, b, c and ub read once; x, y, z, the
-    objective, status and iterations written once."""
+    divides the pivot row of the (m+2)-row tableau and updates its other
+    m+1 rows (2 flops an entry) over the columns the function needs: the
+    n+m live columns and the rhs in the whole solve, whose outputs never
+    read the m artificial columns, and all n+2m+1 in a p1 segment
+    (``segment``), whose state holds them; a phase-2 pivot does the same
+    on the (m+1) x (n+m+1) view; a flip updates one rhs entry per row.
+    Pricing and the ratio test are left out, so this is a floor.  Bytes,
+    at the memory rate: A, b, c and ub read once; x, y, z, the objective,
+    status and iterations written once."""
     p1, p2, flips = (int(v) for v in work.sum(axis=0))
-    C1, C2 = n + 2 * m + 1, n + m + 1
+    C1 = n + 2 * m + 1 if segment else n + m + 1
+    C2 = n + m + 1
     flops = (p1 * (2 * (m + 1) * C1 + C1) + p2 * (2 * m * C2 + C2)
              + flips * 2 * (m + 1))
     nbytes = B * 4 * ((m * n + m + 2 * n) + (2 * n + m + 3))
@@ -531,10 +600,11 @@ def segment_at_full_batch(lp, full_batch):
             "state_bytes_moved": kb.moved,
             "state_bytes_per_launch": kb.launch_bytes,
             "state_roundtrip_ms": kb.moved / PEAK_BYTES * 1e3}
-    info.update(bound(lp.m, lp.n, lp.batch, work))
+    info.update(bound(lp.m, lp.n, lp.batch, work, segment=True))
     emit(info)
     del A, b, c, ub
     torch.cuda.empty_cache()
+    return info
 
 
 def _clone(state):
@@ -589,7 +659,6 @@ def compare_schedule(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
     from repro_torch.core.lp import LPBatch, default_max_iters
     from repro_torch.core.simplex import batch_tensors
     from repro_torch.kernels.ops import KernelBackend
-    from repro_torch.kernels.simplex_tile import tableau_in_smem
     sub = LPBatch(A=lp.A[:n_lp], b=lp.b[:n_lp], c=lp.c[:n_lp],
                   ub=None if lp.ub is None else lp.ub[:n_lp])
     A, b, c, ub = batch_tensors(sub, torch.device("cuda"))
@@ -620,9 +689,8 @@ def compare_schedule(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
     moved_ms = kb.moved / PEAK_BYTES * 1e3
     out = {"compare_segment": name, "pricing": rule, "lps": n_lp,
            "plain_lps": k, "max_iters": max_iters,
-           "p1_tableau_in_smem": tableau_in_smem(lp.m, lp.n, rule),
-           "p2_tableau_in_smem": tableau_in_smem(lp.m, lp.n, rule,
-                                                 compacted=True),
+           "p1_variant": simplex_variant(lp.m, lp.n, rule, "p1"),
+           "p2_variant": simplex_variant(lp.m, lp.n, rule, "p2"),
            "one_launch": launches, "status_counts": np.bincount(
                np.asarray(got.status).astype(int), minlength=4).tolist(),
            "segments": len(stats), "gathers": len(kb.gather_ms),
@@ -632,9 +700,254 @@ def compare_schedule(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
            "plain_ms": sum(pb.segment_ms), "plain_scheduled_ms":
                plain_sched_ms, "state_bytes_moved": kb.moved,
            "state_roundtrip_ms": moved_ms}
-    out.update(bound(lp.m, lp.n, n_lp, work))
+    out.update(bound(lp.m, lp.n, n_lp, work, segment=True))
     emit(out)
     return out
+
+
+# ---- the simplex kernels' builds: cycle counters, the parent's source -----
+
+SIMPLEX_TRACE_PHASES = ("price", "ratio", "flip", "scale", "update",
+                        "weights", "barrier", "replay")
+
+
+def _simplex_module():
+    import importlib
+    return importlib.import_module("repro_torch.kernels.simplex_tile")
+
+
+def _simplex_argtypes(lib):
+    """``lib`` (a simplex_tile build) with its launchers' C signatures."""
+    import ctypes
+    lib.simplex_tile_launch.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.simplex_tile_launch.restype = ctypes.c_int
+    lib.simplex_segment_launch.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.simplex_segment_launch.restype = ctypes.c_int
+    return lib
+
+
+def simplex_trace_build():
+    """The simplex_tile build with the cycle counters (-DSIMPLEX_TRACE)."""
+    from repro_torch.kernels import _build
+    return _build.build(("simplex_tile",), ("-DSIMPLEX_TRACE",))
+
+
+def simplex_trace(lp100, lp_af):
+    """The simplex kernels' cycles by phase (thread 0 of each block,
+    clock64; the -DSIMPLEX_TRACE build) on the first SLICE LPs: the whole
+    solve on lp_100d_50k under every rule and on lp_afiro_100k, and the
+    compaction schedule's segment launches on lp_100d_50k (Dantzig).  Full-
+    tableau (phase-1) and compacted (phase-2) steps are booked apart; each
+    row gives the shares, block cycles an LP-step of each kind and the
+    steps, pivots and flips the counters cover."""
+    import ctypes
+    import torch
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import KernelBackend
+    from repro_torch.kernels.simplex_tile import WORK_COUNTERS, simplex_tile
+    lib = _simplex_argtypes(_build.load("simplex_tile", ("-DSIMPLEX_TRACE",)))
+    nph = lib.simplex_trace_phases()
+    assert nph == len(SIMPLEX_TRACE_PHASES), nph
+    rows = []
+    cases = [("lp_100d_50k", lp100, rule, "whole solve") for rule in RULES]
+    cases += [("lp_afiro_100k", lp_af, "dantzig", "whole solve"),
+              ("lp_100d_50k", lp100, "dantzig", "compaction schedule")]
+    for name, lp, rule, what in cases:
+        A, b, c, ub = _revised_slice(lp, SLICE)
+        m, n = lp.m, lp.n
+        mi = default_max_iters(m, n)
+        assert lib.simplex_trace_reset() == 0
+        with kernel_library("simplex_tile", lib):
+            if what == "whole solve":
+                work = torch.zeros((SLICE, WORK_COUNTERS), dtype=torch.int32,
+                                   device="cuda")
+                _, ms = timed(lambda: simplex_tile(
+                    A, b, c, ub, m=m, n=n, max_iters=mi, pricing=rule,
+                    work=work))
+                work = work.cpu().numpy()
+            else:
+                _, work, _, ms = schedule(
+                    KernelBackend(m, n, 1e-6, 1e-5, pricing=rule), A, b, c,
+                    ub, max_iters=mi)
+        buf = (ctypes.c_ulonglong * (2 * nph + 4))()
+        assert lib.simplex_trace_read(buf) == 0
+        p1 = dict(zip(SIMPLEX_TRACE_PHASES, buf[:nph]))
+        p2 = dict(zip(SIMPLEX_TRACE_PHASES, buf[nph:2 * nph]))
+        other = int(buf[2 * nph])
+        steps1, steps2, blocks = (int(v) for v in buf[2 * nph + 1:])
+        total = sum(p1.values()) + sum(p2.values()) + other
+        piv1, piv2, flips = (int(v) for v in work.sum(axis=0))
+        row = {"simplex_trace": name, "pricing": rule, "what": what,
+               "lps": SLICE, "m": m, "n": n, "traced_ms": ms,
+               "blocks": blocks, "p1_steps": steps1, "p2_steps": steps2,
+               "phase1_pivots": piv1, "phase2_pivots": piv2, "flips": flips,
+               "block_cycles_per_lp_step": total / (steps1 + steps2),
+               "p1_block_cycles_per_step":
+                   sum(p1.values()) / max(steps1, 1),
+               "p2_block_cycles_per_step":
+                   sum(p2.values()) / max(steps2, 1),
+               "shares": {"p1": {k: v / total for k, v in p1.items()},
+                          "p2": {k: v / total for k, v in p2.items()},
+                          "other": other / total},
+               "cycles": {"p1": p1, "p2": p2, "other": other}}
+        emit(row)
+        rows.append(row)
+        del A, b, c, ub
+    return rows
+
+
+def parent_simplex_threads(m, n):
+    """Threads a block of the parent's simplex kernels: about 32 entries of
+    the full tableau each, 128 to 1024."""
+    entries = (m + 2) * (n + 2 * m + 1)
+    return int(min(1024, max(128, -(-entries // 32 // 32) * 32)))
+
+
+def _equal_leaves(got, want, what):
+    import torch
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{what}: leaf {i}")
+
+
+def simplex_ab(parent_src, lp100, slices):
+    """The parent's simplex kernels (built from ``parent_src``) against
+    this tree's on the same inputs, in turns (parent, new, new, parent),
+    Dantzig: the whole-solve kernel on all of lp_100d_50k and on each of
+    ``slices`` ((name, batch, max_iters)), timed around the wrapper and
+    around the launch alone, x, objective, status, iterations, y, z and
+    work equal at atol 0 (NaN where NaN); the compaction schedule on all
+    of lp_100d_50k, its segment launches summed, run once more with every
+    segment launched by both builds from one state and every leaf
+    compared; then solve_batched wall time with and without compaction,
+    every result equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import solve_batched
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import KernelBackend
+    from repro_torch.kernels.simplex_tile import WORK_COUNTERS, simplex_tile
+    parent = _simplex_argtypes(_build.load("simplex_tile_parent",
+                                           src=parent_src))
+    new = _simplex_module()._lib()
+    order = ("parent", "new", "new", "parent")
+
+    def turn(which, lib):
+        return kernel_library("simplex_tile", lib, parent_simplex_threads
+                              if which == "parent" else None)
+
+    cases = [("lp_100d_50k", lp100, default_max_iters(lp100.m, lp100.n))]
+    for name, lp, mi in cases + list(slices):
+        m, n = lp.m, lp.n
+        A, b, c, ub = batch_tensors(lp, torch.device("cuda"))
+        ms, kernel_ms, first = {}, {}, None
+        for which in order:
+            lib = _TimedLaunches(parent if which == "parent" else new,
+                                 ("simplex_tile_launch",))
+            work = torch.zeros((lp.batch, WORK_COUNTERS), dtype=torch.int32,
+                               device="cuda")
+            with turn(which, lib):
+                got, t = timed(lambda: simplex_tile(
+                    A, b, c, ub, m=m, n=n, max_iters=mi, work=work))
+            (start, end), = lib.events
+            ms.setdefault(which, []).append(t)
+            kernel_ms.setdefault(which, []).append(start.elapsed_time(end))
+            got = got + (work,)
+            if first is None:
+                first = got
+            else:
+                _equal_leaves(got, first, f"{name} whole solve")
+            del got, work
+        work = first[6].cpu().numpy()
+        out = {"simplex_ab": name, "what": "whole-solve kernel, dantzig",
+               "lps": lp.batch, "max_iters": mi, "parent_ms": ms["parent"],
+               "new_ms": ms["new"], "parent_kernel_ms": kernel_ms["parent"],
+               "new_kernel_ms": kernel_ms["new"],
+               "variant": simplex_variant(m, n),
+               "parent_threads": parent_simplex_threads(m, n),
+               "new_threads": _simplex_module().block_threads(m, n),
+               "status_counts": np.bincount(
+                   first[2].cpu().numpy().astype(int), minlength=4).tolist(),
+               "iterations_sum": int(first[3].sum()), "bitwise_equal": True}
+        out.update(bound(m, n, lp.batch, work))
+        emit(out)
+        del A, b, c, ub, first
+        torch.cuda.empty_cache()
+
+    # the compaction schedule: every segment launch by both builds from one
+    # state, every leaf equal; then each build timed alone in turns
+    class Twin(KernelBackend):
+        def segment(self, state, steps, stage, max_iters):
+            with turn("parent", parent):
+                want, want_it = super().segment(_clone(state), steps, stage,
+                                                max_iters)
+            got, it = super().segment(state, steps, stage, max_iters)
+            _equal_leaves(tuple(got) + (it,), tuple(want) + (want_it,),
+                          f"{stage} segment")
+            self.launches += 1
+            return got, it
+    lp, mi = lp100, default_max_iters(lp100.m, lp100.n)
+    A, b, c, ub = batch_tensors(lp, torch.device("cuda"))
+    twin = Twin(lp.m, lp.n, 1e-6, 1e-5)
+    twin.launches = 0
+    schedule(twin, A, b, c, ub, max_iters=mi)
+    seg_ms, kernel_ms, total_ms, first = {}, {}, {}, None
+    for which in order:
+        lib = _TimedLaunches(parent if which == "parent" else new,
+                             ("simplex_segment_launch",))
+        kb = timed_backend(KernelBackend)(lp.m, lp.n, 1e-6, 1e-5)
+        with turn(which, lib):
+            res, work, stats, ms = schedule(kb, A, b, c, ub, max_iters=mi)
+        torch.cuda.synchronize()
+        seg_ms.setdefault(which, []).append(sum(kb.segment_ms))
+        kernel_ms.setdefault(which, []).append(
+            sum(a.elapsed_time(e) for a, e in lib.events))
+        total_ms.setdefault(which, []).append(ms)
+        if first is None:
+            first = (res, work)
+        else:
+            assert same_result(res, first[0], ("status", "iterations", "x",
+                                               "objective", "y", "z"))
+            assert np.array_equal(work, first[1])
+    out = {"simplex_ab": "lp_100d_50k", "what": "compaction schedule, "
+           "segment launches summed, dantzig", "lps": lp.batch,
+           "segments": len(stats), "parent_ms": seg_ms["parent"],
+           "new_ms": seg_ms["new"], "parent_kernel_ms": kernel_ms["parent"],
+           "new_kernel_ms": kernel_ms["new"],
+           "parent_scheduled_ms": total_ms["parent"],
+           "new_scheduled_ms": total_ms["new"],
+           "p1_variant": simplex_variant(lp.m, lp.n, stage="p1"),
+           "p2_variant": simplex_variant(lp.m, lp.n, stage="p2"),
+           "leaves_equal_after_each_of": twin.launches, "bitwise_equal": True}
+    out.update(bound(lp.m, lp.n, lp.batch, first[1], segment=True))
+    emit(out)
+    del A, b, c, ub, first
+    torch.cuda.empty_cache()
+    for compaction in (False, True):
+        wall, first = {}, None
+        for which in order:
+            with turn(which, parent if which == "parent" else new):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solve_batched(lp100, compaction=compaction)
+                wall.setdefault(which, []).append(time.perf_counter() - t0)
+            if first is None:
+                first = res
+            else:
+                assert same_result(res, first, ("status", "iterations", "x",
+                                                "objective", "y", "z"))
+        emit({"simplex_ab": "lp_100d_50k",
+              "what": "solve_batched(compaction=%s)" % compaction,
+              "lps": lp100.batch, "parent_wall_s": wall["parent"],
+              "new_wall_s": wall["new"], "bitwise_equal": True})
+        del first, res
 
 
 def flowpipe(rng, n, T):
@@ -1100,46 +1413,10 @@ class _ParentRevised:
         return 2 * m * m
 
 
-class _TimedRevised:
-    """A revised_tile build whose launches are timed alone: a pair of CUDA
-    events around each call of revised_segment_launch, in ``events``."""
-
-    def __init__(self, lib):
-        self.lib, self.events = lib, []
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-    def revised_segment_launch(self, *args):
-        import torch
-        pair = (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-        pair[0].record()
-        rc = self.lib.revised_segment_launch(*args)
-        pair[1].record()
-        self.events.append(pair)
-        return rc
-
-
 def parent_revised_threads(m, n):
     """Threads a block of the parent's revised kernel: one per candidate,
     256 to 1024."""
     return int(min(1024, max(256, -(-(n + m) // 32) * 32)))
-
-
-@contextlib.contextmanager
-def revised_library(lib, threads=None):
-    """The revised wrappers launch through ``lib`` (a revised_tile build),
-    with ``threads(m, n)`` threads a block where given."""
-    mod = _revised_module()
-    saved = mod._lib, mod.block_threads
-    mod._lib = lambda: lib
-    if threads is not None:
-        mod.block_threads = threads
-    try:
-        yield
-    finally:
-        mod._lib, mod.block_threads = saved
 
 
 def revised_trace_build():
@@ -1148,40 +1425,63 @@ def revised_trace_build():
     return _build.build(("revised_tile",), ("-DREVISED_TRACE",))
 
 
-def revised_ptxas():
+def ptxas_rows(name, kernels, extra=()):
     """Registers, stack frame, spills and static shared bytes of every
-    revised_segment_kernel instantiation, from the build's -Xptxas -v
-    report; fails on a spill or a stack frame."""
+    instantiation of the ``kernels`` (function names) in library ``name``
+    built with the extra flags ``extra``, from its -Xptxas -v report."""
     import re
     from repro_torch.kernels import _build
-    log = _build.library_path("revised_tile").with_suffix(".log").read_text()
-    rows, name, frame = [], None, None
+    log = _build.library_path(name, extra).with_suffix(".log").read_text()
+    entry = re.compile(r"entry function '\S*?(%s)I(\w*?)EEv"
+                       % "|".join(kernels))
+    rows, kernel, frame = [], None, None
     for line in log.splitlines():
-        got = re.search(r"entry function '\S*revised_segment_kernel"
-                        r"I(\w*?)EEv", line)
+        got = entry.search(line)
         if got:
-            name = "revised_segment_kernel<%s>" % ",".join(
-                re.findall(r"L[ib](\d+)E", got.group(1)))
+            kernel = "%s<%s>" % (got.group(1), ",".join(
+                re.findall(r"L[ib](\d+)E", got.group(2))))
             continue
         got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                         r"stores, (\d+) bytes spill loads", line)
-        if got and name:
+        if got and kernel:
             frame = [int(v) for v in got.groups()]
             continue
         got = re.search(r"Used (\d+) registers", line)
-        if got and name and frame:
+        if got and kernel and frame:
             smem = re.search(r"(\d+) bytes smem", line)
-            rows.append({"kernel": name, "registers": int(got.group(1)),
+            rows.append({"kernel": kernel, "registers": int(got.group(1)),
                          "stack_bytes": frame[0],
                          "spill_store_bytes": frame[1],
                          "spill_load_bytes": frame[2],
                          "static_smem_bytes": int(smem.group(1)) if smem
                          else 0})
-            name = frame = None
+            kernel = frame = None
     assert rows, log[-2000:]
+    return rows
+
+
+def no_spills(rows):
+    return all(r["spill_store_bytes"] == r["spill_load_bytes"]
+               == r["stack_bytes"] == 0 for r in rows)
+
+
+def revised_ptxas():
+    """Every revised_segment_kernel instantiation's ptxas line; fails on a
+    spill or a stack frame."""
+    rows = ptxas_rows("revised_tile", ("revised_segment_kernel",))
     emit({"revised_ptxas": rows})
-    assert all(r["spill_store_bytes"] == r["spill_load_bytes"]
-               == r["stack_bytes"] == 0 for r in rows), rows
+    assert no_spills(rows), rows
+    return rows
+
+
+def simplex_ptxas(extra=()):
+    """Every simplex_tile_kernel and simplex_segment_kernel instantiation's
+    ptxas line (of the build with ``extra`` flags); fails on a spill or a
+    stack frame."""
+    rows = ptxas_rows("simplex_tile", ("simplex_tile_kernel",
+                                       "simplex_segment_kernel"), extra)
+    emit({"simplex_ptxas": rows, "flags": list(extra)})
+    assert no_spills(rows), rows
     return rows
 
 
@@ -1219,7 +1519,7 @@ def revised_trace(lp100, lp_af):
         work = torch.zeros((SLICE, len(WORK_FIELDS)), dtype=torch.int32,
                            device="cuda")
         assert lib.revised_trace_reset() == 0
-        with revised_library(lib):
+        with kernel_library("revised_tile", lib):
             _, ms = timed(lambda: revised_tile(
                 A, b, c, ub, m=m, n=n, max_iters=default_max_iters(m, n),
                 refactor_period=auto_refactor_period(m, n), pricing=rule,
@@ -1279,9 +1579,11 @@ def revised_ab(parent_src, lp100, slices):
             ms, kernel_ms, first = {}, {}, None
             for which in order:
                 state = RevisedState(*(leaf.clone() for leaf in cold))
-                lib = _TimedRevised(parent if which == "parent" else new)
-                with revised_library(lib, parent_revised_threads
-                                     if which == "parent" else None):
+                lib = _TimedLaunches(parent if which == "parent" else new,
+                                     ("revised_segment_launch",))
+                with kernel_library("revised_tile", lib,
+                                    parent_revised_threads
+                                    if which == "parent" else None):
                     (got, it), t = timed(lambda: revised_segment_tile(
                         state, mi, stage="p2", m=m, n=n, max_iters=mi,
                         refactor_period=auto_refactor_period(m, n),
@@ -1320,7 +1622,8 @@ def revised_ab(parent_src, lp100, slices):
     for rule in REVISED_RULES:
         wall, first = {}, None
         for which in order:
-            with (revised_library(parent, parent_revised_threads)
+            with (kernel_library("revised_tile", parent,
+                                 parent_revised_threads)
                   if which == "parent" else contextlib.nullcontext()):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1809,21 +2112,6 @@ def old_threads(m, n):
 
 
 @contextlib.contextmanager
-def pdhg_library(lib, threads=None):
-    """The PDHG wrappers launch through ``lib`` (a pdhg_tile build, or a
-    _Forced one), with ``threads(m, n)`` threads a block where given."""
-    mod = _pdhg_module()
-    saved = mod._lib, mod.block_threads
-    mod._lib = lambda: lib
-    if threads is not None:
-        mod.block_threads = threads
-    try:
-        yield
-    finally:
-        mod._lib, mod.block_threads = saved
-
-
-@contextlib.contextmanager
 def segment_events():
     """CUDA events around every segment launch of the PDHG kernel inside
     the block: yields the list of (start, end) pairs, read after a
@@ -1918,7 +2206,8 @@ def pdhg_trace(lp, name="lp_100d_50k", n_lp=SLICE, max_iters=PDHG_PLAIN_CAP):
         threads = (old_threads if variant != "registers"
                    else _pdhg_module().block_threads)
         assert lib.pdhg_trace_reset() == 0
-        with pdhg_library(_Forced(lib, VARIANTS.index(variant), threads)):
+        with kernel_library("pdhg_tile",
+                            _Forced(lib, VARIANTS.index(variant), threads)):
             got, ms = timed(lambda: pdhg_tile(A, b, c, ub, **kw))
         buf = (ctypes.c_ulonglong * (nph + 1))()
         assert lib.pdhg_trace_read(buf) == 0
@@ -1959,7 +2248,8 @@ def pdhg_ab(parent_src, lp):
     order = ("parent", "new", "new", "parent")
 
     def turn(which):
-        return (pdhg_library(parent, old_threads) if which == "parent"
+        return (kernel_library("pdhg_tile", parent, old_threads)
+                if which == "parent"
                 else contextlib.nullcontext())
 
     A, b, c, ub = batch_tensors(lp, torch.device("cuda"))
@@ -2472,6 +2762,42 @@ def pdhg_only(parent_src) -> int:
     return 0
 
 
+def simplex_only(parent_src) -> int:
+    """Build, trace the simplex kernels on the lp_100d_50k and
+    lp_afiro_100k slices and time them against the simplex_tile.cu at
+    ``parent_src`` in turns: all of lp_100d_50k (whole solve and the
+    compaction schedule), and the 2,048-LP slices of lp_afiro_100k and
+    sc205_like (``device``, at a 600-step cap)."""
+    import numpy as np
+    from repro_torch.core import canonicalize, random_lp_batch
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.io import fixture_path, perturbed_batch, read_mps
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    builds = [threading.Thread(target=f) for f in (
+        simplex_trace_build,
+        lambda: _build.load("simplex_tile_parent", src=parent_src))]
+    for t in builds:
+        t.start()
+    took = _build.build(("simplex_tile",))
+    for t in builds:
+        t.join()
+    emit({"build": took, "build_s": time.perf_counter() - t0})
+    simplex_ptxas()
+    lp100 = random_lp_batch(np.random.default_rng(2018), B=50_000, m=100,
+                            n=100, feasible_start=False)
+    lp_af, _ = canonicalize(perturbed_batch(read_mps(fixture_path("afiro")),
+                                            SLICE))
+    sc205, _ = canonicalize(perturbed_batch(
+        read_mps(fixture_path("sc205_like")), SLICE))
+    simplex_trace(lp100, lp_af)
+    simplex_ab(parent_src, lp100, (
+        ("lp_afiro_100k", lp_af, default_max_iters(lp_af.m, lp_af.n)),
+        ("sc205_like_2k", sc205, 600)))
+    print(gpu_line(), flush=True)
+    return 0
+
+
 def revised_only(parent_src) -> int:
     """Build, trace the revised kernel on the lp_100d_50k and lp_afiro_100k
     slices and time it against the revised_tile.cu at ``parent_src`` in
@@ -2517,6 +2843,10 @@ def main(argv=None) -> int:
                     help="run only the revised kernel's trace and its "
                          "timing against the revised_tile.cu at SRC, in "
                          "turns")
+    ap.add_argument("--simplex-parent", metavar="SRC",
+                    help="run only the simplex kernels' trace and their "
+                         "timing against the simplex_tile.cu at SRC, in "
+                         "turns")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2526,17 +2856,19 @@ def main(argv=None) -> int:
         return pdhg_only(args.pdhg_parent)
     if args.revised_parent:
         return revised_only(args.revised_parent)
+    if args.simplex_parent:
+        return simplex_only(args.simplex_parent)
     import numpy as np
     from repro_torch.core import LPBatch, canonicalize, random_lp_batch
     from repro_torch.io import fixture_path, perturbed_batch, read_mps
     from repro_torch.kernels import _build
-    from repro_torch.kernels.simplex_tile import tableau_in_smem
 
     t_start = time.perf_counter()
-    # the PDHG and revised kernels with cycle counters build beside the
-    # others
+    # the PDHG, revised and simplex kernels with cycle counters build
+    # beside the others
     trace_builds = [threading.Thread(target=f)
-                    for f in (pdhg_trace_build, revised_trace_build)]
+                    for f in (pdhg_trace_build, revised_trace_build,
+                              simplex_trace_build)]
     for t in trace_builds:
         t.start()
     took = _build.build()
@@ -2549,6 +2881,7 @@ def main(argv=None) -> int:
           "ptxas": ptxas[:40]})
     pdhg_ptxas()
     revised_ptxas()
+    simplex_ptxas()
     # create the CUDA context before any timed run, so that no main-path
     # wall time includes it
     t0 = time.perf_counter()
@@ -2585,7 +2918,7 @@ def main(argv=None) -> int:
     # for steepest edge, a shorter budget given to both
     sc205, _ = canonicalize(perturbed_batch(
         read_mps(fixture_path("sc205_like")), SLICE))
-    assert not tableau_in_smem(sc205.m, sc205.n)
+    assert simplex_variant(sc205.m, sc205.n) == "device"
     for rule in RULES:
         compare("sc205_like_2k", sc205, rule, n_plain=128,
                 max_iters=600 if rule == "steepest_edge" else None)
@@ -2594,7 +2927,7 @@ def main(argv=None) -> int:
     launches_seg, _ = compaction_main(lp100, res_100, wall_100, full_100)
     segment_at_full_batch(lp100, full_100)
     kernel_at_full_batch("lp_100d_50k", lp100)
-    segment_at_full_batch(lp100, full_100)
+    seg_full = segment_at_full_batch(lp100, full_100)
     for cap in (200, 420):   # all 2,048 LPs at the cap; about half
         binding_budget(lp100, cap)
     seg_rows = []
@@ -2606,6 +2939,8 @@ def main(argv=None) -> int:
     for rule in RULES:
         compare_schedule("sc205_like_2k", sc205, rule, n_plain=128,
                          max_iters=600)
+    trace_builds[2].join()
+    simplex_trace(lp100, lp_af)
 
     # ---- revised path: the revised kernel, with warm starts ---------------
     launches_rev = 0
@@ -2698,6 +3033,9 @@ def main(argv=None) -> int:
         "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"], "library_ms": None,
+        "variant": main_row["variant"],
+        "full_batch_ms": full_100["ms"],
+        "full_batch_bound_ms": full_100["bound_ms"],
         "parity": "status, iterations and work counts equal; x, objective, "
                   "y, z within rel 1e-5; every rule and batch"}, {
         "name": "simplex_segment", "route": "cuda",
@@ -2707,6 +3045,9 @@ def main(argv=None) -> int:
         "max_abs_err": seg_row["max_abs_err"], "ms": seg_row["ms"],
         "plain_ms": seg_row["plain_ms"], "bound_ms": seg_row["bound_ms"],
         "bound_by": seg_row["bound_by"], "library_ms": None,
+        "variant": {"p1": seg_row["p1_variant"], "p2": seg_row["p2_variant"]},
+        "full_batch_ms": seg_full["segment_ms"],
+        "full_batch_bound_ms": seg_full["bound_ms"],
         "state_roundtrip_ms": seg_row["state_roundtrip_ms"],
         "parity": "one launch per stage leaf by leaf; scheduled solve: "
                   "status, iterations and work equal, x, objective, y, z "

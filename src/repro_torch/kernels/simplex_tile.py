@@ -38,34 +38,46 @@ RULE_CODES = {rule: code for code, rule in enumerate(PRICING_RULES)}
 WORK_COUNTERS = 3
 
 
+# Stages of the shared-memory accounting (csrc/simplex_tile.cu): the whole
+# solve, a p1 segment (full state, live columns on chip and a pivot log), a
+# p2 segment (compacted state).
+STAGE_CODES = {"whole": 0, "p1": 1, "p2": 2}
+# Threads a block takes at most (csrc/simplex_tile.cu kMaxThreads).
+MAX_THREADS = 256
+
+
 def smem_bytes(m: int, n: int, rule: str = "dantzig", *,
-               tableau: bool = True, compacted: bool = False) -> int:
-    """Dynamic shared memory of one block, with the tableau in shared
-    memory or (``tableau=False``) left in device memory, as the kernels lay
-    it out (csrc/simplex_tile.cu ``layout``): the full tableau (whole solve,
-    p1 segments) or the compacted one (``compacted=True``, p2 segments).
-    Needs the built kernel."""
+               tableau: bool = True, stage: str = "whole") -> int:
+    """Dynamic shared memory of one block, with the tableau's live columns
+    in shared memory or (``tableau=False``) left in device memory, as the
+    kernels lay it out (csrc/simplex_tile.cu ``layout``), for ``stage``
+    "whole" (the whole solve), "p1" (a p1 segment, its pivot log at full
+    size) or "p2" (a p2 segment).  Needs the built kernel."""
     return int(_lib().simplex_tile_smem_bytes(m, n, RULE_CODES[
-        canonicalize_rule(rule)], int(tableau), int(not compacted)))
+        canonicalize_rule(rule)], int(tableau), STAGE_CODES[stage]))
 
 
 def tableau_in_smem(m: int, n: int, rule: str = "dantzig", *,
-                    compacted: bool = False) -> bool:
-    """Whether the kernels keep that tableau in shared memory on the
-    current card.  Replaces the reference's VMEM tiling rule
-    ``pick_tile_b``; the launchers make the same choice.  Needs the built
-    kernel and a card."""
+                    stage: str = "whole") -> bool:
+    """Whether the kernels keep that stage's tableau in shared memory on
+    the current card (the ``shared`` variant; else ``device``).  Replaces
+    the reference's VMEM tiling rule ``pick_tile_b``; the launchers make
+    the same choice.  Needs the built kernel and a card."""
     got = _lib().simplex_tile_tableau_in_smem(m, n, RULE_CODES[
-        canonicalize_rule(rule)], int(not compacted))
+        canonicalize_rule(rule)], STAGE_CODES[stage])
     if got < 0:
         raise RuntimeError(f"simplex_tile: CUDA error {-got}")
     return bool(got)
 
 
 def block_threads(m: int, n: int) -> int:
-    """Threads per block: about 32 tableau entries each, 128 to 1024."""
-    entries = (m + 2) * (n + 2 * m + 1)
-    return int(min(1024, max(128, -(-entries // 32 // 32) * 32)))
+    """Threads per block: one a live column (the n+m structural and slack
+    columns and the rhs), spread evenly over the fewest column groups of at
+    most MAX_THREADS and rounded up to a warp."""
+    cols = n + m + 1
+    groups = -(-cols // MAX_THREADS)
+    per_group = -(-cols // groups)
+    return -(-per_group // 32) * 32
 
 
 @functools.cache

@@ -53,8 +53,9 @@ from repro_torch.kernels.ops import (KernelBackend, solve_batched_kernel,
 from repro_torch.kernels.pdhg_tile import variant as pdhg_variant
 from repro_torch.kernels.pdhg_tile import block_threads as pdhg_threads
 from repro_torch.kernels.pdhg_tile import smem_bytes as pdhg_smem_bytes
-from repro_torch.kernels.simplex_tile import (WORK_COUNTERS, block_threads,
-                                              smem_bytes, tableau_in_smem)
+from repro_torch.kernels.simplex_tile import (MAX_THREADS, WORK_COUNTERS,
+                                              block_threads, smem_bytes,
+                                              tableau_in_smem)
 from repro_torch.configs import get_config
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bt_ds, \
     ssm_scan_bwd, ssm_scan_bwd_plain, ssm_scan_plain
@@ -99,6 +100,20 @@ def test_sources_never_import_jax_or_the_reference():
             offenders += [f"{path.name}: {n}" for n in names
                           if _is_reference(n)]
     assert not offenders
+
+
+def test_chip_smoke_never_imports_jax_or_the_reference():
+    """chip_smoke.py drives the port on a machine without JAX: none of its
+    imports, at any depth of the file, names jax or repro."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert "repro_torch.core" in names
+    assert not [n for n in names if _is_reference(n)]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -220,9 +235,13 @@ SHAPES = [(100, 100, True), (27, 32, True), (246, 159, False),
 
 @pytest.mark.parametrize("m,n,fits", SHAPES)
 def test_block_threads(m, n, fits):
+    """One thread a live column (n+m and the rhs), spread evenly over the
+    fewest column groups of at most MAX_THREADS, rounded up to a warp."""
     t = block_threads(m, n)
-    assert t % 32 == 0 and 128 <= t <= 1024
-    assert t * 32 >= min((m + 2) * (n + 2 * m + 1), 1024 * 32)
+    cols = n + m + 1
+    groups = -(-cols // MAX_THREADS)
+    assert t % 32 == 0 and 32 <= t <= MAX_THREADS
+    assert t * groups >= cols and (t - 32) * groups < cols
 
 
 @pytest.mark.gpu
@@ -230,12 +249,22 @@ def test_block_threads(m, n, fits):
 def test_shared_memory_budget(m, n, fits):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and the built kernel")
+    stride = (n + m + 1) | 1           # the live columns, an odd stride
     for rule in ("dantzig", "steepest_edge", "devex"):
-        assert tableau_in_smem(m, n, rule) == fits
-        tableau = 4 * (m + 2) * (n + 2 * m + 1)
-        assert (smem_bytes(m, n, rule)
-                - smem_bytes(m, n, rule, tableau=False)) == tableau
+        for stage, rows in (("whole", m + 2), ("p1", m + 2), ("p2", m + 1)):
+            assert tableau_in_smem(m, n, rule, stage=stage) == fits
+            tableau = 4 * rows * stride
+            assert (smem_bytes(m, n, rule, stage=stage)
+                    - smem_bytes(m, n, rule, tableau=False,
+                                 stage=stage)) == tableau
         assert smem_bytes(m, n, rule, tableau=False) < 64 * 1024
+        # a p1 segment adds its 32-pivot log (entering columns of m+2 rows
+        # rounded to 4, a row, a pivot element and a flag a pivot) and the
+        # replay's two rows of m pivot-row values
+        log = 4 * 32 * (-(-(m + 2) // 4) * 4 + 3) + 4 * 2 * m
+        col = 4 * max(-(-(m + 2) // 4) * 4, -(-n // 4) * 4)
+        assert (smem_bytes(m, n, rule, stage="p1")
+                - smem_bytes(m, n, rule)) == log - col
 
 
 def test_kernel_build_is_lazy_and_lands_in_an_ignored_directory():
