@@ -44,7 +44,8 @@ LP: the Table-7 flow-pipe (n = 5, T = 500,
 K = 40, so 20,000 box LPs) through ``solve_hyperbox`` on the card, against
 the kernel's plain version (exact), the float64 oracle (rel 1e-5) and the
 same LPs through ``solve_batched`` (rel 1e-4); the kernel is timed there
-and at T = 50,000 (2,000,000 boxes).
+and at T = 50,000 (2,000,000 boxes), and one box through
+``solve_hyperbox`` gives the launch floor.
 
 The revised path (before the box LP): ``solve_batched(lp_100d_50k,
 backend="revised")`` on all 50,000 LPs through the revised kernel, with
@@ -98,6 +99,21 @@ its bound and a torch.bmm yardstick, and its cycles are counted by phase
 (a build with -DPDHG_TRACE, made beside the others) on the lp_100d_50k
 slice in the shared variant and in the registers variant, whose outputs
 must be equal.
+
+The telemetry plane (after PDHG): ``solve_batched(lp_100d_50k,
+telemetry=True, tracer=SpanTracer())`` on all 50,000 LPs through the
+counter-carrying instantiation of each segment kernel only: the tableau
+schedule (``compaction=True``), the revised kernel with each rule and
+PDHG's schedule.  Statuses, iterations, x and objectives equal the
+telemetry-off solves of this run; phase1_iters + phase2_iters equals every
+LP's iterations, every int lane is >= 0, the lanes the engine does not own
+are 0, and the tracer holds one ``segment[...]`` span per segment launch
+(32 for the tableau schedule); each ``SolveReport.summary()`` is printed.
+One launch of each counter-carrying kernel on the 2,048-LP slice, from a
+mid-solve state whose counters the kernel made non-zero, equals its plain
+version leaf by leaf, counter lanes included; and each is timed against
+its counter-free instantiation on all 50,000 (the launch alone, in turns
+off, on, on, off; every other state leaf equal).
 
 Serving (after the box LP, once the LP data is freed): falcon-mamba-7b at
 its published config (64 layers, d_model 4096, d_inner 8192, bf16
@@ -213,13 +229,23 @@ def _wrappers():
             "ssm_scan_bwd": ssm_scan_bwd}
 
 
+# the wrappers whose kernels have a counter-carrying instantiation, counted
+# apart as "<name>_tel"
+TEL_WRAPPERS = ("simplex_segment", "revised_segment", "pdhg_segment")
+
+
 def zero_counts():
-    for wrapper in _wrappers().values():
+    for name, wrapper in _wrappers().items():
         wrapper.launches = 0
+        if name in TEL_WRAPPERS:
+            wrapper.tel_launches = 0
 
 
 def counts() -> dict:
-    return {name: w.launches for name, w in _wrappers().items()}
+    got = {name: w.launches for name, w in _wrappers().items()}
+    got.update({f"{name}_tel": _wrappers()[name].tel_launches
+                for name in TEL_WRAPPERS})
+    return got
 
 
 def only(name) -> int:
@@ -608,20 +634,42 @@ def segment_at_full_batch(lp, full_batch):
 
 
 def _clone(state):
-    from repro_torch.core.compaction import CompactionState
-    return CompactionState(*(leaf.clone() for leaf in state))
+    """A copy of a solver state (any of the three engines'), counter lanes
+    included."""
+    import torch
+    from repro_torch.core.compaction import map_state
+    return map_state(torch.clone, state)
 
 
 def _first(state, k):
-    from repro_torch.core.compaction import CompactionState
-    return CompactionState(*(leaf[:k].contiguous() for leaf in state))
+    """The state of its first k LPs."""
+    from repro_torch.core.compaction import map_state
+    return map_state(lambda leaf: leaf[:k].contiguous(), state)
+
+
+def leaf_pairs(got, want):
+    """(name, got, want) of every tensor leaf of two solver states, the
+    counter lanes of their ``tel`` leaves included; both states carry the
+    same leaves."""
+    def leaves(state):
+        out = {}
+        for name, v in zip(state._fields, state):
+            if isinstance(v, tuple):
+                out.update({f"{name}.{lane}": t
+                            for lane, t in zip(v._fields, v)})
+            elif v is not None:
+                out[name] = v
+        return out
+    g, w = leaves(got), leaves(want)
+    assert g.keys() == w.keys(), (sorted(g), sorted(w))
+    return [(name, g[name], w[name]) for name in g]
 
 
 def compare_segment_launches(name, backend, state, k, steps, max_iters):
     """One launch of each stage: the kernel on every LP, the plain version
     on the first k, every leaf equal (NaN where NaN)."""
     import torch
-    from repro_torch.core.compaction import CompactionState, segment_pending
+    from repro_torch.core.compaction import segment_pending
     from repro_torch.kernels.simplex_tile import (segment_tile,
                                                   segment_tile_plain)
     kw = dict(m=backend.m, n=backend.n, max_iters=max_iters,
@@ -637,7 +685,7 @@ def compare_segment_launches(name, backend, state, k, steps, max_iters):
                                            stage=stage, **kw)
         torch.cuda.synchronize()
         assert torch.equal(it[:k], want_it), (name, stage, "steps differ")
-        for leaf, g, w in zip(CompactionState._fields, got, want):
+        for leaf, g, w in leaf_pairs(got, want):
             torch.testing.assert_close(g[:k], w, rtol=0, atol=0,
                                        equal_nan=True,
                                        msg=f"{name} {stage} {leaf}")
@@ -730,6 +778,106 @@ def _simplex_argtypes(lib):
     return lib
 
 
+def _toolkit(tool):
+    """Path of a CUDA toolkit binary beside nvcc (cuobjdump, cu++filt)."""
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    return str(Path(_build.nvcc()).with_name(tool))
+
+
+def _entry_reports(lib):
+    """{demangled kernel: (ptxas registers, stack, spill stores, spill
+    loads, static shared bytes), SASS lines without addresses} of a
+    built library, from its -Xptxas -v report and cuobjdump -sass."""
+    import re
+    log = lib.with_suffix(".log").read_text()
+    rows, cur, frame = {}, None, None
+    for line in log.splitlines():
+        got = re.search(r"entry function '(\S+)'", line)
+        if got:
+            cur = got.group(1)
+            continue
+        got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", line)
+        if got and cur:
+            frame = tuple(int(v) for v in got.groups())
+            continue
+        got = re.search(r"Used (\d+) registers", line)
+        if got and cur and frame:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[cur] = (int(got.group(1)),) + frame + (
+                int(smem.group(1)) if smem else 0,)
+            cur = frame = None
+    sass, cur = {}, None
+    dump = subprocess.run([_toolkit("cuobjdump"), "-sass", str(lib)],
+                          check=True, capture_output=True, text=True).stdout
+    for line in dump.splitlines():
+        got = re.match(r"\s*Function : (\S+)", line)
+        if got:
+            cur = got.group(1)
+            sass[cur] = []
+        elif cur:
+            sass[cur].append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip())
+    names = list(rows)
+    plain = subprocess.run([_toolkit("cu++filt")], input="\n".join(names),
+                           check=True, capture_output=True,
+                           text=True).stdout.splitlines()
+    return {d: (rows[k], sass.get(k)) for k, d in zip(names, plain)}
+
+
+def counter_free_vs_parent(name, parent_src):
+    """This tree's build of library ``name`` against the parent's build of
+    ``parent_src``: every kernel instantiation the parent has, with kTel
+    (the last template argument of the segment kernels) false, must have
+    the parent's ptxas registers, stack, spills and static shared memory
+    and its SASS; the counter-carrying instantiations are counted and
+    their registers and spills reported.  Matched by template name and
+    arguments (the new segment kernels take the counter rows as trailing
+    parameters).  Last, both sources are compiled afresh side by side, one
+    nvcc each, for the build seconds the counter-carrying instantiations
+    add."""
+    import re
+    from repro_torch.kernels import _build
+    _build.load(f"{name}_parent", src=parent_src)
+    new = _entry_reports(_build.library_path(name))
+    old = _entry_reports(_build.library_path(f"{name}_parent",
+                                             src=parent_src))
+    head = lambda d: d.split(">(", 1)[0] + ">"  # noqa: E731
+    parent = {head(d): v for d, v in old.items()}
+    same, counters = 0, []
+    for d, (ptx, sass) in new.items():
+        tel = re.match(r"(.*), \(bool\)([01])>$", head(d))
+        key = head(d) if head(d) in parent or tel is None else (
+            tel.group(1) + ">")
+        assert key in parent, (name, "no parent instantiation", d)
+        if tel is not None and tel.group(2) == "1" and head(d) not in parent:
+            counters.append({"kernel": key, "registers": ptx[0],
+                             "parent_registers": parent[key][0][0],
+                             "spill_bytes": ptx[2] + ptx[3],
+                             "static_smem_bytes": ptx[4]})
+            continue
+        assert ptx == parent[key][0], (name, key, ptx, parent[key][0])
+        assert sass == parent[key][1], (name, key, "SASS differs")
+        same += 1
+    assert same == len(parent), (name, same, len(parent))
+    took = {}
+
+    def fresh(which, src):
+        # the flag only keys a fresh build beside the others
+        got = _build.build((name,), ("-DBUILD_TIMING",), src)
+        took[which] = got.get(name)
+
+    builds = [threading.Thread(target=fresh, args=("new", None)),
+              threading.Thread(target=fresh, args=("parent", parent_src))]
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join()
+    emit({"counter_free_vs_parent": name, "instantiations": same,
+          "ptxas_equal": True, "sass_equal": True,
+          "counter_instantiations": counters, "nvcc_s": took})
+
+
 def simplex_trace_build():
     """The simplex_tile build with the cycle counters (-DSIMPLEX_TRACE)."""
     from repro_torch.kernels import _build
@@ -801,13 +949,6 @@ def simplex_trace(lp100, lp_af):
     return rows
 
 
-def parent_simplex_threads(m, n):
-    """Threads a block of the parent's simplex kernels: about 32 entries of
-    the full tableau each, 128 to 1024."""
-    entries = (m + 2) * (n + 2 * m + 1)
-    return int(min(1024, max(128, -(-entries // 32 // 32) * 32)))
-
-
 def _equal_leaves(got, want, what):
     import torch
     for i, (g, w) in enumerate(zip(got, want)):
@@ -840,8 +981,8 @@ def simplex_ab(parent_src, lp100, slices):
     order = ("parent", "new", "new", "parent")
 
     def turn(which, lib):
-        return kernel_library("simplex_tile", lib, parent_simplex_threads
-                              if which == "parent" else None)
+        # the parent's kernels take this tree's C interface and blocks
+        return kernel_library("simplex_tile", lib)
 
     cases = [("lp_100d_50k", lp100, default_max_iters(lp100.m, lp100.n))]
     for name, lp, mi in cases + list(slices):
@@ -871,8 +1012,7 @@ def simplex_ab(parent_src, lp100, slices):
                "new_ms": ms["new"], "parent_kernel_ms": kernel_ms["parent"],
                "new_kernel_ms": kernel_ms["new"],
                "variant": simplex_variant(m, n),
-               "parent_threads": parent_simplex_threads(m, n),
-               "new_threads": _simplex_module().block_threads(m, n),
+               "threads": _simplex_module().block_threads(m, n),
                "status_counts": np.bincount(
                    first[2].cpu().numpy().astype(int), minlength=4).tolist(),
                "iterations_sum": int(first[3].sum()), "bitwise_equal": True}
@@ -1055,6 +1195,12 @@ def box_lp():
     rel_lp = float(np.max(np.abs(res.objective + off - ref) / np.abs(ref)))
     assert rel_lp <= 1e-4, ("simplex vs support values", rel_lp)
     main = time_hyperbox(tl, th, td)
+    # the launch floor: one box through solve_hyperbox (and the wrapper
+    # alone), the same harness; at 20,000 boxes the bytes bound is a
+    # small share of any launch's time
+    one = tuple(t[:1].contiguous() for t in (tl, th, td))
+    main["one_box_solve_ms"] = timed_avg(lambda: solve_hyperbox(*one))
+    main["one_box_kernel_ms"] = timed_avg(lambda: hyperbox_tile(*one))
     main.update({"box_lp": "table7_flowpipe", "T": T, "K": K,
                  "launches": got["hyperbox"],
                  "max_abs_err": float((sup - hyperbox_tile_plain(
@@ -1199,16 +1345,6 @@ def revised_bound(m, n, B, work):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _revised_clone(state):
-    from repro_torch.core.revised import RevisedState
-    return RevisedState(*(leaf.clone() for leaf in state))
-
-
-def _revised_first(state, k):
-    from repro_torch.core.revised import RevisedState
-    return RevisedState(*(leaf[:k].contiguous() for leaf in state))
-
-
 def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
                     max_iters=None):
     """The revised kernel against its plain version on the first n_lp LPs
@@ -1218,8 +1354,7 @@ def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
     import numpy as np
     import torch
     from repro_torch.core.lp import LPBatch, default_max_iters
-    from repro_torch.core.revised import (WORK_FIELDS, RevisedState,
-                                          auto_refactor_period,
+    from repro_torch.core.revised import (WORK_FIELDS, auto_refactor_period,
                                           solve_revised, warm_state)
     from repro_torch.core.simplex import batch_tensors
     from repro_torch.kernels.revised_tile import (revised_segment_tile,
@@ -1237,13 +1372,13 @@ def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
     state = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5)
     one = {}
     for stage in ("p1", "p2"):
-        got, it = revised_segment_tile(_revised_clone(state), 32,
+        got, it = revised_segment_tile(_clone(state), 32,
                                        stage=stage, **kw)
-        want, want_it = revised_segment_tile_plain(_revised_first(state, k),
+        want, want_it = revised_segment_tile_plain(_first(state, k),
                                                    32, stage=stage, **kw)
         torch.cuda.synchronize()
         assert torch.equal(it[:k], want_it), (name, rule, stage, "steps")
-        for leaf, g, w in zip(RevisedState._fields, got, want):
+        for leaf, g, w in leaf_pairs(got, want):
             torch.testing.assert_close(g[:k], w, rtol=0, atol=0,
                                        equal_nan=True,
                                        msg=f"{name} {rule} {stage} {leaf}")
@@ -1387,36 +1522,27 @@ def _revised_module():
     return importlib.import_module("repro_torch.kernels.revised_tile")
 
 
-def _revised_argtypes(lib):
+def _parent_revised(lib):
+    """``lib`` (the parent's revised_tile build) bound with its own C
+    signatures: the counter-free exports, and its revised_tile_variant of
+    (m, n), which the wrapper asks with this tree's tel flag (always 0 for
+    a counter-free launch)."""
     import ctypes
     lib.revised_segment_launch.argtypes = (
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.revised_segment_launch.restype = ctypes.c_int
+    lib.revised_tile_workspace_floats.argtypes = [ctypes.c_int]
+    lib.revised_tile_workspace_floats.restype = ctypes.c_longlong
+    parent_variant = lib.revised_tile_variant
+    parent_variant.argtypes = [ctypes.c_int] * 2
+    parent_variant.restype = ctypes.c_int
+
+    def variant(m, n, tel):
+        assert tel == 0, "the parent has no counter-carrying launch"
+        return parent_variant(m, n)
+    lib.revised_tile_variant = variant
     return lib
-
-
-class _ParentRevised:
-    """The parent's revised_tile build behind this tree's C interface: its
-    launch as it is, the variant from its revised_tile_aug_in_smem (1: the
-    workspace fits shared memory), its workspace m x 2m floats an LP."""
-
-    def __init__(self, lib):
-        self.lib = _revised_argtypes(lib)
-        self.revised_segment_launch = self.lib.revised_segment_launch
-
-    def revised_tile_variant(self, m, n):
-        got = self.lib.revised_tile_aug_in_smem(m, n)
-        return got if got < 0 else int(not got)
-
-    def revised_tile_workspace_floats(self, m):
-        return 2 * m * m
-
-
-def parent_revised_threads(m, n):
-    """Threads a block of the parent's revised kernel: one per candidate,
-    256 to 1024."""
-    return int(min(1024, max(256, -(-(n + m) // 32) * 32)))
 
 
 def revised_trace_build():
@@ -1564,8 +1690,8 @@ def revised_ab(parent_src, lp100, slices):
     from repro_torch.kernels import _build
     from repro_torch.kernels.revised_tile import (revised_segment_tile,
                                                   variant)
-    parent = _ParentRevised(_build.load("revised_tile_parent",
-                                        src=parent_src))
+    parent = _parent_revised(_build.load("revised_tile_parent",
+                                         src=parent_src))
     new = _revised_module()._lib()
     order = ("parent", "new", "new", "parent")
     cases = [("lp_100d_50k", lp100, default_max_iters(lp100.m, lp100.n))]
@@ -1578,12 +1704,10 @@ def revised_ab(parent_src, lp100, slices):
         for rule in REVISED_RULES:
             ms, kernel_ms, first = {}, {}, None
             for which in order:
-                state = RevisedState(*(leaf.clone() for leaf in cold))
+                state = _clone(cold)
                 lib = _TimedLaunches(parent if which == "parent" else new,
                                      ("revised_segment_launch",))
-                with kernel_library("revised_tile", lib,
-                                    parent_revised_threads
-                                    if which == "parent" else None):
+                with kernel_library("revised_tile", lib):
                     (got, it), t = timed(lambda: revised_segment_tile(
                         state, mi, stage="p2", m=m, n=n, max_iters=mi,
                         refactor_period=auto_refactor_period(m, n),
@@ -1622,8 +1746,7 @@ def revised_ab(parent_src, lp100, slices):
     for rule in REVISED_RULES:
         wall, first = {}, None
         for which in order:
-            with (kernel_library("revised_tile", parent,
-                                 parent_revised_threads)
+            with (kernel_library("revised_tile", parent)
                   if which == "parent" else contextlib.nullcontext()):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1886,19 +2009,13 @@ def compare_pdhg(name, lp, rule, n_lp=SLICE, n_plain=512, max_iters=None,
     return out, got
 
 
-def _pdhg_clone(state, k=None):
-    from repro_torch.core.pdhg import PdhgState
-    return PdhgState(*(leaf.clone() if k is None else leaf[:k].contiguous()
-                       for leaf in state))
-
-
 def compare_pdhg_segment(name, lp, n_lp=SLICE, n_plain=512, steps=8,
                          max_rounds=4375):
     """One segment launch (``steps`` rounds) from a mid-solve state (three
     plain rounds from cold) on every LP, against the plain segment on the
     first n_plain: every leaf and the rounds run equal."""
     import torch
-    from repro_torch.core.pdhg import PdhgState, init_pdhg_state, segment_pdhg
+    from repro_torch.core.pdhg import init_pdhg_state, segment_pdhg
     from repro_torch.kernels.pdhg_tile import (pdhg_segment_tile,
                                                pdhg_segment_tile_plain,
                                                variant)
@@ -1907,18 +2024,19 @@ def compare_pdhg_segment(name, lp, n_lp=SLICE, n_plain=512, steps=8,
                           max_rounds=max_rounds)
     k = n_plain
     (got, it), ms = timed(lambda: pdhg_segment_tile(
-        _pdhg_clone(mid), steps, m=lp.m, n=lp.n, max_rounds=max_rounds))
+        _clone(mid), steps, m=lp.m, n=lp.n, max_rounds=max_rounds))
     (want, want_it), plain_ms = timed(lambda: pdhg_segment_tile_plain(
-        _pdhg_clone(mid, k), steps, max_rounds=max_rounds))
+        _first(mid, k), steps, max_rounds=max_rounds))
     assert torch.equal(it[:k], want_it), (name, "rounds differ")
-    for leaf, g, w in zip(PdhgState._fields, got, want):
+    pairs = leaf_pairs(got, want)
+    for leaf, g, w in pairs:
         torch.testing.assert_close(g[:k], w, rtol=0, atol=0, equal_nan=True,
                                    msg=f"{name} segment {leaf}")
     out = {"compare_pdhg_segment": name, "lps": n_lp, "plain_lps": k,
            "variant": variant(lp.m, lp.n), "rounds": steps,
            "rounds_max": int(it.max()),
            "running_after": int((got.status == -1).sum()),
-           "max_abs_err": max_err((g[:k], w) for g, w in zip(got, want)),
+           "max_abs_err": max_err((g[:k], w) for _, g, w in pairs),
            "ms": ms, "plain_ms": plain_ms}
     emit(out)
     return out
@@ -2162,7 +2280,9 @@ def pdhg_ptxas():
         if got:
             mode, kind, params = got.groups()
             args = ",".join(re.findall(r"L[ib](\d+)", params))
-            name = f"mode {mode} {kind}<{args}>"
+            # the last template argument, kTel, closes the name
+            tel = " counters" if "Lb1EEEv" in line else ""
+            name = f"mode {mode} {kind}<{args}>{tel}"
             continue
         got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                         r"stores, (\d+) bytes spill loads", line)
@@ -2176,8 +2296,10 @@ def pdhg_ptxas():
                          "spill_store_bytes": frame[1],
                          "spill_load_bytes": frame[2]})
             name = frame = None
-    # 3 modes x 4 matvec variants (2 register shapes, shared, device)
-    assert len(rows) == 12, rows
+    # 3 modes x 4 matvec variants (2 register shapes, shared, device), and
+    # the segment mode's counter-carrying instantiation of each variant
+    assert len(rows) == 16, rows
+    assert sum(r["kernel"].endswith("counters") for r in rows) == 4, rows
     assert all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
                for r in rows), rows
     emit({"pdhg_ptxas": rows})
@@ -2248,8 +2370,7 @@ def pdhg_ab(parent_src, lp):
     order = ("parent", "new", "new", "parent")
 
     def turn(which):
-        return (kernel_library("pdhg_tile", parent, old_threads)
-                if which == "parent"
+        return (kernel_library("pdhg_tile", parent) if which == "parent"
                 else contextlib.nullcontext())
 
     A, b, c, ub = batch_tensors(lp, torch.device("cuda"))
@@ -2304,6 +2425,364 @@ def pdhg_ab(parent_src, lp):
               "new_segment_kernel_ms": kern.get("new"),
               "bitwise_equal": True})
         del first, res
+
+
+
+# ---- the telemetry plane: per-LP counters through the segment kernels ----
+
+# the lanes each engine books (obs/telemetry.py); the others stay zero
+TEL_OWNED = {
+    "tableau": ("phase1_iters", "phase2_iters", "phase1_pivots",
+                "phase2_pivots", "bound_flips", "degenerate_pivots"),
+    "revised": ("phase1_iters", "phase2_iters", "phase1_pivots",
+                "phase2_pivots", "bound_flips", "degenerate_pivots",
+                "refactorizations", "eta_len", "block_rotations"),
+    "pdhg": ("phase2_iters", "restarts", "kkt_primal", "kkt_dual",
+             "kkt_gap", "omega"),
+}
+# (run, segment kernel, solve_batched options)
+TEL_RUNS = (
+    ("tableau", "simplex_segment", {"compaction": True}),
+    ("revised_dantzig", "revised_segment",
+     {"backend": "revised", "pricing": "dantzig"}),
+    ("revised_partial", "revised_segment",
+     {"backend": "revised", "pricing": "partial"}),
+    ("pdhg", "pdhg_segment", {"backend": "pdhg", "compaction": True}),
+)
+TABLEAU_SEGMENTS = 32   # the schedule's segments on lp_100d_50k (PERF.md)
+
+
+def telemetry_main(lp100):
+    """solve_batched on every LP of lp_100d_50k for each run of TEL_RUNS,
+    in turns (off, on, on, off): on with telemetry=True, off without, each
+    turn with a SpanTracer of its own.  An on turn launches only the
+    counter-carrying segment kernel, an off turn only the counter-free
+    one.  The first on turn's statuses, iterations, x and objectives equal
+    the first off turn's; in it phase1_iters + phase2_iters equals the
+    iterations of every LP, every int lane is >= 0, the lanes the engine
+    does not own are 0, and the tracer holds one segment span per segment
+    launch (32 for the tableau schedule).  Each turn's wall seconds and its
+    span seconds by name are emitted: the flush sits in the bucket_gather
+    spans and after the last segment, the counter launches in the segment
+    spans.  Returns the counter-carrying launches by kernel."""
+    import numpy as np
+    from repro_torch.core import solve_batched
+    from repro_torch.obs import SolveReport, SpanTracer
+    from repro_torch.obs.telemetry import ALL_LANES, INT_LANES
+    launches = {}
+    for run, kernel, kw in TEL_RUNS:
+        engine = run.split("_")[0]
+        walls, span_s, first = {"off": [], "on": []}, {"off": [], "on": []}, {}
+        for which in ("off", "on", "on", "off"):
+            on = which == "on"
+            tracer, stats = SpanTracer(), []
+            zero_counts()
+            t0 = time.perf_counter()
+            res = solve_batched(lp100, telemetry=on, tracer=tracer,
+                                stats_out=stats, **kw)
+            walls[which].append(time.perf_counter() - t0)
+            got = counts()
+            tel = got[kernel + "_tel"]
+            assert got[kernel] > 0 and tel == (got[kernel] if on else 0), (
+                run, which, got)
+            assert all(v == 0 for k, v in got.items()
+                       if k not in (kernel, kernel + "_tel")), (run, got)
+            spans = [s for root in tracer.roots for s in root.walk()]
+            by_name = {}
+            for sp in spans:
+                by_name[sp.name] = by_name.get(sp.name, 0.0) + sp.dur_s
+            span_s[which].append(by_name)
+            if which in first:
+                continue
+            first[which] = res
+            if not on:
+                assert res.stats is None, (run, "stats without telemetry")
+                continue
+            assert same_result(res, first["off"]), (
+                run, "telemetry changed a result")
+            rep = res.stats
+            assert isinstance(rep, SolveReport), run
+            np.testing.assert_array_equal(rep.iterations, res.iterations)
+            for lane in INT_LANES:
+                assert (rep.lane(lane) >= 0).all(), (run, lane)
+            for lane in ALL_LANES:
+                if lane not in TEL_OWNED[engine]:
+                    assert not rep.lane(lane).any(), (run, lane)
+            segments = sum(s.name.startswith("segment[") for s in spans)
+            if kw.get("compaction"):
+                assert segments == tel == len(stats), (run, segments, tel)
+            else:
+                assert segments == 0 and tel == 1, (run, segments, tel)
+            if run == "tableau":
+                assert tel == TABLEAU_SEGMENTS, (run, tel)
+            launches[kernel] = launches.get(kernel, 0) + tel
+            emit({"solve_report": run, "summary": rep.summary()})
+            run_tel, run_segments = tel, segments
+            names = sorted({s.name for s in spans})
+            del rep
+        first.clear()
+        del res
+        mean = {w: {k: float(np.mean([t.get(k, 0.0) for t in span_s[w]]))
+                    for k in names} for w in span_s}
+        emit({"telemetry_main": run, "lps": lp100.batch,
+              "order": ["off", "on", "on", "off"],
+              "on_wall_s": walls["on"], "off_wall_s": walls["off"],
+              "overhead_s": float(np.mean(walls["on"])
+                                  - np.mean(walls["off"])),
+              "span_s_on": mean["on"], "span_s_off": mean["off"],
+              "launches": run_tel, "segment_spans": run_segments,
+              "span_names": names,
+              "equal_to_telemetry_off": True})
+    return launches
+
+
+def telemetry_kernels(name, lp, B=SLICE, kernels=("simplex", "revised",
+                                                  "pdhg")):
+    """One launch of each counter-carrying kernel of ``kernels`` on the
+    first B LPs of ``lp`` (batch ``name``), from a mid-solve state whose
+    counters the same kernel has made non-zero, against its plain version
+    on the same state: every leaf, the counter lanes included, equal (NaN
+    where NaN).  Returns a row per kernel: the variant the launch ran, the
+    launch's and the plain version's ms and the bound of the work the
+    launch did."""
+    import torch
+    from repro_torch.core.compaction import segment_pending
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.core.pdhg import default_pdhg_max_iters, pdhg_rounds
+    from repro_torch.kernels import (pdhg_segment_tile,
+                                     pdhg_segment_tile_plain,
+                                     revised_segment_tile,
+                                     revised_segment_tile_plain,
+                                     segment_tile, segment_tile_plain)
+    from repro_torch.kernels.ops import (KernelBackend, PdhgKernelBackend,
+                                         RevisedKernelBackend)
+    from repro_torch.kernels.revised_tile import variant as revised_variant
+    m, n = lp.m, lp.n
+    A, b, c, ub = _revised_slice(lp, B)
+    mi = default_max_iters(m, n)
+    rows = {}
+
+    def check(kernel, variant, launch, plain, state, bound_of):
+        assert any(bool(t.any()) for t in state.tel), (kernel, "counters 0")
+        (got, it), ms = timed(lambda: launch(_clone(state)))
+        (want, want_it), plain_ms = timed(lambda: plain(_clone(state)))
+        assert torch.equal(it, want_it), (kernel, "steps differ")
+        pairs = leaf_pairs(got, want)
+        for leaf, g, w in pairs:
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{name} {kernel} {leaf}")
+        changed = [lane for lane, t0, t1 in zip(state.tel._fields, state.tel,
+                                                got.tel)
+                   if not torch.equal(t0, t1)]
+        row = {"telemetry_kernel": kernel, "batch": name, "lps": B,
+               "variant": variant, "steps": int(it.max()), "ms": ms,
+               "plain_ms": plain_ms, "lanes_changed": changed,
+               "max_abs_err": max_err((g, w) for _, g, w in pairs)}
+        row.update(bound_of(state, got))
+        emit(row)
+        rows[kernel] = row
+        return got
+
+    def simplex_bound(before, after):
+        work = (after.work - before.work).cpu().numpy()
+        return bound(m, n, B, work, segment=True)
+
+    if "simplex" in kernels:
+        kb = KernelBackend(m, n, 1e-6, 1e-5)
+        kw = dict(m=m, n=n, max_iters=mi)
+        st, _ = segment_tile(kb.init(A, b, c, ub, telemetry=True), 8,
+                             stage="p1", **kw)
+        check("simplex_segment p1", simplex_variant(m, n, stage="p1"),
+              lambda s: segment_tile(s, 8, stage="p1", **kw),
+              lambda s: segment_tile_plain(s, 8, stage="p1", **kw), st,
+              simplex_bound)
+        while bool(segment_pending(st, "p1", mi).any()):
+            st, _ = segment_tile(st, 32, stage="p1", **kw)
+        st, _ = segment_tile(kb.compact_columns(st), 4, stage="p2", **kw)
+        check("simplex_segment p2", simplex_variant(m, n, stage="p2"),
+              lambda s: segment_tile(s, 8, stage="p2", **kw),
+              lambda s: segment_tile_plain(s, 8, stage="p2", **kw), st,
+              simplex_bound)
+        del st
+
+    def revised_bound_of(before, after):
+        return revised_bound(m, n, B,
+                             (after.work - before.work).cpu().numpy())
+
+    for rule in REVISED_RULES if "revised" in kernels else ():
+        rb = RevisedKernelBackend(m, n, 1e-6, 1e-5, pricing=rule)
+        kw = dict(stage="p1", m=m, n=n, max_iters=mi,
+                  refactor_period=rb.refactor_period, rule=rule)
+        st, _ = revised_segment_tile(rb.init(A, b, c, ub, telemetry=True),
+                                     8, **kw)
+        check(f"revised_segment {rule}", revised_variant(m, n, tel=True),
+              lambda s: revised_segment_tile(s, 8, **kw),
+              lambda s: revised_segment_tile_plain(s, 8, **kw), st,
+              revised_bound_of)
+        del st
+
+    def pdhg_bound_of(before, after):
+        return pdhg_bound(m, n, B, (after.iters - before.iters).cpu())
+
+    if "pdhg" in kernels:
+        rounds = pdhg_rounds(default_pdhg_max_iters(m, n))
+        pb = PdhgKernelBackend(m, n)
+        st, _ = pdhg_segment_tile(pb.init(A, b, c, ub, telemetry=True), 3,
+                                  m=m, n=n, max_rounds=rounds)
+        check("pdhg_segment", pdhg_variant(m, n),
+              lambda s: pdhg_segment_tile(s, 8, m=m, n=n,
+                                          max_rounds=rounds),
+              lambda s: pdhg_segment_tile_plain(s, 8, max_rounds=rounds), st,
+              pdhg_bound_of)
+        del st
+    del A, b, c, ub
+    torch.cuda.empty_cache()
+    return rows
+
+
+def telemetry_overhead(lp100):
+    """Each counter-carrying kernel against its counter-free instantiation
+    on all 50,000 LPs of lp_100d_50k, the launch alone (CUDA events around
+    the C call), in turns (off, on, on, off) from one state: the simplex
+    segment kernel's first p1 segment (32 steps), the revised kernel's
+    whole solve (both rules), the PDHG segment kernel's first segment (68
+    rounds); every state leaf but the counters equal between the two."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.core.pdhg import default_pdhg_max_iters, pdhg_rounds
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels import (pdhg_segment_tile, revised_segment_tile,
+                                     segment_tile)
+    from repro_torch.kernels.ops import (KernelBackend, PdhgKernelBackend,
+                                         RevisedKernelBackend)
+    m, n = lp100.m, lp100.n
+    mi = default_max_iters(m, n)
+    rows = {}
+
+    def turns(name, module, names, state0, launch):
+        lib = _TimedLaunches(getattr(_module(module), "_lib")(), names)
+        ms, keep, checked = {"off": [], "on": []}, {}, False
+        for which in ("off", "on", "on", "off"):
+            state = _clone(state0)
+            if which == "off":
+                state = state._replace(tel=None)
+            lib.events.clear()
+            with kernel_library(module, lib):
+                got, _ = launch(state)
+            torch.cuda.synchronize()
+            (start, end), = lib.events
+            ms[which].append(start.elapsed_time(end))
+            if not checked:
+                keep.setdefault(which, got)
+            del state, got
+            if not checked and len(keep) == 2:
+                # the first turn of each: every leaf but the counters equal
+                off, on = (keep.pop(k)._replace(tel=None)
+                           for k in ("off", "on"))
+                for leaf, g, w in leaf_pairs(on, off):
+                    torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                               equal_nan=True,
+                                               msg=f"{name} {leaf}")
+                del off, on
+                checked = True
+        on_ms, off_ms = float(np.mean(ms["on"])), float(np.mean(ms["off"]))
+        row = {"telemetry_overhead": name, "lps": lp100.batch,
+               "on_ms": ms["on"], "off_ms": ms["off"],
+               "overhead_pct": 100.0 * (on_ms - off_ms) / off_ms,
+               "equal_leaves": True}
+        emit(row)
+        rows[name] = row
+
+    A, b, c, ub = batch_tensors(lp100, torch.device("cuda"))
+    st = KernelBackend(m, n, 1e-6, 1e-5).init(A, b, c, ub, telemetry=True)
+    turns("simplex_segment", "simplex_tile",
+          ("simplex_segment_launch", "simplex_segment_tel_launch"), st,
+          lambda s: segment_tile(s, 32, stage="p1", m=m, n=n,
+                                 max_iters=mi))
+    del st
+    torch.cuda.empty_cache()
+    for rule in REVISED_RULES:
+        rb = RevisedKernelBackend(m, n, 1e-6, 1e-5, pricing=rule)
+        st = rb.init(A, b, c, ub, telemetry=True)
+        turns(f"revised_segment {rule}", "revised_tile",
+              ("revised_segment_launch", "revised_segment_tel_launch"), st,
+              lambda s: revised_segment_tile(
+                  s, mi, stage="p2", m=m, n=n, max_iters=mi,
+                  refactor_period=rb.refactor_period, rule=rule))
+        del st
+    rounds = pdhg_rounds(default_pdhg_max_iters(m, n))
+    st = PdhgKernelBackend(m, n).init(A, b, c, ub, telemetry=True)
+    turns("pdhg_segment", "pdhg_tile",
+          ("pdhg_launch", "pdhg_segment_tel_launch"), st,
+          lambda s: pdhg_segment_tile(s, max(4, rounds // 64), m=m, n=n,
+                                      max_rounds=rounds))
+    del st, A, b, c, ub
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _module(name):
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+# The kernels line's rows of the counter-carrying instantiations: (name,
+# source, the TPU kernel, telemetry_main's launch count, telemetry_kernels'
+# row, telemetry_overhead's row).
+TEL_KERNEL_ROWS = (
+    ("simplex_segment_tel", "simplex_tile.cu",
+     "src/repro/kernels/simplex_tile.py:494", "simplex_segment",
+     "simplex_segment p1", "simplex_segment"),
+    ("revised_segment_tel", "revised_tile.cu",
+     "src/repro/kernels/revised_tile.py:221", "revised_segment",
+     "revised_segment dantzig", "revised_segment dantzig"),
+    ("pdhg_segment_tel", "pdhg_tile.cu",
+     "src/repro/kernels/pdhg_tile.py:469", "pdhg_segment", "pdhg_segment",
+     "pdhg_segment"),
+)
+
+
+def tel_instantiations(rows):
+    """The ptxas rows of the counter-carrying instantiations among a
+    source's (``ptxas_rows`` or ``pdhg_ptxas``): kTel is the last template
+    argument of the segment kernels."""
+    return [r for r in rows if r["kernel"].endswith("counters")
+            or (r["kernel"].startswith(("simplex_segment_kernel<",
+                                        "revised_segment_kernel<"))
+                and r["kernel"].endswith(",1>"))]
+
+
+def tel_kernel_row(name, src, line, launches, row, over, ptx, shapes):
+    """One kernels-line entry of a counter-carrying instantiation: ms,
+    plain ms and bound of its launch on the slice; beside them the launch
+    alone on all 50,000 with and without counters, the registers and spill
+    bytes of every counter-carrying instantiation of the source, and the
+    launches against the plain version at every batch (``shapes``, rows
+    of telemetry_kernels)."""
+    tel = tel_instantiations(ptx)
+    assert tel, (name, "no counter-carrying instantiation in ptxas")
+    regs = [r["registers"] for r in tel]
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": line, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+            "instantiation": "kTel (the counter rows in place)",
+            "full_batch_on_ms": over["on_ms"],
+            "full_batch_off_ms": over["off_ms"],
+            "overhead_pct": over["overhead_pct"],
+            "instantiations": len(tel), "registers": [min(regs), max(regs)],
+            "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"]
+                               for r in tel),
+            "shapes": [{k: r[k] for k in (
+                "telemetry_kernel", "batch", "variant", "lps", "ms",
+                "plain_ms", "max_abs_err")} for r in shapes],
+            "parity": "every leaf and counter lane equal to the plain "
+                      "version from a mid-solve state with counters; "
+                      "answers equal to the telemetry-off solve"}
 
 
 # ---- falcon-mamba-7b serving (models/, csrc/ssm_scan.cu) ------------------
@@ -2754,6 +3233,7 @@ def pdhg_only(parent_src) -> int:
     pdhg_trace_build()
     emit({"build": took})
     pdhg_ptxas()
+    counter_free_vs_parent("pdhg_tile", parent_src)
     lp100 = random_lp_batch(np.random.default_rng(2018), B=50_000, m=100,
                             n=100, feasible_start=False)
     pdhg_trace(lp100)
@@ -2784,6 +3264,7 @@ def simplex_only(parent_src) -> int:
         t.join()
     emit({"build": took, "build_s": time.perf_counter() - t0})
     simplex_ptxas()
+    counter_free_vs_parent("simplex_tile", parent_src)
     lp100 = random_lp_batch(np.random.default_rng(2018), B=50_000, m=100,
                             n=100, feasible_start=False)
     lp_af, _ = canonicalize(perturbed_batch(read_mps(fixture_path("afiro")),
@@ -2819,6 +3300,7 @@ def revised_only(parent_src) -> int:
         t.join()
     emit({"build": took, "build_s": time.perf_counter() - t0})
     revised_ptxas()
+    counter_free_vs_parent("revised_tile", parent_src)
     lp100 = random_lp_batch(np.random.default_rng(2018), B=50_000, m=100,
                             n=100, feasible_start=False)
     lp_af, _ = canonicalize(perturbed_batch(read_mps(fixture_path("afiro")),
@@ -2879,9 +3361,8 @@ def main(argv=None) -> int:
                   if "registers" in ln or "spill" in ln]
     emit({"build_s": time.perf_counter() - t_start, "nvcc_s": took,
           "ptxas": ptxas[:40]})
-    pdhg_ptxas()
-    revised_ptxas()
-    simplex_ptxas()
+    ptx = {"pdhg_segment": pdhg_ptxas(), "revised_segment": revised_ptxas(),
+           "simplex_segment": simplex_ptxas()}
     # create the CUDA context before any timed run, so that no main-path
     # wall time includes it
     t0 = time.perf_counter()
@@ -2915,13 +3396,14 @@ def main(argv=None) -> int:
         compare("lp_afiro_100k", lp_af, rule)
     # the device-memory variant; most of these LPs run to max_iters in f32
     # (as in the reference), so the plain version takes a slice of them and,
-    # for steepest edge, a shorter budget given to both
+    # for steepest edge, a shorter budget given to both and a smaller slice
     sc205, _ = canonicalize(perturbed_batch(
         read_mps(fixture_path("sc205_like")), SLICE))
     assert simplex_variant(sc205.m, sc205.n) == "device"
     for rule in RULES:
-        compare("sc205_like_2k", sc205, rule, n_plain=128,
-                max_iters=600 if rule == "steepest_edge" else None)
+        se = rule == "steepest_edge"
+        compare("sc205_like_2k", sc205, rule, n_plain=32 if se else 128,
+                max_iters=600 if se else None)
 
     # ---- compaction path: the segment kernel under the scheduler ----------
     launches_seg, _ = compaction_main(lp100, res_100, wall_100, full_100)
@@ -2935,9 +3417,11 @@ def main(argv=None) -> int:
         seg_rows.append(compare_schedule("lp_100d_50k", lp100, rule))
         compare_schedule("lp_afiro_100k", lp_af, rule)
     # sc205_like: a 600-step budget for every rule (most members run to
-    # the cap in f32), the plain version on the first 128
+    # the cap in f32), the plain version on the first 128 (32 for steepest
+    # edge, whose plain steps cost the most)
     for rule in RULES:
-        compare_schedule("sc205_like_2k", sc205, rule, n_plain=128,
+        compare_schedule("sc205_like_2k", sc205, rule,
+                         n_plain=32 if rule == "steepest_edge" else 128,
                          max_iters=600)
     trace_builds[2].join()
     simplex_trace(lp100, lp_af)
@@ -2968,7 +3452,6 @@ def main(argv=None) -> int:
         "lp_100d_50k", lp100, head, (lp100.m, lp100.n), res_100)
     launches_pdhg_seg, pdhg_comp = pdhg_compaction_main(lp100, res_pdhg,
                                                         wall_pdhg)
-    del res_pdhg
     launches_pdhg += pdhg_warm(g, g64, (lp_af.m, lp_af.n))
     # every variant and step rule against the plain version: registers
     # (lp_100d_50k 256 threads, lp_afiro_100k one warp), shared
@@ -3009,6 +3492,20 @@ def main(argv=None) -> int:
     pdhg_full = pdhg_full_batch(lp100)
     trace_builds[0].join()
     pdhg_trace(lp100)
+
+    # ---- the telemetry plane: counters through the segment kernels -------
+    del res_pdhg
+    tel_launches = telemetry_main(lp100)
+    tel_rows = telemetry_kernels("lp_100d_50k", lp100)
+    # the device variants of the simplex (both stages) and revised counter
+    # kernels, PDHG's shared one on sc205_like and its device one on
+    # lp_300d_2k's first 64 LPs
+    tel_shapes = [tel_rows,
+                  telemetry_kernels("sc205_like_2k", sc205, B=256),
+                  telemetry_kernels("lp_300d_2k", random_lp_batch(
+                      np.random.default_rng(2018), B=256, m=300, n=300),
+                      B=64, kernels=("pdhg",))]
+    tel_over = telemetry_overhead(lp100)
     del lp100, res_100, g, lp_af, sc205
     torch.cuda.empty_cache()
 
@@ -3059,6 +3556,8 @@ def main(argv=None) -> int:
         "ms": box["ms"], "plain_ms": box["plain_ms"],
         "bound_ms": box["bound_ms"], "bound_by": box["bound_by"],
         "library_ms": box["library_ms"], "library": box["library"],
+        "one_box_solve_ms": box["one_box_solve_ms"],
+        "one_box_kernel_ms": box["one_box_kernel_ms"],
         "parity": "equal to the plain version; rel 1e-5 to the float64 "
                   "oracle"}, {
         "name": "revised_segment", "route": "cuda",
@@ -3117,7 +3616,12 @@ def main(argv=None) -> int:
         "parity": "one launch leaf by leaf in each variant; the "
                   "kernel-backed schedule equal to the plain-backed one and "
                   "to the whole solve; compaction=True on all 50,000 equal "
-                  "to the whole solve"}, {
+                  "to the whole solve"},
+        *(tel_kernel_row(name, src, line, tel_launches[count],
+                         tel_rows[row], tel_over[over], ptx[count],
+                         [r for rows in tel_shapes for k, r in rows.items()
+                          if k.startswith(count)])
+          for name, src, line, count, row, over in TEL_KERNEL_ROWS), {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:44",

@@ -10,7 +10,9 @@ constant and the plain PyTorch engine of the chosen backend
 (core/simplex.py, core/revised.py, core/pdhg.py).  A warm-start carrier
 follows the batch through the sort, the padding and the chunks: a basis
 for the simplex engines, the iterates x, y and the primal weight omega
-for pdhg.
+for pdhg.  With ``telemetry=True`` each chunk's ``LPResult.stats`` (an
+``obs.SolveReport``) follows the same road: concatenated, unpadded and
+unpermuted, so every LP's counters land in its own slot.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.report import SolveReport
 from .forms import ensure_canonical, finish_result, prepare_warm
 from .lp import (LPBatch, LPResult, WarmStart, backend_spec,
                  canonicalize_backend, load_entry, resolve_backend)
@@ -108,7 +111,12 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
     sort and the padding, and is sliced per chunk; the chunks' captures
     are concatenated and unpermuted into the result's ``warm``.  A
     ``GeneralLPBatch`` is canonicalized once up front and the concatenated
-    result recovered at the end."""
+    result recovered at the end.  ``telemetry=True`` and ``tracer=`` (in
+    ``solver_kwargs``, as the built-in solvers take them) reach every
+    chunk's solver; the chunks' ``stats`` are concatenated and unpermuted
+    into the result's ``stats``.  On the card the tableau and pdhg backends
+    count only under ``compaction=True``: their whole-solve kernels have no
+    counter plane, and asking for counters without it raises."""
     canonicalize_backend(backend)
     dev = resolve_device(device)
     batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
@@ -186,7 +194,8 @@ def solve_batched(batch: LPBatch, *, solver: Optional[Callable] = None,
     res = LPResult(x=cat("x"), objective=cat("objective"),
                    status=cat("status"), iterations=cat("iterations"),
                    y=cat("y"), z=cat("z"),
-                   warm=WarmStart.concat([r.warm for r in parts]))
+                   warm=WarmStart.concat([r.warm for r in parts]),
+                   stats=SolveReport.concat([r.stats for r in parts]))
     return finish_result(rec, _unpermute(_unpad(res, unpad_B), perm))
 
 
@@ -197,11 +206,15 @@ def _accepts(solver: Callable, kw: str) -> bool:
                                for p in params.values())
 
 
-def _map_result(res: LPResult, take, warm_fn) -> LPResult:
+def _map_result(res: LPResult, take, carrier_fn) -> LPResult:
+    """``res`` with ``take`` applied to its per-LP arrays and
+    ``carrier_fn`` to its warm carrier and its report."""
     return LPResult(x=take(res.x), objective=take(res.objective),
                     status=take(res.status), iterations=take(res.iterations),
                     y=take(res.y), z=take(res.z),
-                    warm=None if res.warm is None else warm_fn(res.warm))
+                    warm=None if res.warm is None else carrier_fn(res.warm),
+                    stats=None if res.stats is None
+                    else carrier_fn(res.stats))
 
 
 def _unpad(res: LPResult, B) -> LPResult:

@@ -31,20 +31,32 @@ kernel.  The revised engine has its own backends (core/revised.py
 scheduler, and so has the first-order engine (core/pdhg.py
 ``PdhgBackend``, ``kernels.ops.PdhgKernelBackend``; one step is one PDHG
 round and there is no phase 1).  A ``warm=`` carrier seeds the initial
-state; the warm-derived leaves then ride the gathers.  Telemetry, tracing
-and the frontier scheduler (``FrontierScheduler``, ``segment_combined``,
-the backends' ``scatter``) are not ported yet and raise, naming their
-ROADMAP.md item.
+state; the warm-derived leaves then ride the gathers.
+
+``telemetry=True`` seeds the per-LP counter lanes (``obs.telemetry``) into
+the state's ``tel`` leaf: the segments update them, the gathers carry
+them, and each LP's lanes are flushed to host buffers at its retirement
+gather, into ``LPResult.stats``.  ``tracer`` (an ``obs.SpanTracer``)
+records the canonicalize, dispatch, ``segment[<stage>]``,
+``bucket_gather`` and recover spans and a ``flush`` event per flush.  The
+frontier scheduler (``FrontierScheduler``, ``segment_combined``, the
+backends' ``scatter``) is not ported yet and raises, naming its ROADMAP.md
+item.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.report import report_from_counters
+from ..obs.telemetry import (TelemetryState, init_telemetry, tel_to_numpy,
+                             zeros_numpy)
+from ..obs.trace import maybe_span
 from .forms import ensure_canonical, finish_result, prepare_warm
 from .lp import (
     ITERATION_LIMIT,
@@ -90,6 +102,20 @@ class CompactionState(NamedTuple):
     thr: torch.Tensor     # (B,) f32 phase-1 feasibility threshold, read-only
     work: torch.Tensor    # (B, 3) int32: phase-1 pivots, phase-2 pivots,
                           #  bound flips
+    tel: Optional[TelemetryState] = None  # counter lanes, or None with
+                                          #  telemetry off
+
+
+def map_state(fn, state):
+    """``state`` with ``fn`` applied to every tensor leaf, the counter
+    lanes of its ``tel`` leaf included; a ``None`` leaf stays ``None``."""
+    def leaf(v):
+        if v is None:
+            return None
+        if isinstance(v, tuple):
+            return type(v)(*(leaf(t) for t in v))
+        return fn(v)
+    return type(state)(*(leaf(v) for v in state))
 
 
 def auto_segment_k(m: int, n: int) -> int:
@@ -171,7 +197,8 @@ def run_segment(state: CompactionState, steps: int, *, stage: str, m: int,
         w = torch.cat([w, torch.ones((B, C - (n + m)), dtype=w.dtype,
                                      device=w.device)], dim=1)
     s = SimplexState(state.T, state.basis, state.phase, state.status,
-                     state.iters, w, state.flip, state.ub, state.work)
+                     state.iters, w, state.flip, state.ub, state.work,
+                     state.tel)
     it = torch.zeros((B,), dtype=torch.int32, device=state.T.device)
     for _ in range(int(steps)):
         act = segment_pending(s, stage, max_iters)
@@ -186,7 +213,7 @@ def run_segment(state: CompactionState, steps: int, *, stage: str, m: int,
     status = torch.where(capped, ITERATION_LIMIT, s.status).to(torch.int32)
     w = s.w[:, :n + m].contiguous() if rule in WEIGHTED_RULES else s.w
     return CompactionState(s.T, s.basis, s.phase, status, s.iters, w, s.flip,
-                           state.ub, state.thr, s.work), it
+                           state.ub, state.thr, s.work, s.tel), it
 
 
 def _not_ported(name: str):
@@ -221,10 +248,11 @@ class TorchBackend:
         self.tol, self.feas_tol = float(tol), float(feas_tol)
         self.rule = canonicalize_rule(pricing)
 
-    def init(self, A, b, c, ub=None,
-             warm: WarmStart | None = None) -> CompactionState:
+    def init(self, A, b, c, ub=None, warm: WarmStart | None = None,
+             telemetry: bool = False) -> CompactionState:
         """The initial state, cold or seeded per LP from ``warm`` (a
-        validated carrier; see ``core.simplex.warm_tableau``)."""
+        validated carrier; see ``core.simplex.warm_tableau``), with zero
+        counter lanes when ``telemetry``."""
         m, n = self.m, self.n
         B, dev = A.shape[0], A.device
         if ub is None:
@@ -243,7 +271,8 @@ class TorchBackend:
             flip=flip, ub=ub.contiguous(),
             thr=(self.feas_tol * torch.clamp(T[:, m + 1, -1], min=1.0)
                  ).contiguous(),
-            work=torch.zeros((B, 3), dtype=torch.int32, device=dev))
+            work=torch.zeros((B, 3), dtype=torch.int32, device=dev),
+            tel=init_telemetry(B, dev) if telemetry else None)
 
     def segment(self, state, steps: int, stage: str, max_iters: int):
         """One segment: ``(state, it)`` as ``run_segment`` returns them."""
@@ -277,7 +306,7 @@ class TorchBackend:
         """The bucket gather: every leaf's rows ``idx``, on the device."""
         idx = torch.as_tensor(np.asarray(idx), dtype=torch.long,
                               device=state.status.device)
-        return type(state)(*(leaf.index_select(0, idx) for leaf in state))
+        return map_state(lambda leaf: leaf.index_select(0, idx), state)
 
     def status_host(self, state) -> np.ndarray:
         return state.status.cpu().numpy()
@@ -318,7 +347,8 @@ def run_schedule(backend, state: CompactionState, *,
                  segment_k: Optional[int] = None,
                  compact_threshold: Optional[float] = None,
                  stats_out: Optional[List[SegmentStat]] = None,
-                 work_out: Optional[np.ndarray] = None) -> LPResult:
+                 work_out: Optional[np.ndarray] = None,
+                 tracer=None) -> LPResult:
     """Drive a backend from its initial ``state`` (``backend.init``) through
     segmented stage p1 (full tableau) and stage p2 (phase-compacted) with
     survivor gathers in between.
@@ -330,7 +360,15 @@ def run_schedule(backend, state: CompactionState, *,
     gather, survivors at the end.  ``stats_out`` (a list) collects one
     ``SegmentStat`` per segment; ``work_out``, a (B, 3) integer array when
     given, receives each LP's phase-1 pivots, phase-2 pivots and bound
-    flips."""
+    flips.
+
+    When the state carries counter lanes (``state.tel`` not None) each
+    LP's lanes are flushed with its results, and ``LPResult.stats`` holds
+    the ``obs.SolveReport``.  ``tracer`` records one ``segment[<stage>]``
+    span per segment (its bucket, steps, survivors and occupancy), a
+    ``bucket_gather`` span inside it when the segment ends in a gather,
+    and a ``flush`` event per flush."""
+    t_start = time.perf_counter()
     m, n = backend.m, backend.n
     if max_iters is None:
         max_iters = default_max_iters(m, n)
@@ -349,6 +387,7 @@ def run_schedule(backend, state: CompactionState, *,
     out_status = np.full((B,), ITERATION_LIMIT, np.int8)
     out_iters = np.zeros((B,), np.int32)
     duals = {}
+    tel_host = zeros_numpy(B) if state.tel is not None else None
 
     def flush(state, orig, stage):
         x, obj, status, iters, y, z = backend.extract(state, stage)
@@ -365,6 +404,11 @@ def run_schedule(backend, state: CompactionState, *,
         duals["z"][oi] = z[sel]
         if work_out is not None:
             work_out[oi] = backend.work_host(state)[sel]
+        if tel_host is not None:
+            for name, vals in tel_to_numpy(state.tel).items():
+                tel_host[name][oi] = vals[sel]
+        if tracer is not None:
+            tracer.event("flush", stage=stage, lps=int(sel.sum()))
 
     def maybe_compact(state, orig, stage):
         """(state, orig, host status): the one status read per segment."""
@@ -378,29 +422,41 @@ def run_schedule(backend, state: CompactionState, *,
         if bucket >= cur or n_run >= config.compact_threshold * cur:
             return state, orig, status
         # retire everyone's current results, then gather the survivors
-        flush(state, orig, stage)
-        idx = np.nonzero(running)[0]
-        fill = idx[np.arange(bucket - len(idx)) % len(idx)]
-        state = backend.take(state, np.concatenate([idx, fill]))
-        valid = np.arange(bucket) < len(idx)
-        state = backend.deactivate(state, valid)
-        orig = np.where(valid, np.concatenate([orig[idx], orig[fill]]), -1)
+        with maybe_span(tracer, "bucket_gather", stage=stage, src_bucket=cur,
+                        dst_bucket=bucket, survivors=n_run):
+            flush(state, orig, stage)
+            idx = np.nonzero(running)[0]
+            fill = idx[np.arange(bucket - len(idx)) % len(idx)]
+            state = backend.take(state, np.concatenate([idx, fill]))
+            valid = np.arange(bucket) < len(idx)
+            state = backend.deactivate(state, valid)
+            orig = np.where(valid, np.concatenate([orig[idx], orig[fill]]),
+                            -1)
         # survivors are running, fill slots were just made terminal
         return state, orig, np.where(valid, _RUNNING, ITERATION_LIMIT)
 
     def run_stage(state, orig, stage, runner, pending):
         status = backend.status_host(state)
+        seg = 0
         # each segment steps every pending LP at least once or marks it at
         # its cap, so the stage ends
         while pending(state, status):
             bucket = len(orig)
-            state, done = runner(state, config.segment_k, max_iters)
-            state, orig, status = maybe_compact(state, orig, stage)
+            with maybe_span(tracer, f"segment[{stage}]", k=seg, bucket=bucket,
+                            max_steps=config.segment_k) as sp:
+                state, done = runner(state, config.segment_k, max_iters)
+                # a gather nests under the segment that triggered it
+                state, orig, status = maybe_compact(state, orig, stage)
+                survivors = int((status == _RUNNING).sum())
+                if sp is not None:
+                    sp.args.update(steps=int(done), survivors=survivors,
+                                   occupancy=survivors / max(1, len(orig)))
             if stats_out is not None:
                 stats_out.append(SegmentStat(
                     stage=stage, bucket=bucket, steps=done,
                     elements=done * bucket * backend.elements_per_step(stage),
-                    survivors=int((status == _RUNNING).sum())))
+                    survivors=survivors))
+            seg += 1
         return state, orig
 
     def pending_p1(state, status):
@@ -416,33 +472,33 @@ def run_schedule(backend, state: CompactionState, *,
     state = backend.compact_columns(state)
     state, orig = run_stage(state, orig, "p2", backend.run_phase2, pending_p2)
     flush(state, orig, "p2")
+    stats = None
+    if tel_host is not None:
+        stats = report_from_counters(
+            tel_host, wall_s=time.perf_counter() - t_start,
+            backend=type(backend).__name__,
+            spans=tuple(tracer.roots) if tracer is not None else ())
     return LPResult(x=out_x, objective=out_obj, status=out_status,
-                    iterations=out_iters, y=duals["y"], z=duals["z"])
-
-
-def check_deferred(*, backend="tableau", telemetry=False,
-                   tracer=None) -> None:
-    """Validate ``backend`` and raise for the scheduler options the port
-    has not reached yet: telemetry and tracing."""
-    canonicalize_backend(backend)
-    if telemetry or tracer is not None:
-        raise NotImplementedError(
-            "telemetry and tracing are not ported to repro_torch yet "
-            "(ROADMAP: obs/, telemetry)")
+                    iterations=out_iters, y=duals["y"], z=duals["z"],
+                    stats=stats)
 
 
 def schedule_batch(runner, batch: LPBatch, dev, *, max_iters, segment_k,
-                   compact_threshold, stats_out, warm=None) -> LPResult:
+                   compact_threshold, stats_out, warm=None,
+                   telemetry: bool = False, tracer=None) -> LPResult:
     """Initialize ``runner`` (a backend) on a canonical batch, seeded from
-    ``warm`` (a validated carrier) when given, and drive it through
-    ``run_schedule``; shared by the plain and kernel entry points."""
-    A, b, c, ub = batch_tensors(batch, dev)
-    state = runner.init(A, b, c, ub, warm=warm)
-    del A, b, c
+    ``warm`` (a validated carrier) when given and with counter lanes when
+    ``telemetry``, and drive it through ``run_schedule``; shared by the
+    plain and kernel entry points."""
+    with maybe_span(tracer, "dispatch", backend=type(runner).__name__,
+                    B=batch.batch, m=batch.m, n=batch.n):
+        A, b, c, ub = batch_tensors(batch, dev)
+        state = runner.init(A, b, c, ub, warm=warm, telemetry=telemetry)
+        del A, b, c
     return run_schedule(runner, state, max_iters=max_iters,
                         segment_k=segment_k,
                         compact_threshold=compact_threshold,
-                        stats_out=stats_out)
+                        stats_out=stats_out, tracer=tracer)
 
 
 def solve_batched_compacted(batch: LPBatch, *, device=None,
@@ -470,17 +526,19 @@ def solve_batched_compacted(batch: LPBatch, *, device=None,
     (``auto_segment_k``), ``compact_threshold=None`` the gather eagerness
     (``auto_compact_threshold``); ``stats_out`` (a list) collects one
     ``SegmentStat`` per segment.  ``warm`` seeds the initial state; results
-    carry no warm-start capture.  ``backend="revised"`` routes to
+    carry no warm-start capture.  ``telemetry`` and ``tracer`` as in
+    ``run_schedule``.  ``backend="revised"`` routes to
     ``core.revised.solve_batched_revised_compacted``, ``backend="pdhg"`` to
     ``core.pdhg.solve_batched_pdhg_compacted``."""
-    check_deferred(backend=backend, telemetry=telemetry, tracer=tracer)
-    if backend != "tableau":
+    if canonicalize_backend(backend) != "tableau":
         return resolve_backend(backend, compacted=True)(
             batch, device=device, tol=tol, feas_tol=feas_tol,
             max_iters=max_iters, segment_k=segment_k,
             compact_threshold=compact_threshold, pricing=pricing,
-            stats_out=stats_out, presolve=presolve, scale=scale, warm=warm)
-    batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
+            stats_out=stats_out, presolve=presolve, scale=scale, warm=warm,
+            telemetry=telemetry, tracer=tracer)
+    with maybe_span(tracer, "canonicalize"):
+        batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     tol, feas_tol = default_tolerances(tol, feas_tol)
     runner = TorchBackend(batch.m, batch.n, tol, feas_tol, pricing=pricing)
@@ -488,5 +546,7 @@ def solve_batched_compacted(batch: LPBatch, *, device=None,
                          segment_k=segment_k,
                          compact_threshold=compact_threshold,
                          stats_out=stats_out,
-                         warm=prepare_warm(warm, rec, batch))
-    return finish_result(rec, res)
+                         warm=prepare_warm(warm, rec, batch),
+                         telemetry=telemetry, tracer=tracer)
+    with maybe_span(tracer, "recover"):
+        return finish_result(rec, res)

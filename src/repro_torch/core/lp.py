@@ -318,9 +318,10 @@ class LPResult:
     to the next solve of a perturbed batch via
     ``solve_batched(batch2, warm=res.warm_start())``.
 
-    ``stats`` is a ``repro.obs.SolveReport`` (per-LP telemetry counters +
-    host span tree + wall-clock) when the solve ran with ``telemetry=True``;
-    None otherwise.  ``stats.iterations`` always equals ``iterations``.
+    ``stats`` is a ``repro_torch.obs.SolveReport`` (per-LP telemetry
+    counters, host span tree, wall-clock) when the solve ran with
+    ``telemetry=True``; None otherwise.  ``stats.iterations`` always
+    equals ``iterations``.
     """
 
     x: np.ndarray          # (B, n)

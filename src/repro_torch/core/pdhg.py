@@ -51,16 +51,18 @@ whole solve bit for bit.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.telemetry import TelemetryState, init_telemetry, tel_pdhg_update
+from ..obs.trace import maybe_span
 from .compaction import (
     SegmentStat,
     TorchBackend,
-    check_deferred,
     run_schedule,
 )
 from .forms import ensure_canonical, finish_result, prepare_warm
@@ -74,7 +76,7 @@ from .lp import (
     LPResult,
     WarmStart,
 )
-from .simplex import batch_tensors
+from .simplex import batch_tensors, solve_report
 
 _RUNNING = -1
 
@@ -175,6 +177,8 @@ class PdhgState(NamedTuple):
     phase: torch.Tensor    # (B,) int32, constant 2 (no phase 1)
     status: torch.Tensor   # (B,) int32, _RUNNING until terminal
     iters: torch.Tensor    # (B,) int32
+    tel: Optional[TelemetryState] = None  # counter lanes, or None with
+                                          #  telemetry off
 
 
 class Matvecs(NamedTuple):
@@ -362,7 +366,11 @@ def kkt_residual_parts(s: PdhgState, x, y, mv: Matvecs = DENSE_MV):
 
 def kkt_residuals(s: PdhgState, x, y, mv: Matvecs = DENSE_MV):
     """The maximum of the ``kkt_residual_parts`` triple."""
-    rp, rd, gap = kkt_residual_parts(s, x, y, mv)
+    return _max3(kkt_residual_parts(s, x, y, mv))
+
+
+def _max3(parts):
+    rp, rd, gap = parts
     return torch.maximum(torch.maximum(rp, rd), gap)
 
 
@@ -425,10 +433,17 @@ def pdhg_round(s: PdhgState, active, *, tol: float,
         xs = torch.where(act, xs + x, xs)
         ys = torch.where(act, ys + y, ys)
         cnt = torch.where(active, cnt + 1.0, cnt)
-    s = s._replace(x=x, y=y, xs=xs, ys=ys, cnt=cnt,
-                   iters=torch.where(active, s.iters + check_every,
-                                     s.iters))
+    s = _count_round(s._replace(x=x, y=y, xs=xs, ys=ys, cnt=cnt),
+                     active, check_every)
     return _pdhg_check(s, active, tol=tol, mv=mv)
+
+
+def _count_round(s: PdhgState, active, check_every: int) -> PdhgState:
+    """``check_every`` more iterations for the LPs in ``active``, in
+    ``iters`` and in the counter lanes."""
+    inc = torch.where(active, check_every, 0).to(torch.int32)
+    tel = s.tel if s.tel is None else tel_pdhg_update(s.tel, inc_iters=inc)
+    return s._replace(iters=s.iters + inc, tel=tel)
 
 
 def _pdhg_check(s: PdhgState, active, *, tol: float,
@@ -437,8 +452,10 @@ def _pdhg_check(s: PdhgState, active, *, tol: float,
     both step rules."""
     cc = torch.clamp(s.cnt, min=1.0)[:, None]
     xa, ya = s.xs / cc, s.ys / cc
-    res_cur = kkt_residuals(s, s.x, s.y, mv)
-    res_avg = kkt_residuals(s, xa, ya, mv)
+    parts_cur = kkt_residual_parts(s, s.x, s.y, mv)
+    parts_avg = kkt_residual_parts(s, xa, ya, mv)
+    res_cur = _max3(parts_cur)
+    res_avg = _max3(parts_avg)
     use_avg = res_avg < res_cur
     res = torch.where(use_avg, res_avg, res_cur)
     xc = torch.where(use_avg[:, None], xa, s.x)
@@ -478,9 +495,19 @@ def _pdhg_check(s: PdhgState, active, *, tol: float,
     status = torch.where(converged, OPTIMAL, s.status)
     status = torch.where(infeas, INFEASIBLE, status)
     status = torch.where(unbounded, UNBOUNDED, status).to(torch.int32)
+    tel = s.tel
+    if tel is not None:
+        # the candidate's triple, for the LPs that ran the round
+        kkt = tuple(torch.where(active, torch.where(use_avg, a, c), old)
+                    for a, c, old in zip(parts_avg, parts_cur,
+                                         (tel.kkt_primal, tel.kkt_dual,
+                                          tel.kkt_gap)))
+        tel = tel_pdhg_update(tel, restart=restart, kkt=kkt,
+                              omega=torch.where(active, omega[:, 0],
+                                                tel.omega))
     return s._replace(x=x, y=y, xs=xs, ys=ys, xr=xr, yr=yr, cnt=cnt,
                       last_res=last_res, prev_res=prev_res, omega=omega,
-                      status=status)
+                      status=status, tel=tel)
 
 
 def pdhg_round_mp(s: PdhgState, active, tau, tprev, *, tol: float,
@@ -532,9 +559,8 @@ def pdhg_round_mp(s: PdhgState, active, tau, tprev, *, tol: float,
         xs = torch.where(act, xs + x, xs)
         ys = torch.where(act, ys + y, ys)
         cnt = torch.where(active, cnt + 1.0, cnt)
-    s = s._replace(x=x, y=y, xs=xs, ys=ys, cnt=cnt,
-                   iters=torch.where(active, s.iters + check_every,
-                                     s.iters))
+    s = _count_round(s._replace(x=x, y=y, xs=xs, ys=ys, cnt=cnt),
+                     active, check_every)
     return _pdhg_check(s, active, tol=tol, mv=mv), tau, tprev
 
 
@@ -606,28 +632,33 @@ def run_and_extract(state: PdhgState, rounds: int, *, tol: float,
     """``run_pdhg``, then the extraction and the warm capture: ``(x, obj,
     status, iters, y, z, warm_x, warm_y, omega, eta)``, the last four the
     terminal iterate (unscaled, before the NaN masks), primal weight and
-    step."""
+    step, and the ``TelemetryState`` after them when the state carries
+    one."""
     state = run_pdhg(state, rounds, tol=tol, check_every=check_every,
                      step_rule=step_rule, mv=mv)
-    return extract_pdhg(state, mv) + (state.x * state.csc, state.y * state.rsc,
-                                  state.omega[:, 0], state.eta[:, 0])
+    out = extract_pdhg(state, mv) + (state.x * state.csc, state.y * state.rsc,
+                                     state.omega[:, 0], state.eta[:, 0])
+    return out if state.tel is None else out + (state.tel,)
 
 
 def solve_pdhg(A, b, c, ub=None, *, m: int, n: int, max_iters: int,
                tol: float = DEFAULT_TOL, check_every: int = CHECK_EVERY,
                warm_x=None, warm_y=None, warm_omega=None,
-               step_rule: str = "fixed", run=None):
+               step_rule: str = "fixed", run=None, telemetry: bool = False):
     """Whole solve of a float32 batch on its device: setup, warm
     injection (``warm_x``/``warm_y``/``warm_omega``, unscaled), then
     ``run(state, rounds, tol=, check_every=, step_rule=)``: by default the
     plain ``run_and_extract``; the kernel wrapper passes its launch.
     Returns run's ``(x, obj, status, iters, y, z, warm_x, warm_y, omega,
-    eta)``."""
+    eta)``, and with ``telemetry`` (the plain run only) the
+    ``TelemetryState`` last."""
     del m, n
     rule = canonicalize_step_rule(step_rule)
     state = init_pdhg_state(A, b, c, ub)
     if warm_x is not None and warm_y is not None:
         state = inject_pdhg_warm(state, warm_x, warm_y, warm_omega)
+    if telemetry:
+        state = state._replace(tel=init_telemetry(A.shape[0], A.device))
     run = run_and_extract if run is None else run
     return run(state, pdhg_rounds(max_iters, check_every), tol=float(tol),
                check_every=int(check_every), step_rule=rule)
@@ -641,14 +672,14 @@ def _check_pdhg_pricing(pricing: str) -> None:
             "column).  Use the default pricing with backend='pdhg'.")
 
 
-def pdhg_result(out, *, m: int, n: int) -> LPResult:
+def pdhg_result(out, *, m: int, n: int, stats=None) -> LPResult:
     """The ``LPResult`` (NumPy, with its ``WarmStart`` capture) of a
-    ``solve_pdhg`` tuple."""
+    ``solve_pdhg`` tuple's first ten entries, carrying ``stats``."""
     x, obj, status, iters, y, z, wx, wy, om, eta = (t.cpu().numpy()
-                                                    for t in out)
+                                                    for t in out[:10])
     return LPResult(x=x, objective=obj, status=status, iterations=iters,
                     y=y, z=z, warm=WarmStart(m=m, n=n, x=wx, y=wy, omega=om,
-                                             eta=eta))
+                                             eta=eta), stats=stats)
 
 
 def solve_batched_pdhg(batch: LPBatch, *, device=None,
@@ -660,7 +691,8 @@ def solve_batched_pdhg(batch: LPBatch, *, device=None,
                        presolve: bool = True,
                        scale: bool | None = None,
                        warm: WarmStart | None = None,
-                       step_rule: str = "fixed") -> LPResult:
+                       step_rule: str = "fixed", telemetry: bool = False,
+                       tracer=None) -> LPResult:
     """Solve a batch with the plain restarted-PDHG engine, in float32 on
     ``device`` (CUDA unless ``device="cpu"``).  Counterpart of
     ``repro.core.pdhg.solve_batched_pdhg``: ``tol`` is the relative KKT
@@ -669,22 +701,31 @@ def solve_batched_pdhg(batch: LPBatch, *, device=None,
     certificate, ``warm`` a parent's ``WarmStart`` (adopted per LP behind
     the reset guard), ``step_rule`` "fixed" or "malitsky_pock"; the result
     carries its own capture (x, y, omega, eta).  ``feas_tol`` is accepted
-    for a uniform signature and unused (PDHG has no phase 1)."""
+    for a uniform signature and unused (PDHG has no phase 1).
+    ``telemetry`` and ``tracer`` as in ``core.simplex.solve_batched_torch``
+    (the counters: iterations, restarts, the last KKT triple, omega)."""
     _check_pdhg_pricing(pricing)
     del feas_tol
     canonicalize_step_rule(step_rule)
-    batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
+    with maybe_span(tracer, "canonicalize"):
+        batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     m, n = batch.m, batch.n
     if max_iters is None:
         max_iters = default_pdhg_max_iters(m, n)
     warm = prepare_warm(warm, rec, batch)
-    A, b, c, ub = batch_tensors(batch, dev)
-    out = solve_pdhg(A, b, c, ub, m=m, n=n, max_iters=int(max_iters),
-                     tol=DEFAULT_TOL if tol is None else float(tol),
-                     check_every=check_every, step_rule=step_rule,
-                     **warm_tensors(warm, dev))
-    return finish_result(rec, pdhg_result(out, m=m, n=n))
+    t0 = time.perf_counter()
+    with maybe_span(tracer, "dispatch", backend="pdhg", B=batch.batch,
+                    m=m, n=n):
+        A, b, c, ub = batch_tensors(batch, dev)
+        out = solve_pdhg(A, b, c, ub, m=m, n=n, max_iters=int(max_iters),
+                         tol=DEFAULT_TOL if tol is None else float(tol),
+                         check_every=check_every, step_rule=step_rule,
+                         telemetry=telemetry, **warm_tensors(warm, dev))
+        res = pdhg_result(out, m=m, n=n, stats=solve_report(
+            out[10] if telemetry else None, t0, "pdhg", tracer))
+    with maybe_span(tracer, "recover"):
+        return finish_result(rec, res)
 
 
 # ---------------------------------------------------------------------------
@@ -706,13 +747,15 @@ class PdhgBackend(TorchBackend):
         self.tol = float(tol)
         self.check_every = int(check_every)
 
-    def init(self, A, b, c, ub=None,
-             warm: WarmStart | None = None) -> PdhgState:
+    def init(self, A, b, c, ub=None, warm: WarmStart | None = None,
+             telemetry: bool = False) -> PdhgState:
         state = init_pdhg_state(A, b, c, ub)
         w = warm_tensors(warm, A.device)
         if w["warm_x"] is not None:
             state = inject_pdhg_warm(state, w["warm_x"], w["warm_y"],
                                      w["warm_omega"])
+        if telemetry:
+            state = state._replace(tel=init_telemetry(A.shape[0], A.device))
         return state
 
     def segment(self, state, steps: int, stage: str, max_iters: int):
@@ -733,24 +776,28 @@ class PdhgBackend(TorchBackend):
 
 def schedule_pdhg(runner: PdhgBackend, batch: LPBatch, dev, *, max_iters,
                   segment_k, compact_threshold, stats_out,
-                  warm=None) -> LPResult:
+                  warm=None, telemetry: bool = False,
+                  tracer=None) -> LPResult:
     """Initialize ``runner`` on a canonical batch (seeded from a validated
-    ``warm``) and drive it through ``run_schedule`` with a per-LP budget
-    of ``ceil(max_iters / check_every)`` rounds; ``segment_k=None`` takes
-    the reference's ``max(4, rounds // 64)``."""
+    ``warm``, with counter lanes when ``telemetry``) and drive it through
+    ``run_schedule`` with a per-LP budget of ``ceil(max_iters /
+    check_every)`` rounds; ``segment_k=None`` takes the reference's
+    ``max(4, rounds // 64)``."""
     m, n = batch.m, batch.n
     if max_iters is None:
         max_iters = default_pdhg_max_iters(m, n)
     rounds = pdhg_rounds(max_iters, runner.check_every)
     if segment_k is None:
         segment_k = max(4, rounds // 64)
-    A, b, c, ub = batch_tensors(batch, dev)
-    state = runner.init(A, b, c, ub, warm=warm)
-    del A, b, c, ub
+    with maybe_span(tracer, "dispatch", backend=type(runner).__name__,
+                    B=batch.batch, m=m, n=n):
+        A, b, c, ub = batch_tensors(batch, dev)
+        state = runner.init(A, b, c, ub, warm=warm, telemetry=telemetry)
+        del A, b, c, ub
     return run_schedule(runner, state, max_iters=rounds,
                         segment_k=segment_k,
                         compact_threshold=compact_threshold,
-                        stats_out=stats_out)
+                        stats_out=stats_out, tracer=tracer)
 
 
 def solve_batched_pdhg_compacted(
@@ -769,12 +816,13 @@ def solve_batched_pdhg_compacted(
     ``solve_batched_pdhg`` bit for bit (statuses, iterations, x,
     objectives, y, z); the result carries no warm-start capture.  Only the
     fixed step: ``step_rule="malitsky_pock"`` raises ``ValueError``, as
-    the reference's compacted entry has no linesearch."""
-    check_deferred(backend="pdhg", telemetry=telemetry, tracer=tracer)
+    the reference's compacted entry has no linesearch.  ``telemetry`` and
+    ``tracer`` as in ``core.compaction.solve_batched_compacted``."""
     _check_pdhg_pricing(pricing)
     check_compacted_step_rule(step_rule)
     del feas_tol
-    batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
+    with maybe_span(tracer, "canonicalize"):
+        batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     runner = PdhgBackend(batch.m, batch.n,
                          DEFAULT_TOL if tol is None else tol,
@@ -783,8 +831,10 @@ def solve_batched_pdhg_compacted(
                         segment_k=segment_k,
                         compact_threshold=compact_threshold,
                         stats_out=stats_out,
-                        warm=prepare_warm(warm, rec, batch))
-    return finish_result(rec, res)
+                        warm=prepare_warm(warm, rec, batch),
+                        telemetry=telemetry, tracer=tracer)
+    with maybe_span(tracer, "recover"):
+        return finish_result(rec, res)
 
 
 def check_compacted_step_rule(step_rule: str) -> None:

@@ -47,17 +47,20 @@ factorization, so a bucket gather is followed by a refactorization
 """
 from __future__ import annotations
 
+import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.telemetry import (TelemetryState, init_telemetry,
+                             tel_revised_update, tel_simplex_update)
+from ..obs.trace import maybe_span
 from .compaction import (
     STAGES,
     SegmentStat,
     TorchBackend,
-    check_deferred,
     schedule_batch,
     segment_pending,
 )
@@ -85,6 +88,7 @@ from .simplex import (
     _take,
     batch_tensors,
     default_tolerances,
+    solve_report,
     warm_basis_arrays,
 )
 
@@ -143,6 +147,8 @@ class RevisedState(NamedTuple):
     y: torch.Tensor       # (B, m) f32 c_B Binv (phase-2 costs, sign-
                           #  adjusted rows) after the LP's last segment
     work: torch.Tensor    # (B, 5) int32, WORK_FIELDS
+    tel: Optional[TelemetryState] = None  # counter lanes, or None with
+                                          #  telemetry off
 
 
 def build_revised_state(A, b, c, ub=None, *, feas_tol: float) -> RevisedState:
@@ -298,6 +304,7 @@ def _step(s: RevisedState, Binv, cnt, act, *, m: int, n: int, tol: float,
     e = d.argmax(dim=1)
     max_cost = d.gather(1, e[:, None])[:, 0]
     priced = torch.full((B,), ncand, dtype=torch.int32, device=dev)
+    rotated = None
     if rule == "partial":
         n_blocks, bs = partial_geometry(ncand)
         blk = s.iters.long() % n_blocks
@@ -311,6 +318,7 @@ def _step(s: RevisedState, Binv, cnt, act, *, m: int, n: int, tol: float,
         max_cost = torch.where(improving, blk_max, max_cost)
         priced = torch.where(improving, in_blk.sum(dim=1).to(torch.int32),
                              priced)
+        rotated = act & ~improving
     is_opt = max_cost <= tol
     p1_done = act & in_p1 & is_opt
     infeasible = torch.zeros_like(act)
@@ -384,11 +392,19 @@ def _step(s: RevisedState, Binv, cnt, act, *, m: int, n: int, tol: float,
     work[:, _PIVOTS] += do_pivot.to(torch.int32)
     work[:, _FLIPS] += do_flip.to(torch.int32)
     work[:, _PRICED] += torch.where(act, priced, 0)
+    tel = s.tel
+    if tel is not None:
+        tel = tel_simplex_update(tel, inc=inc, in_phase1=in_p1,
+                                 do_pivot=do_pivot, do_flip=do_flip,
+                                 degenerate=min_ratio <= 0.0)
+        tel = tel_revised_update(
+            tel, refactor=due, eta_len=torch.where(act, cnt, tel.eta_len),
+            block_rotation=rotated)
     state = s._replace(
         xB=xB, basis=basis, onub=onub,
         phase=torch.where(to_phase2, 2, s.phase).to(torch.int32),
         status=status.to(torch.int32),
-        iters=s.iters + inc.to(torch.int32), work=work)
+        iters=s.iters + inc.to(torch.int32), work=work, tel=tel)
     return state, Binv, cnt
 
 
@@ -460,32 +476,39 @@ def extract_revised(state: RevisedState, *, m: int, n: int):
 def solve_revised(A, b, c, ub=None, *, m: int, n: int, max_iters: int,
                   tol: float, feas_tol: float, refactor_period: int,
                   pricing: str = "dantzig", warm_basis=None,
-                  warm_at_upper=None, segment=None, work=None):
+                  warm_at_upper=None, segment=None, work=None,
+                  telemetry: bool = False):
     """Whole revised solve of a float32 batch on its device: one segment of
     ``max_iters`` steps (``segment``, by default the plain
     ``revised_segment``; the kernel wrapper passes itself), then the
-    extraction.  Returns ``(x, obj, status, iters, y, z, basis, onub)``.
-    ``work``, a (B, 5) int32 tensor when given, receives WORK_FIELDS."""
+    extraction.  Returns ``(x, obj, status, iters, y, z, basis, onub)``,
+    and the ``TelemetryState`` after them when ``telemetry``.  ``work``, a
+    (B, 5) int32 tensor when given, receives WORK_FIELDS."""
     rule = canonicalize_revised_rule(pricing)
     state = warm_state(A, b, c, ub, m=m, n=n, feas_tol=feas_tol,
                        warm_basis=warm_basis, warm_at_upper=warm_at_upper)
+    if telemetry:
+        state = state._replace(tel=init_telemetry(A.shape[0], A.device))
     segment = revised_segment if segment is None else segment
     state, _ = segment(state, int(max_iters), stage="p2", m=m, n=n,
                        max_iters=int(max_iters), tol=tol,
                        refactor_period=int(refactor_period), rule=rule)
     if work is not None:
         work.copy_(state.work)
-    return extract_revised(state, m=m, n=n) + (state.basis, state.onub)
+    out = extract_revised(state, m=m, n=n) + (state.basis, state.onub)
+    return out + (state.tel,) if telemetry else out
 
 
-def revised_result(out, *, m: int, n: int, rule: str) -> LPResult:
+def revised_result(out, *, m: int, n: int, rule: str, stats=None
+                   ) -> LPResult:
     """The ``LPResult`` (NumPy, with its ``WarmStart`` capture) of a
-    ``solve_revised`` tuple."""
+    ``solve_revised`` tuple's first eight entries, carrying ``stats``."""
     host = lambda t: t.cpu().numpy()  # noqa: E731
-    x, obj, status, iters, y, z, basis, onub = (host(t) for t in out)
+    x, obj, status, iters, y, z, basis, onub = (host(t) for t in out[:8])
     return LPResult(x=x, objective=obj, status=status, iterations=iters,
                     y=y, z=z, warm=WarmStart(m=m, n=n, basis=basis,
-                                             at_upper=onub, pricing=rule))
+                                             at_upper=onub, pricing=rule),
+                    stats=stats)
 
 
 def solve_batched_revised(batch: LPBatch, *, device=None,
@@ -496,14 +519,17 @@ def solve_batched_revised(batch: LPBatch, *, device=None,
                           pricing: str = "dantzig",
                           presolve: bool = True,
                           scale: bool | None = None,
-                          warm: WarmStart | None = None) -> LPResult:
+                          warm: WarmStart | None = None,
+                          telemetry: bool = False, tracer=None) -> LPResult:
     """Solve a batch with the plain revised engine, in float32 on
     ``device`` (CUDA unless ``device="cpu"``).  Counterpart of
     ``repro.core.revised.solve_batched_revised``: ``pricing`` is
     "dantzig" or "partial", ``refactor_period`` the eta clock (None:
     ``auto_refactor_period``), ``warm`` a parent's ``WarmStart`` (any
-    basis-carrying engine's); the result carries its own capture."""
-    batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
+    basis-carrying engine's); the result carries its own capture.
+    ``telemetry`` and ``tracer`` as in ``core.simplex.solve_batched_torch``."""
+    with maybe_span(tracer, "canonicalize"):
+        batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     m, n = batch.m, batch.n
     rule = canonicalize_revised_rule(pricing)
@@ -512,11 +538,18 @@ def solve_batched_revised(batch: LPBatch, *, device=None,
         max_iters = default_max_iters(m, n)
     K = refactor_period or auto_refactor_period(m, n)
     warm = prepare_warm(warm, rec, batch)
-    A, b, c, ub = batch_tensors(batch, dev)
-    out = solve_revised(A, b, c, ub, m=m, n=n, max_iters=int(max_iters),
-                        tol=tol, feas_tol=feas_tol, refactor_period=K,
-                        pricing=rule, **warm_basis_arrays(warm))
-    return finish_result(rec, revised_result(out, m=m, n=n, rule=rule))
+    t0 = time.perf_counter()
+    with maybe_span(tracer, "dispatch", backend="revised", B=batch.batch,
+                    m=m, n=n):
+        A, b, c, ub = batch_tensors(batch, dev)
+        out = solve_revised(A, b, c, ub, m=m, n=n, max_iters=int(max_iters),
+                            tol=tol, feas_tol=feas_tol, refactor_period=K,
+                            pricing=rule, telemetry=telemetry,
+                            **warm_basis_arrays(warm))
+        res = revised_result(out, m=m, n=n, rule=rule, stats=solve_report(
+            out[8] if telemetry else None, t0, "revised", tracer))
+    with maybe_span(tracer, "recover"):
+        return finish_result(rec, res)
 
 
 class RevisedBackend(TorchBackend):
@@ -534,9 +567,13 @@ class RevisedBackend(TorchBackend):
         self.refactor_period = int(refactor_period
                                    or auto_refactor_period(m, n))
 
-    def init(self, A, b, c, ub=None, warm: WarmStart | None = None):
-        return warm_state(A, b, c, ub, m=self.m, n=self.n,
-                          feas_tol=self.feas_tol, **warm_basis_arrays(warm))
+    def init(self, A, b, c, ub=None, warm: WarmStart | None = None,
+             telemetry: bool = False):
+        state = warm_state(A, b, c, ub, m=self.m, n=self.n,
+                           feas_tol=self.feas_tol, **warm_basis_arrays(warm))
+        if telemetry:
+            state = state._replace(tel=init_telemetry(A.shape[0], A.device))
+        return state
 
     def segment(self, state, steps: int, stage: str, max_iters: int):
         return revised_segment(state, steps, stage=stage, m=self.m, n=self.n,
@@ -570,10 +607,11 @@ def solve_batched_revised_compacted(
     """The revised engine under the compaction scheduler, in float32 on
     ``device`` (CUDA unless ``device="cpu"``): segments of at most
     ``segment_k`` steps, survivor gathers between them.  Same contract as
-    ``core.compaction.solve_batched_compacted``; ``warm`` seeds the
-    initial state, and the result carries no warm-start capture."""
-    check_deferred(backend="revised", telemetry=telemetry, tracer=tracer)
-    batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
+    ``core.compaction.solve_batched_compacted`` (``telemetry`` and
+    ``tracer`` included); ``warm`` seeds the initial state, and the result
+    carries no warm-start capture."""
+    with maybe_span(tracer, "canonicalize"):
+        batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     tol, feas_tol = default_tolerances(tol, feas_tol)
     runner = RevisedBackend(batch.m, batch.n, tol, feas_tol, pricing=pricing,
@@ -582,5 +620,7 @@ def solve_batched_revised_compacted(
                          segment_k=segment_k,
                          compact_threshold=compact_threshold,
                          stats_out=stats_out,
-                         warm=prepare_warm(warm, rec, batch))
-    return finish_result(rec, res)
+                         warm=prepare_warm(warm, rec, batch),
+                         telemetry=telemetry, tracer=tracer)
+    with maybe_span(tracer, "recover"):
+        return finish_result(rec, res)

@@ -24,12 +24,17 @@ whose results do not depend on the batch size.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.report import report_from_counters
+from ..obs.telemetry import (TelemetryState, init_telemetry,
+                             tel_simplex_update, tel_to_numpy)
+from ..obs.trace import maybe_span
 from .forms import ensure_canonical, finish_result, prepare_warm
 from .fp import colsum_fma, dot_last, fma
 from .lp import (
@@ -66,6 +71,8 @@ class SimplexState(NamedTuple):
     ub: torch.Tensor      # (B, n) upper bounds (+inf = unbounded)
     work: torch.Tensor    # (B, 3) int32 — phase-1 pivots, phase-2 pivots,
                           #  bound flips
+    tel: Optional[TelemetryState] = None  # counter lanes, or None with
+                                          #  telemetry off
 
 
 def build_tableau_torch(A: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
@@ -279,7 +286,7 @@ def _step(s: SimplexState, *, n: int, m: int, tol: float, feas_thr,
     (B,) bool mask, restricts the step to the running LPs it selects (a
     resumable segment parks some and stops others at their cap); an LP
     outside it keeps every leaf bit for bit."""
-    T, basis, phase, status, iters, w, flip, ub, work = s
+    T, basis, phase, status, iters, w, flip, ub, work = s[:9]
     B, rows, C = T.shape
     running = status == _RUNNING
     active = running if active is None else running & active
@@ -336,11 +343,16 @@ def _step(s: SimplexState, *, n: int, m: int, tol: float, feas_thr,
     work = work + torch.stack([do_pivot & (phase == 1),
                                do_pivot & (phase == 2), do_flip],
                               dim=1).to(torch.int32)
-    phase = torch.where(to_phase2, 2, phase)
     inc = active & ~p2_done & ~infeasible
+    tel = s.tel
+    if tel is not None:
+        tel = tel_simplex_update(tel, inc=inc, in_phase1=phase == 1,
+                                 do_pivot=do_pivot, do_flip=do_flip,
+                                 degenerate=min_ratio <= 0.0)
+    phase = torch.where(to_phase2, 2, phase)
     iters = iters + inc.to(torch.int32)
     return SimplexState(T, basis, phase, status.to(torch.int32), iters, w,
-                        flip, ub, work)
+                        flip, ub, work, tel)
 
 
 def simplex_step(state: SimplexState, *, n: int, m: int, tol: float,
@@ -430,13 +442,15 @@ def warm_tableau(A, b, c, ub, *, m: int, n: int, feas_tol: float, rule: str,
 def solve_two_phase(A, b, c, ub=None, *, m: int, n: int, max_iters: int,
                     tol: float, feas_tol: float, pricing: str = "dantzig",
                     full_state: bool = False, work=None, warm_basis=None,
-                    warm_at_upper=None, warm_weights=None):
+                    warm_at_upper=None, warm_weights=None,
+                    telemetry: bool = False):
     """Two-phase solve of a float32 batch already on its device.
 
-    Returns ``(x, obj, status, iters, y, z)``, and ``(basis, flip, w)``
-    after them when ``full_state``; objectives and duals are NaN off
-    OPTIMAL.  ``work``, a (B, 3) int32 tensor when given, is overwritten
-    with each LP's phase-1 pivots, phase-2 pivots and bound flips.
+    Returns ``(x, obj, status, iters, y, z)``, ``(basis, flip, w)`` after
+    them when ``full_state`` and the ``TelemetryState`` last when
+    ``telemetry``; objectives and duals are NaN off OPTIMAL.  ``work``, a
+    (B, 3) int32 tensor when given, is overwritten with each LP's phase-1
+    pivots, phase-2 pivots and bound flips.
     ``warm_basis`` (B, m) and ``warm_at_upper`` (B, n) seed the solve from
     a parent basis (``warm_tableau``); ``warm_weights`` overlays carried
     devex weights."""
@@ -455,7 +469,8 @@ def solve_two_phase(A, b, c, ub=None, *, m: int, n: int, max_iters: int,
         status=torch.full((B,), _RUNNING, dtype=torch.int32, device=A.device),
         iters=torch.zeros((B,), dtype=torch.int32, device=A.device),
         w=w, flip=flip,
-        ub=ub, work=torch.zeros((B, 3), dtype=torch.int32, device=A.device))
+        ub=ub, work=torch.zeros((B, 3), dtype=torch.int32, device=A.device),
+        tel=init_telemetry(B, A.device) if telemetry else None)
 
     it = 0
     while it < max_iters and bool(((s.status == _RUNNING)
@@ -481,6 +496,8 @@ def solve_two_phase(A, b, c, ub=None, *, m: int, n: int, max_iters: int,
            torch.where(opt[:, None], z, torch.nan))
     if full_state:
         out = out + (s.basis, s.flip, s.w)
+    if telemetry:
+        out = out + (s.tel,)
     return out
 
 
@@ -527,7 +544,8 @@ def solve_batched_torch(batch: LPBatch, *, device=None, tol: float | None = None
                         max_iters: int | None = None,
                         pricing: str = "dantzig",
                         presolve: bool = True, scale: bool | None = None,
-                        warm: WarmStart | None = None) -> LPResult:
+                        warm: WarmStart | None = None,
+                        telemetry: bool = False, tracer=None) -> LPResult:
     """Solve a batch with the plain PyTorch engine, in float32 on
     ``device`` (CUDA unless ``device="cpu"``).  Counterpart of
     ``repro.core.simplex.solve_batched_jax``: a ``GeneralLPBatch`` is
@@ -535,8 +553,12 @@ def solve_batched_torch(batch: LPBatch, *, device=None, tol: float | None = None
     carries the terminal ``WarmStart`` capture (basis, flips, weights).
     ``warm`` re-injects a previous solve's capture (validated by
     ``forms.prepare_warm``; skip, repair or cold per LP); its weights are
-    reused only under devex, as in the reference."""
-    batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
+    reused only under devex, as in the reference.  ``telemetry=True``
+    counts per-LP work into ``LPResult.stats`` (``obs.SolveReport``);
+    ``tracer`` (an ``obs.SpanTracer``) records the canonicalize, dispatch
+    and recover spans."""
+    with maybe_span(tracer, "canonicalize"):
+        batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
     m, n = batch.m, batch.n
     rule = canonicalize_rule(pricing)
@@ -544,14 +566,34 @@ def solve_batched_torch(batch: LPBatch, *, device=None, tol: float | None = None
     if max_iters is None:
         max_iters = default_max_iters(m, n)
     warm = prepare_warm(warm, rec, batch)
-    A, b, c, ub = batch_tensors(batch, dev)
-    x, obj, status, iters, y, z, basis, flip, w = solve_two_phase(
-        A, b, c, ub, m=m, n=n, max_iters=int(max_iters), tol=tol,
-        feas_tol=feas_tol, pricing=rule, full_state=True,
-        **warm_arrays(warm, rule, m, n))
-    host = lambda t: t.cpu().numpy()  # noqa: E731
-    capture = WarmStart(m=m, n=n, basis=host(basis), at_upper=host(flip),
-                        weights=host(w), pricing=rule)
-    res = LPResult(x=host(x), objective=host(obj), status=host(status),
-                   iterations=host(iters), y=host(y), z=host(z), warm=capture)
-    return finish_result(rec, res)
+    t0 = time.perf_counter()
+    with maybe_span(tracer, "dispatch", backend="tableau", B=batch.batch,
+                    m=m, n=n):
+        A, b, c, ub = batch_tensors(batch, dev)
+        out = solve_two_phase(
+            A, b, c, ub, m=m, n=n, max_iters=int(max_iters), tol=tol,
+            feas_tol=feas_tol, pricing=rule, full_state=True,
+            telemetry=telemetry, **warm_arrays(warm, rule, m, n))
+        x, obj, status, iters, y, z, basis, flip, w = out[:9]
+        host = lambda t: t.cpu().numpy()  # noqa: E731
+        capture = WarmStart(m=m, n=n, basis=host(basis), at_upper=host(flip),
+                            weights=host(w), pricing=rule)
+        res = LPResult(x=host(x), objective=host(obj), status=host(status),
+                       iterations=host(iters), y=host(y), z=host(z),
+                       warm=capture,
+                       stats=solve_report(out[9] if telemetry else None, t0,
+                                          "tableau", tracer))
+    with maybe_span(tracer, "recover"):
+        return finish_result(rec, res)
+
+
+def solve_report(tel, t0: float, backend: str, tracer=None):
+    """The ``obs.SolveReport`` of a solve that started at ``t0``
+    (``time.perf_counter``) from its final counter lanes, with the
+    tracer's span tree; None when ``tel`` is None (telemetry off)."""
+    if tel is None:
+        return None
+    counters = tel_to_numpy(tel)
+    return report_from_counters(
+        counters, wall_s=time.perf_counter() - t0, backend=backend,
+        spans=tuple(tracer.roots) if tracer is not None else ())

@@ -7,7 +7,10 @@ package's ``LPResult`` into a dict of NumPy arrays, so one input can be fed
 to both packages and their outputs compared field by field.
 ``segment_state_from_tile`` turns the reference's segment-kernel state into
 the port's ``CompactionState``, so one segment launch can be compared tile
-by tile.  ``warm_from_reference`` and ``warm_to_reference`` carry a
+by tile; ``revised_state_from_tile`` does the same for the revised
+kernel's state.  Each carries the reference state's telemetry lanes when
+it has them (``tel_from_reference``), so a port segment can start from the
+reference's mid-solve counters.  ``warm_from_reference`` and ``warm_to_reference`` carry a
 ``WarmStart`` (the solver state one solve hands the next) either way, so
 one parent basis can seed both packages.  ``pdhg_state_from_reference``
 turns the reference's PDHG state (engine or tile layout) into the port's
@@ -29,7 +32,9 @@ from .core.compaction import CompactionState
 from .core.forms import GeneralLPBatch
 from .core.lp import LPBatch, WarmStart
 from .core.pdhg import PdhgState
+from .core.revised import WORK_FIELDS, RevisedState
 from .models.transformer import LM
+from .obs.telemetry import ALL_LANES, INT_LANES, TelemetryState
 
 RESULT_FIELDS = ("x", "objective", "status", "iterations", "y", "z")
 
@@ -73,6 +78,23 @@ def warm_to_reference(ws, cls):
     return None if ws is None else cls(**_warm_fields(ws))
 
 
+def tel_from_reference(tel, *, batch=None, device="cpu"):
+    """The port's ``TelemetryState`` with the lanes of a reference
+    ``obs.telemetry.TelemetryState`` (cut to its first ``batch`` members
+    when given); ``None`` stays ``None``."""
+    if tel is None:
+        return None
+
+    def put(name):
+        a = np.asarray(getattr(tel, name)).reshape(-1)
+        if batch is not None:
+            a = a[:int(batch)]
+        dtype = torch.int32 if name in INT_LANES else torch.float32
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return TelemetryState(**{name: put(name) for name in ALL_LANES})
+
+
 def segment_state_from_tile(tile, *, m: int, n: int, stage: str,
                             device="cpu") -> CompactionState:
     """The port's unpadded segment state from the reference's one on the
@@ -81,7 +103,7 @@ def segment_state_from_tile(tile, *, m: int, n: int, stage: str,
     flips and bounds, (B, 1) scalars).  ``stage`` says which tableau ``T``
     holds: "p1" the full (m+2) x (n+2m+1) one, "p2" the compacted
     (m+1) x (n+m+1) one.  The reference carries no work counters: they
-    start at zero."""
+    start at zero.  Its telemetry lanes, when it has them, come along."""
     rows, cols = (m + 2, n + 2 * m + 1) if stage == "p1" else (m + 1,
                                                                 n + m + 1)
     T = np.asarray(tile.T)
@@ -104,7 +126,40 @@ def segment_state_from_tile(tile, *, m: int, n: int, stage: str,
         flip=put(np.asarray(tile.flip)[:, :n] != 0, torch.bool),
         ub=put(np.asarray(tile.ub)[:, :n], f32),
         thr=put(np.asarray(tile.thr).reshape(-1), f32),
-        work=torch.zeros((B, 3), dtype=i32, device=device))
+        work=torch.zeros((B, 3), dtype=i32, device=device),
+        tel=tel_from_reference(getattr(tile, "tel", None), batch=B,
+                               device=device))
+
+
+def revised_state_from_tile(tile, *, m: int, n: int, batch=None,
+                            device="cpu") -> RevisedState:
+    """The port's ``RevisedState`` from the reference revised kernel's
+    state on the padded tile layout (``kernels.revised_tile
+    .RevisedTileState``: rows padded to 8, lanes to 128, the batch to a
+    tile multiple, (B, 1) scalars), cut to its first ``batch`` members when
+    given.  The basis inverse stays behind (the port's segment factorizes
+    its own at its first step); ``y`` and the work counters start at
+    zero; the telemetry lanes, when it has them, come along."""
+    B = np.asarray(tile.xB).shape[0] if batch is None else int(batch)
+
+    def put(name, cols=None, dtype=torch.float32):
+        a = np.asarray(getattr(tile, name))[:B]
+        a = a[:, :cols] if cols is not None else a.reshape(B)
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    f32, i32 = torch.float32, torch.int32
+    return RevisedState(
+        Abar=torch.as_tensor(np.array(np.asarray(tile.Abar)[:B, :m,
+                                                            :n + 2 * m]),
+                             dtype=f32, device=device),
+        cvec=put("cvec", n + m), ub=put("ub", n), thr=put("thr"),
+        xB=put("xB", m), basis=put("basis", m, i32),
+        onub=put("onub", n, torch.bool), phase=put("phase", dtype=i32),
+        status=put("status", dtype=i32), iters=put("iters", dtype=i32),
+        y=torch.zeros((B, m), dtype=f32, device=device),
+        work=torch.zeros((B, len(WORK_FIELDS)), dtype=i32, device=device),
+        tel=tel_from_reference(getattr(tile, "tel", None), batch=B,
+                               device=device))
 
 
 def pdhg_state_from_reference(ref, *, m: int, n: int, batch=None,
@@ -113,7 +168,8 @@ def pdhg_state_from_reference(ref, *, m: int, n: int, batch=None,
     ``core.pdhg.PdhgState`` or of a ``kernels.pdhg_tile.PdhgTileState``
     (rows padded to 8, lanes to 128, the batch to a tile multiple, (B, 1)
     scalars; the padding is cut off, and the batch to its first ``batch``
-    members when given).  Telemetry lanes are not carried."""
+    members when given).  Its telemetry lanes, when it has them, come
+    along."""
     B = np.asarray(ref.x).shape[0] if batch is None else int(batch)
 
     def put(name, cols=None, dtype=torch.float32, shape=None):
@@ -139,7 +195,9 @@ def pdhg_state_from_reference(ref, *, m: int, n: int, batch=None,
         prev_res=put(prev, shape="B"), phase=put("phase", dtype=i32,
                                                  shape="B"),
         status=put("status", dtype=i32, shape="B"),
-        iters=put("iters", dtype=i32, shape="B"))
+        iters=put("iters", dtype=i32, shape="B"),
+        tel=tel_from_reference(getattr(ref, "tel", None), batch=B,
+                               device=device))
 
 
 def lm_from_reference(cfg, params_np, device="cpu") -> LM:

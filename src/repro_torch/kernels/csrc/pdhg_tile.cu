@@ -94,6 +94,18 @@
 // traffic inside the loop.  No tensor cores: they round neither each
 // product nor each add as the fixed order needs.
 //
+// Per-LP counters (the telemetry plane, src/repro_torch/obs/telemetry.py).
+// The segment mode has a second instantiation per variant, kTel, that
+// carries each LP's int32 and float32 counter rows (16 and 8 lanes):
+// thread 0 loads the lanes the engine owns into a static shared-memory slot
+// at the start, books each round there (its iterations, an adopted
+// restart), copies in the KKT triple of the round's candidate (the two
+// KKT evaluations leave theirs beside the slot) and the primal weight after
+// the check, and stores the lanes at the end, in place.  The copies are the
+// values the check computes, bit for bit.  A block with nothing to run
+// leaves the rows as they are.  Registers hold none of it, and kTel ==
+// false compiles to the kernel without counters.
+//
 // Built with -DPDHG_TRACE, thread 0 of each block counts clock64() cycles
 // by phase into `g_trace` (pdhg_trace_read); the main build has none of it.
 
@@ -131,6 +143,19 @@ constexpr int kWholeMP = 2;
 constexpr int kVarRegisters = 0;
 constexpr int kVarShared = 1;
 constexpr int kVarDevice = 2;
+
+// The counter rows (src/repro_torch/obs/telemetry.py INT_LANES, F32_LANES):
+// their widths and the lanes PDHG books.
+constexpr int kTelInts = 16;
+constexpr int kTelFloats = 8;
+constexpr int kTelIters2 = 1;
+constexpr int kTelRestarts = 9;
+constexpr int kTelKkt = 0;     // kkt_primal, kkt_dual, kkt_gap: lanes 0..2
+constexpr int kTelOmega = 3;
+constexpr int kTelCur = kTelFloats;       // the current iterate's triple
+constexpr int kTelAvg = kTelFloats + 3;   // the average's triple
+constexpr int kTelSlotBytes =
+    (int)(sizeof(int) * kTelInts + sizeof(float) * (kTelFloats + 6));
 
 #ifdef PDHG_TRACE
 // Phases of the cycle counters.
@@ -776,12 +801,36 @@ struct LP {   // the per-LP scalars every thread keeps
   int status, iters;
 };
 
+// The block's counter slot in static shared memory, in the counter-
+// carrying instantiations only (null in the others, which allocate none):
+// the int32 row's lanes, then the float32 row's and two KKT triples.
+template <bool kTel>
+__device__ __forceinline__ int* tel_ints() {
+  if constexpr (kTel) {
+    __shared__ int slot[kTelInts];
+    return slot;
+  } else {
+    return nullptr;
+  }
+}
+template <bool kTel>
+__device__ __forceinline__ float* tel_floats() {
+  if constexpr (kTel) {
+    __shared__ float slot[kTelFloats + 6];
+    return slot;
+  } else {
+    return nullptr;
+  }
+}
+
 // The KKT residual max(rp, rd, gap) of (xv, yv), kkt_residuals; uses m0,
-// n0 and red.  Every thread gets it.
+// n0 and red.  Every thread gets it; thread 0 also writes the triple to
+// `parts` when it is given.
 template <int KM, class V>
 __device__ __forceinline__ float kkt(V& mv, const Block& s, int m, int n,
                                      const LP& v, const float* xv,
-                                     const float* yv) {
+                                     const float* yv,
+                                     float* parts = nullptr) {
   const int tid = threadIdx.x, NT = blockDim.x;
   TR(kTrKktMv);
   mv.mv(s, m, n, xv, s.m0, yv, s.n0);
@@ -824,6 +873,11 @@ __device__ __forceinline__ float kkt(V& mv, const Block& s, int m, int n,
   TSYNC();
   const float gap = fabsf(__fsub_rn(pobj, dobj)) /
                     __fadd_rn(__fadd_rn(1.f, fabsf(pobj)), fabsf(dobj));
+  if (parts != nullptr && tid == 0) {
+    parts[0] = rp;
+    parts[1] = rd;
+    parts[2] = gap;
+  }
   return maxp(maxp(rp, rd), gap);
 }
 
@@ -911,18 +965,22 @@ __device__ __forceinline__ void iterate_mp(V& mv, const Block& s, int m,
   TSYNC();
 }
 
-// The round's check (_pdhg_check) after its iterations.
-template <int KM, class V>
+// The round's check (_pdhg_check) after its iterations; kTel books it
+// into the counter slot.
+template <int KM, class V, bool kTel = false>
 __device__ __forceinline__ void check(V& mv, const Block& s, int m, int n,
                                       LP& v, float tol) {
   const int tid = threadIdx.x, NT = blockDim.x;
+  float* const tf = tel_floats<kTel>();
   TR(kTrCheckOther);
   const float cc = maxp(v.cnt, 1.f);
   for (int j = tid; j < n; j += NT) s.n2[j] = s.xs[j] / cc;   // xa
   for (int i = tid; i < m; i += NT) s.m1[i] = s.ys[i] / cc;   // ya
   TSYNC();
-  const float res_cur = kkt<KM>(mv, s, m, n, v, s.x, s.y);
-  const float res_avg = kkt<KM>(mv, s, m, n, v, s.n2, s.m1);
+  const float res_cur = kkt<KM>(mv, s, m, n, v, s.x, s.y,
+                                kTel ? tf + kTelCur : nullptr);
+  const float res_avg = kkt<KM>(mv, s, m, n, v, s.n2, s.m1,
+                                kTel ? tf + kTelAvg : nullptr);
   TR(kTrCheckOther);
   const bool use_avg = res_avg < res_cur;
   const float res = use_avg ? res_avg : res_cur;
@@ -1050,14 +1108,26 @@ __device__ __forceinline__ void check(V& mv, const Block& s, int m, int n,
   if (converged) v.status = kOptimal;
   if (infeas) v.status = kInfeasible;
   if (unbounded) v.status = kUnbounded;
+  if constexpr (kTel) {
+    if (tid == 0) {
+      const float* c = tf + (use_avg ? kTelAvg : kTelCur);
+      for (int k = 0; k < 3; ++k) tf[kTelKkt + k] = c[k];
+      tf[kTelOmega] = v.omega;
+      if (restart) tel_ints<true>()[kTelRestarts] += 1;
+    }
+  }
 }
 
 // The round body of every variant V; KM lanes bound the check's one-warp
-// sums (dot products, norms).
-template <int kMode, class V, int KM>
+// sums (dot products, norms).  kTel (segments only) carries the counter
+// rows `ti` (kTelInts int32 an LP) and `tf` (kTelFloats float32), updated
+// in place (the last parameters, so that the counter-free instantiations
+// read every other one where they did before the plane).
+template <int kMode, class V, int KM, bool kTel = false>
 __global__ void __launch_bounds__(V::kThreads, V::kMinBlocks)
     pdhg_kernel(Args g, int m, int n, int steps, int max_rounds, int ce,
-                float tol) {
+                float tol, int* ti, float* tf) {
+  static_assert(!kTel || kMode == kSegment, "counters ride segments only");
   const int lp = blockIdx.x;
   const int tid = threadIdx.x, NT = blockDim.x;
   LP v;
@@ -1101,6 +1171,14 @@ __global__ void __launch_bounds__(V::kThreads, V::kMinBlocks)
   v.last = g.last[lp];
   v.prev = g.prev[lp];
   float tau = v.eta / v.omega, tprev = tau;   // Malitsky-Pock steps
+  if constexpr (kTel) {
+    if (tid == 0) {
+      tel_ints<true>()[kTelIters2] = ti[lp * kTelInts + kTelIters2];
+      tel_ints<true>()[kTelRestarts] = ti[lp * kTelInts + kTelRestarts];
+      for (int k = 0; k < 4; ++k)
+        tel_floats<true>()[k] = tf[lp * kTelFloats + k];
+    }
+  }
   TSYNC();
 
   int it = 0;
@@ -1119,7 +1197,10 @@ __global__ void __launch_bounds__(V::kThreads, V::kMinBlocks)
       }
     }
     v.iters += ce;
-    check<KM>(mv, s, m, n, v, tol);
+    if constexpr (kTel) {
+      if (tid == 0) tel_ints<true>()[kTelIters2] += ce;
+    }
+    check<KM, V, kTel>(mv, s, m, n, v, tol);
     TR(kTrOther);
     ++it;
   }
@@ -1144,6 +1225,12 @@ __global__ void __launch_bounds__(V::kThreads, V::kMinBlocks)
       g.status[lp] = v.status;
       g.iters[lp] = v.iters;
       g.it[lp] = it;
+      if constexpr (kTel) {
+        ti[lp * kTelInts + kTelIters2] = tel_ints<true>()[kTelIters2];
+        ti[lp * kTelInts + kTelRestarts] = tel_ints<true>()[kTelRestarts];
+        for (int k = 0; k < 4; ++k)
+          tf[lp * kTelFloats + k] = tel_floats<true>()[k];
+      }
     }
     TR_END();
     return;
@@ -1174,30 +1261,40 @@ __global__ void __launch_bounds__(V::kThreads, V::kMinBlocks)
   TR_END();
 }
 
-template <int kMode, class V, int KM>
-cudaError_t launch(const Args& g, int B, int m, int n, int steps,
-                   int max_rounds, int ce, float tol, int threads,
+// The counter rows of a launch (null, or both given for a segment).
+struct TelRows {
+  int* ti;
+  float* tf;
+};
+
+template <int kMode, class V, int KM, bool kTel = false>
+cudaError_t launch(const Args& g, const TelRows& t, int B, int m, int n,
+                   int steps, int max_rounds, int ce, float tol, int threads,
                    cudaStream_t stream) {
-  auto kernel = pdhg_kernel<kMode, V, KM>;
+  auto kernel = pdhg_kernel<kMode, V, KM, kTel>;
   const size_t smem = sizeof(float) * V::words(m, n);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B, threads, smem, stream>>>(g, m, n, steps, max_rounds, ce, tol);
+  kernel<<<B, threads, smem, stream>>>(g, m, n, steps, max_rounds, ce, tol,
+                                       t.ti, t.tf);
   return cudaGetLastError();
 }
 
 template <class V, int KM>
-cudaError_t by_mode(int mode, const Args& g, int B, int m, int n, int steps,
-                    int max_rounds, int ce, float tol, int threads,
-                    cudaStream_t st) {
+cudaError_t by_mode(int mode, const Args& g, const TelRows& t, int B, int m,
+                    int n, int steps, int max_rounds, int ce, float tol,
+                    int threads, cudaStream_t st) {
+  if (mode == kSegment && t.ti != nullptr)
+    return launch<kSegment, V, KM, true>(g, t, B, m, n, steps, max_rounds,
+                                         ce, tol, threads, st);
   if (mode == kSegment)
-    return launch<kSegment, V, KM>(g, B, m, n, steps, max_rounds, ce, tol,
+    return launch<kSegment, V, KM>(g, t, B, m, n, steps, max_rounds, ce, tol,
                                    threads, st);
   if (mode == kWholeFixed)
-    return launch<kWholeFixed, V, KM>(g, B, m, n, steps, max_rounds, ce,
+    return launch<kWholeFixed, V, KM>(g, t, B, m, n, steps, max_rounds, ce,
                                       tol, threads, st);
-  return launch<kWholeMP, V, KM>(g, B, m, n, steps, max_rounds, ce, tol,
+  return launch<kWholeMP, V, KM>(g, t, B, m, n, steps, max_rounds, ce, tol,
                                  threads, st);
 }
 
@@ -1221,9 +1318,11 @@ extern "C" long long pdhg_tile_smem_bytes(int m, int n, int a_smem) {
   return (long long)(sizeof(float) * layout(m, n, a_smem != 0).words);
 }
 
-// The variant the launcher runs for (m, n) on the current device: 0
-// registers, 1 shared, 2 device; minus a CUDA error code on failure.
-extern "C" int pdhg_tile_variant(int m, int n) {
+namespace {
+
+// pdhg_tile_variant with `reserved` bytes of the block's shared memory
+// taken (the counter slot's, for the counter-carrying instantiations).
+int variant_with(int m, int n, int reserved) {
   if (reg_shape(m, n)) return kVarRegisters;
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1231,9 +1330,18 @@ extern "C" int pdhg_tile_variant(int m, int n) {
     err = cudaDeviceGetAttribute(
         &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return -(int)err;
-  return m <= 256 && n <= 256 && pdhg_tile_smem_bytes(m, n, 1) <= limit
+  return m <= 256 && n <= 256 &&
+                 pdhg_tile_smem_bytes(m, n, 1) <= limit - reserved
              ? kVarShared
              : kVarDevice;
+}
+
+}  // namespace
+
+// The variant the launcher runs for (m, n) on the current device: 0
+// registers, 1 shared, 2 device; minus a CUDA error code on failure.
+extern "C" int pdhg_tile_variant(int m, int n) {
+  return variant_with(m, n, 0);
 }
 
 // Threads a block of the variant for (m, n) takes: the register shape's
@@ -1256,8 +1364,12 @@ int launch_variant(
     void* yr, void* cnt, void* last, void* prev, void* omega, void* status,
     void* iters, void* it, void* xo, void* obj, void* yo, void* zo, void* wy,
     int B, int m, int n, int steps, int max_rounds, int ce, float tol,
-    int mode, int threads, void* stream, int variant) {
+    int mode, int threads, void* stream, int variant, void* ti = nullptr,
+    void* tf = nullptr) {
   if (B <= 0) return cudaSuccess;
+  if ((ti == nullptr) != (tf == nullptr) ||
+      (ti != nullptr && mode != kSegment))
+    return cudaErrorInvalidValue;
   if (m < 1 || n < 1 || m > 32 * kMaxK || n > 32 * kMaxK || ce < 1 ||
       mode < kSegment || mode > kWholeMP)
     return cudaErrorInvalidValue;
@@ -1287,24 +1399,25 @@ int launch_variant(
       static_cast<float*>(xo),         static_cast<float*>(obj),
       static_cast<float*>(yo),         static_cast<float*>(zo),
       static_cast<float*>(wy)};
+  const TelRows t{static_cast<int*>(ti), static_cast<float*>(tf)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == kVarRegisters) {
     // the check's sums cover at most 128 terms: 4 lanes' worth
     if (shape == 1)
-      return by_mode<RegWarp, 4>(mode, g, B, m, n, steps, max_rounds, ce,
+      return by_mode<RegWarp, 4>(mode, g, t, B, m, n, steps, max_rounds, ce,
                                  tol, threads, st);
-    return by_mode<RegBlock, 4>(mode, g, B, m, n, steps, max_rounds, ce, tol,
-                                threads, st);
+    return by_mode<RegBlock, 4>(mode, g, t, B, m, n, steps, max_rounds, ce,
+                                tol, threads, st);
   }
   // KM, the lanes a tree sum may hold: 8 (sums of up to 256 terms) with A
   // in shared memory, kMaxK with A in device memory; a sum that needs
   // fewer lanes skips the levels it does not have.
   if (variant == kVarShared) {
     if (m > 256 || n > 256) return cudaErrorInvalidValue;
-    return by_mode<WarpMv<true, 8>, 8>(mode, g, B, m, n, steps, max_rounds,
-                                       ce, tol, threads, st);
+    return by_mode<WarpMv<true, 8>, 8>(mode, g, t, B, m, n, steps,
+                                       max_rounds, ce, tol, threads, st);
   }
-  return by_mode<WarpMv<false, kMaxK>, kMaxK>(mode, g, B, m, n, steps,
+  return by_mode<WarpMv<false, kMaxK>, kMaxK>(mode, g, t, B, m, n, steps,
                                               max_rounds, ce, tol, threads,
                                               st);
 }
@@ -1337,6 +1450,32 @@ extern "C" int pdhg_launch(
                         xr, yr, cnt, last, prev, omega, status, iters, it, xo,
                         obj, yo, zo, wy, B, m, n, steps, max_rounds,
                         check_every, tol, mode, threads, stream, variant);
+}
+
+// pdhg_launch's segment (mode 0) through the counter-carrying
+// instantiation: `ti` (B, 16) int32 and `tf` (B, 8) float32, the packed
+// counter rows of obs.telemetry.tel_to_rows, updated in place (int lanes
+// 1 and 9: iterations, restarts; float lanes 0-3: the last KKT triple,
+// omega).  The variant is chosen with the counter slot's shared memory
+// taken.
+extern "C" int pdhg_segment_tel_launch(
+    const void* A, const void* b, const void* c, const void* rsc,
+    const void* csc, const void* ub, const void* eta, const void* binf,
+    const void* cinf, void* x, void* y, void* xs, void* ys, void* xr,
+    void* yr, void* cnt, void* last, void* prev, void* omega, void* status,
+    void* iters, void* it, void* ti, void* tf, int B, int m, int n,
+    int steps, int max_rounds, int check_every, float tol, int threads,
+    void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (ti == nullptr || tf == nullptr) return cudaErrorInvalidValue;
+  const int variant = variant_with(m, n, kTelSlotBytes);
+  if (variant < 0) return -variant;
+  if (threads != pdhg_tile_threads(m, n)) return cudaErrorInvalidValue;
+  return launch_variant(A, b, c, rsc, csc, ub, eta, binf, cinf, x, y, xs, ys,
+                        xr, yr, cnt, last, prev, omega, status, iters, it,
+                        nullptr, nullptr, nullptr, nullptr, nullptr, B, m, n,
+                        steps, max_rounds, check_every, tol, kSegment,
+                        threads, stream, variant, ti, tf);
 }
 
 #ifdef PDHG_TRACE

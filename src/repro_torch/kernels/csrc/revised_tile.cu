@@ -93,6 +93,19 @@
 //  * bound lookups select, never sum; phase 2 pins basic artificials;
 //  * the ratio test reads a basic value below its bound as at the bound.
 //
+// Per-LP counters (the telemetry plane, src/repro_torch/obs/telemetry.py).
+// The kernel has a second instantiation per shape, kTel, that carries the
+// int32 counter row of each LP (16 lanes; the float32 row is not the
+// revised engine's and stays where it is): thread 0 loads the lanes it
+// owns into a static shared-memory slot at the start and books there, after
+// each block-uniform decision, the step (its iteration by the phase it
+// began in, pivots by phase, bound flips, pivots at a zero minimum ratio,
+// partial pricing's rotations to the full pass) and each refactorization
+// (the first step's and every K pivots'); at the end it stores them, with
+// the eta length (pivots since the last refactorization), in place.  A
+// block with nothing to do leaves the row as it is.  Registers hold none
+// of it, and kTel == false compiles to the kernel without counters.
+//
 // Built with -DREVISED_TRACE, thread 0 of each block counts clock64()
 // cycles by phase into `g_trace` (revised_trace_read); the main build has
 // none of it.
@@ -126,6 +139,19 @@ constexpr int kWorkFlips = 2;
 constexpr int kWorkRefactors = 3;
 constexpr int kWorkPriced = 4;
 constexpr int kWorkCounters = 5;
+// The counter row (src/repro_torch/obs/telemetry.py INT_LANES): its width
+// and the lanes the revised engine books.
+constexpr int kTelInts = 16;
+constexpr int kTelIters1 = 0;
+constexpr int kTelIters2 = 1;
+constexpr int kTelPivots1 = 2;
+constexpr int kTelPivots2 = 3;
+constexpr int kTelFlips = 4;
+constexpr int kTelDegenerate = 5;
+constexpr int kTelRefactors = 6;
+constexpr int kTelEtaLen = 7;
+constexpr int kTelRotations = 8;
+constexpr int kTelLanes = 9;  // lanes 0..8 are the revised engine's
 // Variants (revised_tile_variant).
 constexpr int kVarShared = 0;
 constexpr int kVarDevice = 1;
@@ -849,10 +875,30 @@ struct Scalars {
   int work[kWorkCounters];
 };
 
+// The block's counter slot in static shared memory, in the counter-
+// carrying instantiations only (null in the others, which allocate none).
+template <bool kTel>
+__device__ __forceinline__ int* tel_slot() {
+  if constexpr (kTel) {
+    __shared__ int slot[kTelInts];
+    return slot;
+  } else {
+    return nullptr;
+  }
+}
+
+// Thread 0 books one into counter lane `k` (kTel only).
+template <bool kTel>
+__device__ __forceinline__ void tel_add(int k) {
+  if constexpr (kTel) {
+    if (threadIdx.x == 0) tel_slot<true>()[k] += 1;
+  }
+}
+
 // One step with y current (v.have_y): pricing, FTRAN, the ratio test and
 // a flip (the basis, and so y, stay as they are), a pivot or a terminal
-// status.
-template <int kRule, bool kSmem>
+// status.  kTel books it into the counter slot.
+template <int kRule, bool kSmem, bool kTel = false>
 __device__ void step(const Block& s, int m, int n, float tol, Scalars& v) {
   const int tid = threadIdx.x, T = blockDim.x;
   const int NP = n + m, NC = n + 2 * m, ld = s.ld;
@@ -891,6 +937,7 @@ __device__ void step(const Block& s, int m, int n, float tol, Scalars& v) {
       priced = hi - lo;
       break;
     }
+    if (pass == 1) tel_add<kTel>(kTelRotations);  // the block priced out
   }
   TR(kTrOther);
   v.work[kWorkSteps] += 1;
@@ -906,6 +953,7 @@ __device__ void step(const Block& s, int m, int n, float tol, Scalars& v) {
       if (p1_obj > v.thr) {
         v.status = kInfeasible;
       } else {
+        tel_add<kTel>(kTelIters1);
         v.phase = 2;
         v.iters += 1;
         v.have_y = false;
@@ -1017,12 +1065,15 @@ __device__ void step(const Block& s, int m, int n, float tol, Scalars& v) {
     }
     if (tid == 0) s.onub[e] ^= 1;
     v.work[kWorkFlips] += 1;
+    tel_add<kTel>(v.phase == 1 ? kTelIters1 : kTelIters2);
+    tel_add<kTel>(kTelFlips);
     v.iters += 1;
     TSYNC();  // the basis and so y stay as they are
     TR(kTrOther);
     return;
   }
   if (min_ratio >= kHalfBig) {  // no bounding row
+    tel_add<kTel>(v.phase == 1 ? kTelIters1 : kTelIters2);
     v.status = v.phase == 2 ? kUnbounded : kIterationLimit;
     v.iters += 1;
     TR(kTrOther);
@@ -1057,18 +1108,24 @@ __device__ void step(const Block& s, int m, int n, float tol, Scalars& v) {
   if (warp == 0) list_cb(s, m);
   v.cnt += 1;
   v.work[kWorkPivots] += 1;
+  tel_add<kTel>(v.phase == 1 ? kTelIters1 : kTelIters2);
+  tel_add<kTel>(v.phase == 1 ? kTelPivots1 : kTelPivots2);
+  if (min_ratio <= 0.f) tel_add<kTel>(kTelDegenerate);
   v.iters += 1;
   v.binv_fin = TSYNC_AND(fin) != 0;
   v.have_y = false;
   TR(kTrOther);
 }
 
-template <int kRule, bool kSmem, bool kP1>
+template <int kRule, bool kSmem, bool kP1, bool kTel = false>
 // The shared variant is held to 128 registers (two 224-thread blocks an SM
-// at 100 x 100), the device variant to 168.
+// at 100 x 100), the device variant to 168.  kTel carries the counter rows
+// `tel`, kTelInts int32 an LP, updated in place (the last parameter, so
+// that the counter-free instantiation reads every other one where it did
+// before the plane).
 __global__ void __launch_bounds__(kSmem ? 512 : kMaxThreads)
     revised_segment_kernel(SegmentState g, int m, int n, int steps,
-                           int max_iters, float tol, int K) {
+                           int max_iters, float tol, int K, int* tel) {
   const int NP = n + m, NC = n + 2 * m;
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
@@ -1142,6 +1199,11 @@ __global__ void __launch_bounds__(kSmem ? 512 : kMaxThreads)
   v.yfin = false;
   for (int k = 0; k < kWorkCounters; ++k)
     v.work[k] = g.work[lp * kWorkCounters + k];
+  if constexpr (kTel) {
+    if (tid == 0)
+      for (int k = 0; k < kTelLanes; ++k)
+        tel_slot<true>()[k] = tel[lp * kTelInts + k];
+  }
   TSYNC();
 
   // Each pass: refactor when the eta clock is due (always at the first
@@ -1157,6 +1219,7 @@ __global__ void __launch_bounds__(kSmem ? 512 : kMaxThreads)
       v.binv_fin = refactor<kSmem>(s, m, n);
       v.cnt = 0;
       v.work[kWorkRefactors] += 1;
+      tel_add<kTel>(kTelRefactors);
       v.have_y = false;
     }
     if (!go) {
@@ -1183,7 +1246,7 @@ __global__ void __launch_bounds__(kSmem ? 512 : kMaxThreads)
       v.have_y = true;
     }
     if (!go) break;
-    step<kRule, kSmem>(s, m, n, tol, v);
+    step<kRule, kSmem, kTel>(s, m, n, tol, v);
     ++it;
   }
   TR(kTrOther);
@@ -1202,43 +1265,49 @@ __global__ void __launch_bounds__(kSmem ? 512 : kMaxThreads)
     g.it[lp] = it;
     for (int k = 0; k < kWorkCounters; ++k)
       g.work[lp * kWorkCounters + k] = v.work[k];
+    if constexpr (kTel) {
+      tel_slot<true>()[kTelEtaLen] = v.cnt;
+      for (int k = 0; k < kTelLanes; ++k)
+        tel[lp * kTelInts + k] = tel_slot<true>()[k];
+    }
   }
   TR_END();
 }
 
-template <int kRule, bool kSmem, bool kP1>
-cudaError_t launch(const SegmentState& g, int B, int m, int n, int steps,
-                   int max_iters, float tol, int K, int threads,
+template <int kRule, bool kSmem, bool kP1, bool kTel>
+cudaError_t launch(const SegmentState& g, int* tel, int B, int m, int n,
+                   int steps, int max_iters, float tol, int K, int threads,
                    cudaStream_t stream) {
-  auto kernel = revised_segment_kernel<kRule, kSmem, kP1>;
+  auto kernel = revised_segment_kernel<kRule, kSmem, kP1, kTel>;
   const size_t smem = sizeof(float) * layout(m, n, kSmem).words;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B, threads, smem, stream>>>(g, m, n, steps, max_iters, tol, K);
+  kernel<<<B, threads, smem, stream>>>(g, m, n, steps, max_iters, tol, K,
+                                       tel);
   return cudaGetLastError();
 }
 
-template <int kRule, bool kSmem>
-cudaError_t dispatch_stage(bool p1, const SegmentState& g, int B, int m,
-                           int n, int steps, int max_iters, float tol, int K,
-                           int threads, cudaStream_t st) {
+template <int kRule, bool kSmem, bool kTel>
+cudaError_t dispatch_stage(bool p1, const SegmentState& g, int* tel, int B,
+                           int m, int n, int steps, int max_iters, float tol,
+                           int K, int threads, cudaStream_t st) {
   if (p1)
-    return launch<kRule, kSmem, true>(g, B, m, n, steps, max_iters, tol, K,
-                                      threads, st);
-  return launch<kRule, kSmem, false>(g, B, m, n, steps, max_iters, tol, K,
-                                     threads, st);
+    return launch<kRule, kSmem, true, kTel>(g, tel, B, m, n, steps,
+                                            max_iters, tol, K, threads, st);
+  return launch<kRule, kSmem, false, kTel>(g, tel, B, m, n, steps, max_iters,
+                                           tol, K, threads, st);
 }
 
-template <int kRule>
-cudaError_t dispatch(int variant, bool p1, const SegmentState& g, int B,
-                     int m, int n, int steps, int max_iters, float tol, int K,
-                     int threads, cudaStream_t st) {
+template <int kRule, bool kTel>
+cudaError_t dispatch(int variant, bool p1, const SegmentState& g, int* tel,
+                     int B, int m, int n, int steps, int max_iters, float tol,
+                     int K, int threads, cudaStream_t st) {
   if (variant == kVarShared)
-    return dispatch_stage<kRule, true>(p1, g, B, m, n, steps, max_iters, tol,
-                                       K, threads, st);
-  return dispatch_stage<kRule, false>(p1, g, B, m, n, steps, max_iters, tol,
-                                      K, threads, st);
+    return dispatch_stage<kRule, true, kTel>(p1, g, tel, B, m, n, steps,
+                                             max_iters, tol, K, threads, st);
+  return dispatch_stage<kRule, false, kTel>(p1, g, tel, B, m, n, steps,
+                                            max_iters, tol, K, threads, st);
 }
 
 }  // namespace
@@ -1258,18 +1327,65 @@ extern "C" long long revised_tile_workspace_floats(int m) {
 
 // The variant the launcher runs at (m, n) on the current device: 0 shared
 // (A and the workspace in shared memory), 1 device, or minus a CUDA error
-// code (-1 for a shape no variant takes).  The one place that chooses.
-extern "C" int revised_tile_variant(int m, int n) {
+// code (-1 for a shape no variant takes).  With `tel` not 0, for the
+// counter-carrying instantiation, whose counter slot takes kTelInts words
+// of the block's shared memory.  The one place that chooses.
+extern "C" int revised_tile_variant(int m, int n, int tel) {
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return -(int)err;
+  if (tel != 0) limit -= (int)sizeof(int) * kTelInts;
   if (revised_tile_smem_bytes(m, n, 1) <= limit) return kVarShared;
   if (revised_tile_smem_bytes(m, n, 0) <= limit) return kVarDevice;
   return -(int)cudaErrorInvalidValue;
 }
+
+namespace {
+
+// Validates and launches one segment, the counter-carrying instantiation
+// when `tel` is not null (see revised_segment_launch).
+int segment_launch(const void* Abar, const void* cvec, const void* ub,
+                   const void* thr, void* xB, void* basis, void* onub,
+                   void* phase, void* status, void* iters, void* y,
+                   void* work, void* it, void* ws, void* tel, int B, int m,
+                   int n, int p1, int steps, int max_iters, float tol, int K,
+                   int rule, int threads, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (m < 1 || n < 1 || K < 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 ||
+      (rule != kDantzig && rule != kPartial))
+    return cudaErrorInvalidValue;
+  const int variant = revised_tile_variant(m, n, tel != nullptr);
+  if (variant < 0) return -variant;
+  if (variant == kVarDevice && ws == nullptr) return cudaErrorInvalidValue;
+  const SegmentState g{
+      static_cast<const float*>(Abar), static_cast<const float*>(cvec),
+      static_cast<const float*>(ub),   static_cast<const float*>(thr),
+      static_cast<float*>(xB),         static_cast<int*>(basis),
+      static_cast<bool*>(onub),        static_cast<int*>(phase),
+      static_cast<int*>(status),       static_cast<int*>(iters),
+      static_cast<float*>(y),          static_cast<int*>(work),
+      static_cast<int*>(it),           static_cast<float*>(ws)};
+  int* rows = static_cast<int*>(tel);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows != nullptr) {
+    if (rule == kDantzig)
+      return dispatch<kDantzig, true>(variant, p1 != 0, g, rows, B, m, n,
+                                      steps, max_iters, tol, K, threads, st);
+    return dispatch<kPartial, true>(variant, p1 != 0, g, rows, B, m, n,
+                                    steps, max_iters, tol, K, threads, st);
+  }
+  if (rule == kDantzig)
+    return dispatch<kDantzig, false>(variant, p1 != 0, g, rows, B, m, n,
+                                     steps, max_iters, tol, K, threads, st);
+  return dispatch<kPartial, false>(variant, p1 != 0, g, rows, B, m, n, steps,
+                                   max_iters, tol, K, threads, st);
+}
+
+}  // namespace
 
 // Launches one segment block per LP on `stream`; allocates nothing and does
 // not synchronise.  Abar (B, m, n+2m), cvec (B, n+m), ub (B, n) and thr (B,)
@@ -1285,28 +1401,26 @@ extern "C" int revised_segment_launch(
     void* y, void* work, void* it, void* ws, int B, int m, int n, int p1,
     int steps, int max_iters, float tol, int K, int rule, int threads,
     void* stream) {
-  if (B <= 0) return cudaSuccess;
-  if (m < 1 || n < 1 || K < 1 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 ||
-      (rule != kDantzig && rule != kPartial))
-    return cudaErrorInvalidValue;
-  const int variant = revised_tile_variant(m, n);
-  if (variant < 0) return -variant;
-  if (variant == kVarDevice && ws == nullptr) return cudaErrorInvalidValue;
-  const SegmentState g{
-      static_cast<const float*>(Abar), static_cast<const float*>(cvec),
-      static_cast<const float*>(ub),   static_cast<const float*>(thr),
-      static_cast<float*>(xB),         static_cast<int*>(basis),
-      static_cast<bool*>(onub),        static_cast<int*>(phase),
-      static_cast<int*>(status),       static_cast<int*>(iters),
-      static_cast<float*>(y),          static_cast<int*>(work),
-      static_cast<int*>(it),           static_cast<float*>(ws)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rule == kDantzig)
-    return dispatch<kDantzig>(variant, p1 != 0, g, B, m, n, steps, max_iters,
-                              tol, K, threads, st);
-  return dispatch<kPartial>(variant, p1 != 0, g, B, m, n, steps, max_iters,
-                            tol, K, threads, st);
+  return segment_launch(Abar, cvec, ub, thr, xB, basis, onub, phase, status,
+                        iters, y, work, it, ws, nullptr, B, m, n, p1, steps,
+                        max_iters, tol, K, rule, threads, stream);
+}
+
+// revised_segment_launch through the counter-carrying instantiation: `tel`
+// (B, 16) int32, the packed counter rows of obs.telemetry.tel_to_rows,
+// updated in place (lanes 0-8: iterations and pivots by phase, bound
+// flips, degenerate pivots, refactorizations, eta length, partial
+// pricing's rotations).  The variant is revised_tile_variant(m, n, 1).
+extern "C" int revised_segment_tel_launch(
+    const void* Abar, const void* cvec, const void* ub, const void* thr,
+    void* xB, void* basis, void* onub, void* phase, void* status, void* iters,
+    void* y, void* work, void* it, void* ws, void* tel, int B, int m, int n,
+    int p1, int steps, int max_iters, float tol, int K, int rule, int threads,
+    void* stream) {
+  if (tel == nullptr) return cudaErrorInvalidValue;
+  return segment_launch(Abar, cvec, ub, thr, xB, basis, onub, phase, status,
+                        iters, y, work, it, ws, tel, B, m, n, p1, steps,
+                        max_iters, tol, K, rule, threads, stream);
 }
 
 #ifdef REVISED_TRACE

@@ -93,6 +93,19 @@
 //    segment, share it);
 //  * steepest-edge norms accumulate rows in order, one rounding per term.
 //
+// Per-LP counters (the telemetry plane, src/repro_torch/obs/telemetry.py).
+// The segment kernel has a second instantiation per shape, kTel, that
+// carries the int32 counter row of each LP (16 lanes; the float32 row is
+// not the simplex's and stays where it is).  Thread 0 loads the lanes it
+// owns into a static shared-memory slot at the start, with the LP's
+// iteration and work counts; a pivot at a zero minimum ratio books itself
+// there; at the end thread 0 adds the segment's iterations, pivots and
+// bound flips to the lanes of the LP's phase and stores them, in place.
+// Every step of a p1 segment begins in phase 1 and a p2 step never changes
+// the phase, so those sums split by phase exactly as the steps would.  A
+// block with nothing to do leaves the row as it is.  Registers hold none
+// of it, and kTel == false compiles to the kernel without counters.
+//
 // Built with -DSIMPLEX_TRACE, thread 0 of each block counts clock64()
 // cycles by phase into `g_trace` (simplex_trace_read); the main build has
 // none of it.
@@ -134,6 +147,20 @@ constexpr int kWorkCounters = 3;
 constexpr int kWhole = 0;
 constexpr int kSegP1 = 1;
 constexpr int kSegP2 = 2;
+// The counter row (src/repro_torch/obs/telemetry.py INT_LANES): its width
+// and the lanes the simplex books.
+constexpr int kTelInts = 16;
+constexpr int kTelIters1 = 0;
+constexpr int kTelIters2 = 1;
+constexpr int kTelPivots1 = 2;
+constexpr int kTelPivots2 = 3;
+constexpr int kTelFlips = 4;
+constexpr int kTelDegenerate = 5;
+constexpr int kTelLanes = 6;  // lanes 0..5 are the simplex's
+// dead lanes of the slot that keep the LP's counts at the segment's start
+constexpr int kTelIters0 = 10;
+constexpr int kTelPivots0 = 11;
+constexpr int kTelFlips0 = 12;
 
 #ifdef SIMPLEX_TRACE
 // Cycle counters (thread 0 of each block, clock64): the phases of a step,
@@ -488,13 +515,34 @@ __device__ void replay(float* A, int sa, int m, int rows, const PivotLog& g,
   }
 }
 
+// The block's counter slot in static shared memory, in the counter-
+// carrying instantiations only (null in the others, which allocate none).
+template <bool kTel>
+__device__ __forceinline__ int* tel_slot() {
+  if constexpr (kTel) {
+    __shared__ int slot[kTelInts];
+    return slot;
+  } else {
+    return nullptr;
+  }
+}
+
+// Thread 0 books one into counter lane `k` (kTel only).
+template <bool kTel>
+__device__ __forceinline__ void tel_add(int k) {
+  if constexpr (kTel) {
+    if (threadIdx.x == 0) tel_slot<true>()[k] += 1;
+  }
+}
+
 // One step of the LP's solve.  kFull: the combined two-phase step on rows
 // <= m+1 (loop 1, p1 segments); otherwise a phase-2 step on rows <= m.
 // Every thread makes the same decisions from block-broadcast values, so
 // control flow stays uniform across the block.  The entering column goes
 // to s.col; when `lg` is given (a p1 segment) a pivot also logs its row,
-// pivot element and complement flag at `npiv`.  Returns 1 after a pivot.
-template <int kRule, bool kFull>
+// pivot element and complement flag at `npiv`.  kTel books a pivot at a
+// zero minimum ratio into the counter slot.  Returns 1 after a pivot.
+template <int kRule, bool kFull, bool kTel = false>
 __device__ int step(const Block& s, int m, int n, float tol, float thr,
                     int& phase, int& status, int& iters, int* work,
                     int& bank, const PivotLog* lg, int npiv) {
@@ -618,6 +666,8 @@ __device__ int step(const Block& s, int m, int n, float tol, float thr,
   }
 
   // ---- Step 3b: pivot (leaving-at-upper complement folded into the row) --
+  // booked before the update, so min_ratio need not live through it
+  if (min_ratio <= 0.f) tel_add<kTel>(kTelDegenerate);
   float pe = col[l];
   const bool comp = pe < 0.f && jl < n;
   const float ub_jl = comp ? s.ub[jl] : 0.f;
@@ -827,11 +877,14 @@ struct SegmentState {
 // phase 1; one still running at its cap afterwards (in p1: in phase 1) is
 // marked at the iteration limit, as after the whole-solve kernel's loops.
 // A p1 segment runs in rounds of at most `cap` pivots, each ended by the
-// replay of its pivots on the artificial columns.
-template <int kRule, bool kSmemTableau, int kStage>
+// replay of its pivots on the artificial columns.  kTel carries the
+// counter rows `tel`, kTelInts int32 an LP, updated in place (the last
+// parameter, so that the counter-free instantiation reads every other one
+// where it did before the plane).
+template <int kRule, bool kSmemTableau, int kStage, bool kTel = false>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     simplex_segment_kernel(SegmentState g, int m, int n, int steps,
-                           int max_iters, float tol, int cap) {
+                           int max_iters, float tol, int cap, int* tel) {
   constexpr bool kFull = kStage == kSegP1;
   const int R = stage_rows(m, kStage), C = global_cols(m, n, kStage);
   const int NP = n + m;
@@ -873,6 +926,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   int work[kWorkCounters];
   for (int k = 0; k < kWorkCounters; ++k)
     work[k] = g.work[lp * kWorkCounters + k];
+  if constexpr (kTel) {
+    if (tid == 0) {
+      int* slot = tel_slot<true>();
+      for (int k = 0; k < kTelLanes; ++k) slot[k] = tel[lp * kTelInts + k];
+      slot[kTelIters0] = iters;
+      slot[kTelPivots0] = work[kWorkPivots1] + work[kWorkPivots2];
+      slot[kTelFlips0] = work[kWorkFlips];
+    }
+  }
   int bank = 0;
   __syncthreads();
 
@@ -883,8 +945,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     while (status == kRunning && (!kFull || phase == 1) &&
            iters < max_iters && it < steps && (!kFull || npiv < L.cap)) {
       if (kFull) s.col = lg.col + (size_t)npiv * L.rpad;
-      npiv += step<kRule, kFull>(s, m, n, tol, thr, phase, status, iters,
-                                 work, bank, kFull ? &lg : nullptr, npiv);
+      npiv += step<kRule, kFull, kTel>(s, m, n, tol, thr, phase, status,
+                                       iters, work, bank,
+                                       kFull ? &lg : nullptr, npiv);
       ++it;
     }
     __syncthreads();
@@ -934,46 +997,58 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     g.it[lp] = it;
     for (int k = 0; k < kWorkCounters; ++k)
       g.work[lp * kWorkCounters + k] = work[k];
+    if constexpr (kTel) {
+      int* slot = tel_slot<true>();
+      const bool p1 = kFull || phase == 1;
+      slot[p1 ? kTelIters1 : kTelIters2] += iters - slot[kTelIters0];
+      slot[p1 ? kTelPivots1 : kTelPivots2] +=
+          work[kWorkPivots1] + work[kWorkPivots2] - slot[kTelPivots0];
+      slot[kTelFlips] += work[kWorkFlips] - slot[kTelFlips0];
+      for (int k = 0; k < kTelLanes; ++k) tel[lp * kTelInts + k] = slot[k];
+    }
   }
   TR_END();
 }
 
-template <int kRule, bool kSmemTableau, int kStage>
-cudaError_t launch_segment(const SegmentState& g, int B, int m, int n,
-                           int steps, int max_iters, float tol, int cap,
-                           int threads, cudaStream_t stream) {
-  auto kernel = simplex_segment_kernel<kRule, kSmemTableau, kStage>;
+template <int kRule, bool kSmemTableau, int kStage, bool kTel>
+cudaError_t launch_segment(const SegmentState& g, int* tel, int B, int m,
+                           int n, int steps, int max_iters, float tol,
+                           int cap, int threads, cudaStream_t stream) {
+  auto kernel = simplex_segment_kernel<kRule, kSmemTableau, kStage, kTel>;
   const size_t smem =
       sizeof(float) * layout(m, n, kRule, kStage, kSmemTableau, cap).words;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B, threads, smem, stream>>>(g, m, n, steps, max_iters, tol, cap);
+  kernel<<<B, threads, smem, stream>>>(g, m, n, steps, max_iters, tol, cap,
+                                       tel);
   return cudaGetLastError();
 }
 
-template <int kRule, int kStage>
-cudaError_t dispatch_segment(bool in_smem, const SegmentState& g, int B,
-                             int m, int n, int steps, int max_iters, float tol,
-                             int cap, int threads, cudaStream_t stream) {
-  if (in_smem)
-    return launch_segment<kRule, true, kStage>(g, B, m, n, steps, max_iters,
-                                               tol, cap, threads, stream);
-  return launch_segment<kRule, false, kStage>(g, B, m, n, steps, max_iters,
-                                              tol, cap, threads, stream);
-}
-
-template <int kRule>
-cudaError_t dispatch_segment(int stage, bool in_smem, const SegmentState& g,
+template <int kRule, int kStage, bool kTel>
+cudaError_t dispatch_segment(bool in_smem, const SegmentState& g, int* tel,
                              int B, int m, int n, int steps, int max_iters,
                              float tol, int cap, int threads,
                              cudaStream_t stream) {
+  if (in_smem)
+    return launch_segment<kRule, true, kStage, kTel>(
+        g, tel, B, m, n, steps, max_iters, tol, cap, threads, stream);
+  return launch_segment<kRule, false, kStage, kTel>(
+      g, tel, B, m, n, steps, max_iters, tol, cap, threads, stream);
+}
+
+template <int kRule, bool kTel>
+cudaError_t dispatch_segment(int stage, bool in_smem, const SegmentState& g,
+                             int* tel, int B, int m, int n, int steps,
+                             int max_iters, float tol, int cap, int threads,
+                             cudaStream_t stream) {
   if (stage == kSegP1)
-    return dispatch_segment<kRule, kSegP1>(in_smem, g, B, m, n, steps,
-                                           max_iters, tol, cap, threads,
-                                           stream);
-  return dispatch_segment<kRule, kSegP2>(in_smem, g, B, m, n, steps,
-                                         max_iters, tol, cap, threads, stream);
+    return dispatch_segment<kRule, kSegP1, kTel>(in_smem, g, tel, B, m, n,
+                                                 steps, max_iters, tol, cap,
+                                                 threads, stream);
+  return dispatch_segment<kRule, kSegP2, kTel>(in_smem, g, tel, B, m, n,
+                                               steps, max_iters, tol, cap,
+                                               threads, stream);
 }
 
 // The shared memory a block may opt into on the current device, or minus a
@@ -1054,6 +1129,56 @@ extern "C" int simplex_tile_launch(void* T, const void* basis,
 #undef SIMPLEX_TILE_LAUNCH
 }
 
+namespace {
+
+// Validates and launches one segment, the counter-carrying instantiation
+// when `tel` is not null (see simplex_segment_launch).
+int segment_launch(void* T, void* basis, void* w, void* flip, const void* ub,
+                   void* phase, const void* thr, void* status, void* iters,
+                   void* work, void* it, void* tel, int B, int m, int n,
+                   int full, int steps, int max_iters, float tol, int rule,
+                   int threads, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (m < 1 || n < 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 || rule < kDantzig || rule > kDevex)
+    return cudaErrorInvalidValue;
+  const int stage = full ? kSegP1 : kSegP2;
+  int limit = optin_limit();
+  if (limit < 0) return -limit;
+  // the counter slot's static shared memory comes out of the same budget
+  if (tel != nullptr) limit -= (int)(sizeof(int) * kTelInts);
+  const int in_smem = simplex_tile_smem_bytes(m, n, rule, 1, stage) <= limit;
+  // a round's pivots; fewer when the log would not fit beside a large
+  // LP's vectors
+  int cap = steps < 1 ? 1 : (steps < kLogCap ? steps : kLogCap);
+  while (cap > 1 && sizeof(float) * layout(m, n, rule, stage, in_smem != 0,
+                                           cap).words > (size_t)limit)
+    cap >>= 1;
+  const SegmentState g{static_cast<float*>(T),       static_cast<int*>(basis),
+                       static_cast<float*>(w),       static_cast<bool*>(flip),
+                       static_cast<const float*>(ub), static_cast<int*>(phase),
+                       static_cast<const float*>(thr), static_cast<int*>(status),
+                       static_cast<int*>(iters),     static_cast<int*>(work),
+                       static_cast<int*>(it)};
+  int* rows = static_cast<int*>(tel);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SIMPLEX_SEGMENT_DISPATCH(RULE, TEL)                                  \
+  return dispatch_segment<RULE, TEL>(stage, in_smem != 0, g, rows, B, m, n, \
+                                     steps, max_iters, tol, cap, threads,    \
+                                     st)
+  if (tel != nullptr) {
+    if (rule == kDantzig) SIMPLEX_SEGMENT_DISPATCH(kDantzig, true);
+    if (rule == kSteepestEdge) SIMPLEX_SEGMENT_DISPATCH(kSteepestEdge, true);
+    SIMPLEX_SEGMENT_DISPATCH(kDevex, true);
+  }
+  if (rule == kDantzig) SIMPLEX_SEGMENT_DISPATCH(kDantzig, false);
+  if (rule == kSteepestEdge) SIMPLEX_SEGMENT_DISPATCH(kSteepestEdge, false);
+  SIMPLEX_SEGMENT_DISPATCH(kDevex, false);
+#undef SIMPLEX_SEGMENT_DISPATCH
+}
+
+}  // namespace
+
 // Launches one segment block per LP on `stream`; allocates nothing and does
 // not synchronise.  Stage p1 (full != 0) works on T (B, m+2, n+2m+1), stage
 // p2 on T (B, m+1, n+m+1); every state array is updated in place: T, basis
@@ -1068,36 +1193,28 @@ extern "C" int simplex_segment_launch(void* T, void* basis, void* w,
                                       int B, int m, int n, int full, int steps,
                                       int max_iters, float tol, int rule,
                                       int threads, void* stream) {
-  if (B <= 0) return cudaSuccess;
-  if (m < 1 || n < 1 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 || rule < kDantzig || rule > kDevex)
-    return cudaErrorInvalidValue;
-  const int stage = full ? kSegP1 : kSegP2;
-  const int limit = optin_limit();
-  if (limit < 0) return -limit;
-  const int in_smem = simplex_tile_smem_bytes(m, n, rule, 1, stage) <= limit;
-  // a round's pivots; fewer when the log would not fit beside a large
-  // LP's vectors
-  int cap = steps < 1 ? 1 : (steps < kLogCap ? steps : kLogCap);
-  while (cap > 1 && sizeof(float) * layout(m, n, rule, stage, in_smem != 0,
-                                           cap).words > (size_t)limit)
-    cap >>= 1;
-  const SegmentState g{static_cast<float*>(T),       static_cast<int*>(basis),
-                       static_cast<float*>(w),       static_cast<bool*>(flip),
-                       static_cast<const float*>(ub), static_cast<int*>(phase),
-                       static_cast<const float*>(thr), static_cast<int*>(status),
-                       static_cast<int*>(iters),     static_cast<int*>(work),
-                       static_cast<int*>(it)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rule == kDantzig)
-    return dispatch_segment<kDantzig>(stage, in_smem != 0, g, B, m, n, steps,
-                                      max_iters, tol, cap, threads, st);
-  if (rule == kSteepestEdge)
-    return dispatch_segment<kSteepestEdge>(stage, in_smem != 0, g, B, m, n,
-                                           steps, max_iters, tol, cap,
-                                           threads, st);
-  return dispatch_segment<kDevex>(stage, in_smem != 0, g, B, m, n, steps,
-                                  max_iters, tol, cap, threads, st);
+  return segment_launch(T, basis, w, flip, ub, phase, thr, status, iters,
+                        work, it, nullptr, B, m, n, full, steps, max_iters,
+                        tol, rule, threads, stream);
+}
+
+// simplex_segment_launch through the counter-carrying instantiation: `tel`
+// (B, 16) int32, the packed counter rows of obs.telemetry.tel_to_rows,
+// updated in place (lanes 0-5: iterations and pivots by phase, bound
+// flips, degenerate pivots).
+extern "C" int simplex_segment_tel_launch(void* T, void* basis, void* w,
+                                          void* flip, const void* ub,
+                                          void* phase, const void* thr,
+                                          void* status, void* iters,
+                                          void* work, void* it, void* tel,
+                                          int B, int m, int n, int full,
+                                          int steps, int max_iters, float tol,
+                                          int rule, int threads,
+                                          void* stream) {
+  if (tel == nullptr) return cudaErrorInvalidValue;
+  return segment_launch(T, basis, w, flip, ub, phase, thr, status, iters,
+                        work, it, tel, B, m, n, full, steps, max_iters, tol,
+                        rule, threads, stream);
 }
 
 #ifdef SIMPLEX_TRACE

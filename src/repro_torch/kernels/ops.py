@@ -30,11 +30,21 @@ core/revised.py, core/pdhg.py), and what core/batching.py
 A ``GeneralLPBatch`` is canonicalized on ingestion and recovered on the
 way out.
 
+``telemetry=True`` counts per-LP work into ``LPResult.stats`` through the
+counter-carrying instantiations of the three segment kernels: every
+revised path, and tableau and pdhg with ``compaction=True``.  The
+whole-solve tableau and PDHG kernels have no counter plane, so
+``telemetry=True`` with ``compaction=False`` on those backends raises
+``ValueError``.  ``tracer`` (an ``obs.SpanTracer``) records the
+canonicalize, dispatch and recover spans, and under the scheduler its
+segment and gather spans.
+
 ``solve_hyperbox_kernel`` is the counterpart of ``solve_hyperbox_pallas``:
 box-LP support values through the hyperbox kernel, NumPy in and out.
 """
 from __future__ import annotations
 
+import time
 import warnings
 from typing import List, Optional
 
@@ -52,9 +62,10 @@ from ..core.pdhg import (DEFAULT_TOL, PdhgBackend,
 from ..core.pricing import canonicalize_rule
 from ..core.revised import (RevisedBackend, auto_refactor_period,
                             canonicalize_revised_rule, revised_result)
-from ..core.simplex import (batch_tensors, default_tolerances,
+from ..core.simplex import (batch_tensors, default_tolerances, solve_report,
                             warm_basis_arrays)
 from ..device import resolve_device
+from ..obs.trace import maybe_span
 from .hyperbox_kernel import hyperbox_tile
 from .pdhg_tile import pdhg_segment_tile, pdhg_tile
 from .revised_tile import revised_segment_tile, revised_tile
@@ -64,8 +75,9 @@ from .simplex_tile import segment_tile, simplex_tile
 class KernelBackend(TorchBackend):
     """Scheduler backend whose segments run the CUDA segment kernel
     (``segment_tile``; its plain version on CPU tensors).  State layout,
-    gathers and extraction are ``TorchBackend``'s: the kernel works on the
-    unpadded state, one block per LP, so there are no tiles to fill."""
+    counter lanes, gathers and extraction are ``TorchBackend``'s: the
+    kernel works on the unpadded state, one block per LP, so there are no
+    tiles to fill."""
 
     def segment(self, state, steps: int, stage: str, max_iters: int):
         return segment_tile(state, steps, stage=stage, m=self.m, n=self.n,
@@ -76,9 +88,9 @@ class KernelBackend(TorchBackend):
 class RevisedKernelBackend(RevisedBackend):
     """Scheduler backend whose segments run the CUDA revised kernel
     (``revised_segment_tile``; its plain version on CPU tensors).  State
-    layout, gathers and extraction are ``RevisedBackend``'s; every launch
-    refactorizes at its first step, so a gather needs no host-side
-    refactorization."""
+    layout, counter lanes, gathers and extraction are ``RevisedBackend``'s;
+    every launch refactorizes at its first step (and counts it), so a
+    gather needs no host-side refactorization."""
 
     def segment(self, state, steps: int, stage: str, max_iters: int):
         return revised_segment_tile(state, steps, stage=stage, m=self.m,
@@ -91,9 +103,9 @@ class RevisedKernelBackend(RevisedBackend):
 class PdhgKernelBackend(PdhgBackend):
     """Scheduler backend whose segments run the CUDA PDHG kernel
     (``pdhg_segment_tile``; its plain version on CPU tensors).  State
-    layout, gathers and extraction are ``PdhgBackend``'s: one block per
-    LP on the unpadded state, so there are no tiles to fill.  A round is
-    the kernel's ``CHECK_EVERY`` iterations."""
+    layout, counter lanes, gathers and extraction are ``PdhgBackend``'s:
+    one block per LP on the unpadded state, so there are no tiles to fill.
+    A round is the kernel's ``CHECK_EVERY`` iterations."""
 
     def __init__(self, m: int, n: int, tol: float = DEFAULT_TOL):
         super().__init__(m, n, tol)
@@ -117,7 +129,8 @@ def solve_batched_kernel(batch: LPBatch, *, device=None,
                          backend: str = "tableau",
                          refactor_period: Optional[int] = None,
                          warm: Optional[WarmStart] = None,
-                         step_rule: str = "fixed") -> LPResult:
+                         step_rule: str = "fixed", telemetry: bool = False,
+                         tracer=None) -> LPResult:
     """Solve a batch through the CUDA kernels (their plain versions on
     ``device="cpu"``): one whole-solve launch, or with ``compaction=True``
     segments of at most ``segment_k`` steps under the compaction scheduler
@@ -126,23 +139,47 @@ def solve_batched_kernel(batch: LPBatch, *, device=None,
     "tableau", "revised" (``refactor_period``: the revised eta clock) or
     "pdhg" (``step_rule`` as in ``core.pdhg.solve_batched_pdhg``);
     ``warm`` a parent's ``WarmStart``, injected by the revised and pdhg
-    kernel paths and ignored with a warning by the tableau one."""
-    batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
+    kernel paths and ignored with a warning by the tableau one.
+    ``telemetry`` and ``tracer`` as in the module docstring."""
+    backend = canonicalize_backend(backend)
+    if telemetry and not compaction and backend in ("tableau", "pdhg"):
+        raise ValueError(
+            f"telemetry=True on backend={backend!r} needs compaction=True: "
+            "the whole-solve kernel has no counter plane; the segment "
+            "kernel of compaction=True carries the counters")
+    with maybe_span(tracer, "canonicalize"):
+        batch, rec = ensure_canonical(batch, presolve=presolve, scale=scale)
     dev = resolve_device(device)
-    m, n = batch.m, batch.n
     warm = prepare_warm(warm, rec, batch)
-    if canonicalize_backend(backend) == "pdhg":
-        return finish_result(rec, _solve_pdhg_kernel(
+    obs = dict(telemetry=telemetry, tracer=tracer)
+    if backend == "pdhg":
+        res = _solve_pdhg_kernel(
             batch, dev, max_iters=max_iters, tol=tol, pricing=pricing,
             compaction=compaction, segment_k=segment_k,
             compact_threshold=compact_threshold, stats_out=stats_out,
-            warm=warm, step_rule=step_rule))
-    if canonicalize_backend(backend) == "revised":
-        return finish_result(rec, _solve_revised_kernel(
+            warm=warm, step_rule=step_rule, **obs)
+    elif backend == "revised":
+        res = _solve_revised_kernel(
             batch, dev, max_iters=max_iters, tol=tol, feas_tol=feas_tol,
             pricing=pricing, compaction=compaction, segment_k=segment_k,
             compact_threshold=compact_threshold, stats_out=stats_out,
-            refactor_period=refactor_period, warm=warm))
+            refactor_period=refactor_period, warm=warm, **obs)
+    else:
+        res = _solve_tableau_kernel(
+            batch, dev, max_iters=max_iters, tol=tol, feas_tol=feas_tol,
+            pricing=pricing, compaction=compaction, segment_k=segment_k,
+            compact_threshold=compact_threshold, stats_out=stats_out,
+            warm=warm, **obs)
+    with maybe_span(tracer, "recover"):
+        return finish_result(rec, res)
+
+
+def _solve_tableau_kernel(batch: LPBatch, dev, *, max_iters, tol, feas_tol,
+                          pricing, compaction, segment_k, compact_threshold,
+                          stats_out, warm, telemetry, tracer) -> LPResult:
+    """The tableau branch of ``solve_batched_kernel`` on a canonical batch
+    with a validated carrier."""
+    m, n = batch.m, batch.n
     if warm is not None:
         warnings.warn(
             "solve_batched_kernel(backend='tableau', warm=...): the tableau "
@@ -158,24 +195,27 @@ def solve_batched_kernel(batch: LPBatch, *, device=None,
     tol, feas_tol = default_tolerances(tol, feas_tol)
     if compaction:
         runner = KernelBackend(m, n, tol, feas_tol, pricing=rule)
-        return finish_result(rec, schedule_batch(
+        return schedule_batch(
             runner, batch, dev, max_iters=max_iters, segment_k=segment_k,
-            compact_threshold=compact_threshold, stats_out=stats_out))
+            compact_threshold=compact_threshold, stats_out=stats_out,
+            telemetry=telemetry, tracer=tracer)
     if max_iters is None:
         max_iters = default_max_iters(m, n)
-    A, b, c, ub = batch_tensors(batch, dev)
-    x, obj, status, iters, y, z = simplex_tile(
-        A, b, c, ub, m=m, n=n, max_iters=int(max_iters), tol=tol,
-        feas_tol=feas_tol, pricing=rule)
-    host = lambda t: t.cpu().numpy()  # noqa: E731
-    res = LPResult(x=host(x), objective=host(obj), status=host(status),
-                   iterations=host(iters), y=host(y), z=host(z))
-    return finish_result(rec, res)
+    with maybe_span(tracer, "dispatch", backend="tableau", B=batch.batch,
+                    m=m, n=n):
+        A, b, c, ub = batch_tensors(batch, dev)
+        x, obj, status, iters, y, z = simplex_tile(
+            A, b, c, ub, m=m, n=n, max_iters=int(max_iters), tol=tol,
+            feas_tol=feas_tol, pricing=rule)
+        host = lambda t: t.cpu().numpy()  # noqa: E731
+        return LPResult(x=host(x), objective=host(obj), status=host(status),
+                        iterations=host(iters), y=host(y), z=host(z))
 
 
 def _solve_revised_kernel(batch: LPBatch, dev, *, max_iters, tol, feas_tol,
                           pricing, compaction, segment_k, compact_threshold,
-                          stats_out, refactor_period, warm) -> LPResult:
+                          stats_out, refactor_period, warm, telemetry,
+                          tracer) -> LPResult:
     """The revised branch of ``solve_batched_kernel`` on a canonical batch
     with a validated carrier."""
     m, n = batch.m, batch.n
@@ -188,19 +228,25 @@ def _solve_revised_kernel(batch: LPBatch, dev, *, max_iters, tol, feas_tol,
         return schedule_batch(runner, batch, dev, max_iters=max_iters,
                               segment_k=segment_k,
                               compact_threshold=compact_threshold,
-                              stats_out=stats_out, warm=warm)
+                              stats_out=stats_out, warm=warm,
+                              telemetry=telemetry, tracer=tracer)
     if max_iters is None:
         max_iters = default_max_iters(m, n)
-    A, b, c, ub = batch_tensors(batch, dev)
-    out = revised_tile(A, b, c, ub, m=m, n=n, max_iters=int(max_iters),
-                       tol=tol, feas_tol=feas_tol, refactor_period=K,
-                       pricing=rule, **warm_basis_arrays(warm))
-    return revised_result(out, m=m, n=n, rule=rule)
+    t0 = time.perf_counter()
+    with maybe_span(tracer, "dispatch", backend="revised", B=batch.batch,
+                    m=m, n=n):
+        A, b, c, ub = batch_tensors(batch, dev)
+        out = revised_tile(A, b, c, ub, m=m, n=n, max_iters=int(max_iters),
+                           tol=tol, feas_tol=feas_tol, refactor_period=K,
+                           pricing=rule, telemetry=telemetry,
+                           **warm_basis_arrays(warm))
+        return revised_result(out, m=m, n=n, rule=rule, stats=solve_report(
+            out[8] if telemetry else None, t0, "revised", tracer))
 
 
 def _solve_pdhg_kernel(batch: LPBatch, dev, *, max_iters, tol, pricing,
                        compaction, segment_k, compact_threshold, stats_out,
-                       warm, step_rule) -> LPResult:
+                       warm, step_rule, telemetry, tracer) -> LPResult:
     """The pdhg branch of ``solve_batched_kernel`` on a canonical batch
     with a validated carrier."""
     _check_pdhg_pricing(pricing)
@@ -213,14 +259,17 @@ def _solve_pdhg_kernel(batch: LPBatch, dev, *, max_iters, tol, pricing,
         return schedule_pdhg(runner, batch, dev, max_iters=max_iters,
                              segment_k=segment_k,
                              compact_threshold=compact_threshold,
-                             stats_out=stats_out, warm=warm)
+                             stats_out=stats_out, warm=warm,
+                             telemetry=telemetry, tracer=tracer)
     if max_iters is None:
         max_iters = default_pdhg_max_iters(m, n)
-    A, b, c, ub = batch_tensors(batch, dev)
-    out = pdhg_tile(A, b, c, ub, m=m, n=n, max_iters=int(max_iters),
-                    tol=tol, step_rule=step_rule,
-                    **warm_tensors(warm, dev))
-    return pdhg_result(out, m=m, n=n)
+    with maybe_span(tracer, "dispatch", backend="pdhg", B=batch.batch,
+                    m=m, n=n):
+        A, b, c, ub = batch_tensors(batch, dev)
+        out = pdhg_tile(A, b, c, ub, m=m, n=n, max_iters=int(max_iters),
+                        tol=tol, step_rule=step_rule,
+                        **warm_tensors(warm, dev))
+        return pdhg_result(out, m=m, n=n)
 
 
 def solve_hyperbox_kernel(lo, hi, d, *, device=None) -> np.ndarray:

@@ -13,13 +13,19 @@ state, so ``warm=`` takes effect on this path too.
 
 ``pdhg_segment_tile`` is the counterpart of ``pdhg_segment_pallas`` and its
 ``_pdhg_segment_kernel``: at most ``steps`` fixed-step rounds per LP over a
-``PdhgState``, resumable, for the compaction scheduler.
+``PdhgState``, resumable, for the compaction scheduler.  When the state
+carries counter lanes (``state.tel``, ``telemetry=True``) they cross the
+kernel boundary as the packed int32 and float32 rows of
+``obs.telemetry.tel_to_rows``, which the kernel's counter-carrying
+instantiation updates in place, as ``pdhg_segment_pallas`` carries
+``tel_int`` and ``tel_f32``.  The whole-solve kernel has no counter plane.
 
 On CPU tensors each wrapper runs its plain version (``pdhg_tile_plain``,
 ``pdhg_segment_tile_plain``: the engine's whole solve and segment, which
 compute the same function bit for bit); on CUDA tensors it launches the
 kernel or raises.  ``pdhg_tile.launches`` and ``pdhg_segment_tile.launches``
-count kernel launches.
+count kernel launches, ``pdhg_segment_tile.tel_launches`` the segment
+launches that carried counters.
 """
 from __future__ import annotations
 
@@ -37,8 +43,9 @@ from ..core.pdhg import (
     segment_pdhg,
     solve_pdhg,
 )
+from ..obs.telemetry import rows_to_tel, tel_to_rows
 from . import _build
-from .simplex_tile import _check_leaves
+from .simplex_tile import _check_leaves, tel_leaves
 
 MODES = {"segment": 0, "fixed": 1, "malitsky_pock": 2}
 # The kernel's tree sums hold at most 16 terms a lane (csrc/pdhg_tile.cu).
@@ -67,6 +74,10 @@ def _lib():
         [ctypes.c_void_p] * 27 + [ctypes.c_int] * 6 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.pdhg_launch.restype = ctypes.c_int
+    lib.pdhg_segment_tel_launch.argtypes = (
+        [ctypes.c_void_p] * 24 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_int] + [ctypes.c_void_p])
+    lib.pdhg_segment_tel_launch.restype = ctypes.c_int
     lib.pdhg_tile_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.pdhg_tile_smem_bytes.restype = ctypes.c_longlong
     for fn in (lib.pdhg_tile_variant, lib.pdhg_tile_threads):
@@ -111,31 +122,43 @@ def _check_state(state: PdhgState, m: int, n: int):
             "status": (state.status, (B,), i32),
             "iters": (state.iters, (B,), i32)}
     _check_leaves(want, state.x.device, contiguous=tuple(want))
+    _check_leaves(tel_leaves(state.tel, B), state.x.device)
     if max(m, n) > MAX_DIM:
         raise ValueError(f"pdhg_tile takes m, n <= {MAX_DIM}, got "
                          f"{m} x {n}")
 
 
 def _launch(state: PdhgState, *, m: int, n: int, steps: int,
-            max_rounds: int, tol: float, mode: str, it=None, out=()):
-    """One launch over ``state`` (updated in place); raises on a CUDA
-    error of the launch."""
+            max_rounds: int, tol: float, mode: str, it=None, out=(),
+            rows=None):
+    """One launch over ``state`` (updated in place), through the
+    counter-carrying segment instantiation when ``rows`` (the packed
+    counter rows, updated in place) are given; raises on a CUDA error of
+    the launch."""
     dev = state.x.device
     if dev.type != "cuda":
         raise ValueError(f"pdhg_tile runs on cuda or cpu, not {dev}")
     s = state
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    outs = tuple(ptr(t) for t in out) if out else (None,) * 5
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().pdhg_launch(
-            ptr(s.A), ptr(s.b), ptr(s.c), ptr(s.rsc), ptr(s.csc), ptr(s.ub),
-            ptr(s.eta), ptr(s.binf), ptr(s.cinf), ptr(s.x), ptr(s.y),
-            ptr(s.xs), ptr(s.ys), ptr(s.xr), ptr(s.yr), ptr(s.cnt),
-            ptr(s.last_res), ptr(s.prev_res), ptr(s.omega), ptr(s.status),
-            ptr(s.iters), ptr(it), *outs, s.x.shape[0], m, n, int(steps),
-            int(max_rounds), CHECK_EVERY, float(tol), MODES[mode],
-            block_threads(m, n), stream)
+        ptrs = (ptr(s.A), ptr(s.b), ptr(s.c), ptr(s.rsc), ptr(s.csc),
+                ptr(s.ub), ptr(s.eta), ptr(s.binf), ptr(s.cinf), ptr(s.x),
+                ptr(s.y), ptr(s.xs), ptr(s.ys), ptr(s.xr), ptr(s.yr),
+                ptr(s.cnt), ptr(s.last_res), ptr(s.prev_res), ptr(s.omega),
+                ptr(s.status), ptr(s.iters), ptr(it))
+        args = (s.x.shape[0], m, n, int(steps), int(max_rounds),
+                CHECK_EVERY, float(tol))
+        if rows is None:
+            outs = tuple(ptr(t) for t in out) if out else (None,) * 5
+            rc = lib.pdhg_launch(*ptrs, *outs, *args, MODES[mode],
+                                 block_threads(m, n), stream)
+        else:
+            assert mode == "segment", mode
+            rc = lib.pdhg_segment_tel_launch(*ptrs, ptr(rows[0]),
+                                             ptr(rows[1]), *args,
+                                             block_threads(m, n), stream)
     if rc != 0:
         raise RuntimeError(f"pdhg_tile kernel launch failed: CUDA error {rc}")
 
@@ -149,18 +172,26 @@ def pdhg_segment_tile(state: PdhgState, steps: int, *, m: int, n: int,
     it)`` with ``it`` the (B,) int32 rounds each LP ran.
 
     On the card the kernel updates the state's tensors in place and the
-    same tensors come back; the plain version builds new ones."""
+    same tensors come back, with ``tel`` (when the state carries counter
+    lanes) the column views of the packed rows the counter-carrying
+    instantiation updated; the plain version builds new ones."""
     _check_state(state, m, n)
     kw = dict(max_rounds=max_rounds, tol=tol)
     if state.x.device.type == "cpu":
         return pdhg_segment_tile_plain(state, steps, **kw)
     it = torch.empty_like(state.iters)
-    _launch(state, m=m, n=n, steps=steps, mode="segment", it=it, **kw)
+    rows = None if state.tel is None else tel_to_rows(state.tel)
+    _launch(state, m=m, n=n, steps=steps, mode="segment", it=it, rows=rows,
+            **kw)
     pdhg_segment_tile.launches += 1
+    if rows is not None:
+        pdhg_segment_tile.tel_launches += 1
+        state = state._replace(tel=rows_to_tel(*rows))
     return state, it
 
 
 pdhg_segment_tile.launches = 0
+pdhg_segment_tile.tel_launches = 0
 
 
 def pdhg_segment_tile_plain(state: PdhgState, steps: int, *,

@@ -9,12 +9,17 @@ inverse refactorized in the block at its first step and every
 ``refactor_period`` pivots.  ``revised_tile`` is the counterpart of
 ``revised_pallas``: a whole solve as one launch of stage p2 with
 ``max_iters`` steps, between the state build (and warm injection) and the
-extraction in torch.
+extraction in torch.  When the state carries counter lanes (``state.tel``,
+``telemetry=True``) they cross the kernel boundary as the packed int32 row
+of ``obs.telemetry.tel_to_rows``, which the kernel's counter-carrying
+instantiation updates in place (the float32 lanes pass through), so the
+revised backend counts with or without the compaction scheduler.
 
 On CPU tensors the wrapper runs its plain version
 (``revised_segment_tile_plain``: the engine's segment, which computes the
 same function bit for bit); on CUDA tensors it launches the kernel or
-raises.  ``revised_segment_tile.launches`` counts kernel launches.
+raises.  ``revised_segment_tile.launches`` counts kernel launches,
+``revised_segment_tile.tel_launches`` those of them that carried counters.
 """
 from __future__ import annotations
 
@@ -32,8 +37,9 @@ from ..core.revised import (
     revised_segment,
     solve_revised,
 )
+from ..obs.telemetry import rows_to_tel, tel_to_rows
 from . import _build
-from .simplex_tile import _check_leaves
+from .simplex_tile import _check_leaves, tel_leaves
 
 RULE_CODES = {rule: code for code, rule in enumerate(REVISED_RULES)}
 # Where the kernel keeps A and the Gauss-Jordan workspace (index = the C
@@ -54,11 +60,15 @@ def _bind(lib):
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.revised_segment_launch.restype = ctypes.c_int
+    lib.revised_segment_tel_launch.argtypes = (
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.revised_segment_tel_launch.restype = ctypes.c_int
     lib.revised_tile_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.revised_tile_smem_bytes.restype = ctypes.c_longlong
     lib.revised_tile_workspace_floats.argtypes = [ctypes.c_int]
     lib.revised_tile_workspace_floats.restype = ctypes.c_longlong
-    lib.revised_tile_variant.argtypes = [ctypes.c_int] * 2
+    lib.revised_tile_variant.argtypes = [ctypes.c_int] * 3
     lib.revised_tile_variant.restype = ctypes.c_int
     return lib
 
@@ -83,11 +93,12 @@ def workspace_floats(m: int) -> int:
     return int(_lib().revised_tile_workspace_floats(m))
 
 
-def variant(m: int, n: int) -> str:
+def variant(m: int, n: int, *, tel: bool = False) -> str:
     """The variant the kernel runs at (m, n) on the current card: "shared"
-    (A and the workspace in shared memory) or "device".  Needs the built
-    kernel and a card."""
-    got = _lib().revised_tile_variant(m, n)
+    (A and the workspace in shared memory) or "device"; with ``tel``, the
+    counter-carrying instantiation's, whose counter slot takes 64 bytes of
+    the block's shared memory.  Needs the built kernel and a card."""
+    got = _lib().revised_tile_variant(m, n, int(tel))
     if got < 0:
         raise RuntimeError(f"revised_tile: CUDA error {-got}")
     return VARIANTS[got]
@@ -109,6 +120,7 @@ def _check_state(state: RevisedState, m: int, n: int):
             "y": (state.y, (B, m), f32),
             "work": (state.work, (B, len(WORK_FIELDS)), i32)}
     _check_leaves(want, state.xB.device, contiguous=tuple(want))
+    _check_leaves(tel_leaves(state.tel, B), state.xB.device)
 
 
 def revised_segment_tile(state: RevisedState, steps: int, *, stage: str,
@@ -121,7 +133,9 @@ def revised_segment_tile(state: RevisedState, steps: int, *, stage: str,
     ``(state, it)`` with ``it`` the (B,) int32 steps each LP took.
 
     On the card the kernel updates the state's tensors in place and the
-    same tensors come back; the plain version builds new ones."""
+    same tensors come back, with ``tel`` (when the state carries counter
+    lanes) the column views of the packed row the counter-carrying
+    instantiation updated; the plain version builds new ones."""
     rule = canonicalize_revised_rule(rule)
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
@@ -137,30 +151,39 @@ def revised_segment_tile(state: RevisedState, steps: int, *, stage: str,
     B = state.xB.shape[0]
     it = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = _lib()
+    s = state
+    rows = None if s.tel is None else tel_to_rows(s.tel)
     ws = None
     with torch.cuda.device(dev):
-        if variant(m, n) == "device":
+        if variant(m, n, tel=rows is not None) == "device":
             ws = torch.empty((B, workspace_floats(m)), dtype=torch.float32,
                              device=dev)
-        s = state
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.revised_segment_launch(
-            s.Abar.data_ptr(), s.cvec.data_ptr(), s.ub.data_ptr(),
-            s.thr.data_ptr(), s.xB.data_ptr(), s.basis.data_ptr(),
-            s.onub.data_ptr(), s.phase.data_ptr(), s.status.data_ptr(),
-            s.iters.data_ptr(), s.y.data_ptr(), s.work.data_ptr(),
-            it.data_ptr(), None if ws is None else ws.data_ptr(), B, m, n,
-            int(stage == "p1"), int(steps), int(max_iters), float(tol),
-            int(refactor_period), RULE_CODES[rule], block_threads(m, n),
-            stream)
+        ptrs = (s.Abar.data_ptr(), s.cvec.data_ptr(), s.ub.data_ptr(),
+                s.thr.data_ptr(), s.xB.data_ptr(), s.basis.data_ptr(),
+                s.onub.data_ptr(), s.phase.data_ptr(), s.status.data_ptr(),
+                s.iters.data_ptr(), s.y.data_ptr(), s.work.data_ptr(),
+                it.data_ptr(), None if ws is None else ws.data_ptr())
+        args = (B, m, n, int(stage == "p1"), int(steps), int(max_iters),
+                float(tol), int(refactor_period), RULE_CODES[rule],
+                block_threads(m, n), stream)
+        if rows is None:
+            rc = lib.revised_segment_launch(*ptrs, *args)
+        else:
+            rc = lib.revised_segment_tel_launch(*ptrs, rows[0].data_ptr(),
+                                                *args)
     if rc != 0:
         raise RuntimeError(
             f"revised_segment_tile kernel launch failed: CUDA error {rc}")
     revised_segment_tile.launches += 1
+    if rows is not None:
+        revised_segment_tile.tel_launches += 1
+        state = state._replace(tel=rows_to_tel(*rows))
     return state, it
 
 
 revised_segment_tile.launches = 0
+revised_segment_tile.tel_launches = 0
 
 
 def revised_segment_tile_plain(state: RevisedState, steps: int, *,
@@ -178,15 +201,18 @@ def revised_segment_tile_plain(state: RevisedState, steps: int, *,
 def revised_tile(A, b, c, ub, *, m: int, n: int, max_iters: int,
                  tol: float = 1e-6, feas_tol: float = 1e-5,
                  refactor_period: int, pricing: str = "dantzig",
-                 warm_basis=None, warm_at_upper=None, work=None):
+                 warm_basis=None, warm_at_upper=None, work=None,
+                 telemetry: bool = False):
     """Whole revised solve of a float32 batch through one launch of the
     kernel (its plain version on CPU tensors).  ``warm_basis`` (B, m) and
     ``warm_at_upper`` (B, n) seed it from a parent basis.  Returns
-    ``(x, obj, status, iters, y, z, basis, onub)`` on A's device; ``work``,
-    a (B, 5) int32 tensor when given, receives the per-LP counts of
+    ``(x, obj, status, iters, y, z, basis, onub)`` on A's device, and the
+    ``TelemetryState`` after them when ``telemetry``; ``work``, a (B, 5)
+    int32 tensor when given, receives the per-LP counts of
     ``core.revised.WORK_FIELDS``."""
     return solve_revised(A, b, c, ub, m=m, n=n, max_iters=max_iters, tol=tol,
                          feas_tol=feas_tol, refactor_period=refactor_period,
                          pricing=pricing, warm_basis=warm_basis,
                          warm_at_upper=warm_at_upper,
-                         segment=revised_segment_tile, work=work)
+                         segment=revised_segment_tile, work=work,
+                         telemetry=telemetry)

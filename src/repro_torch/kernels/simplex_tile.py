@@ -12,13 +12,18 @@ outside its kernel), launches the kernel on the current stream and returns
 ``segment_tile`` is the counterpart of ``segment_pallas`` and its
 ``_segment_kernel``: one resumable segment of the compaction scheduler
 (core/compaction.py) over a ``CompactionState``, at most ``steps`` steps
-per LP, one thread block per LP.
+per LP, one thread block per LP.  When the state carries counter lanes
+(``state.tel``, ``telemetry=True``) they cross the kernel boundary as the
+packed int32 row of ``obs.telemetry.tel_to_rows``, which the kernel's
+counter-carrying instantiation updates in place (the float32 lanes pass
+through), as ``segment_pallas(..., tel_int=)`` does.
 
 On CPU tensors each wrapper runs its plain version (``simplex_tile_plain``,
 ``segment_tile_plain``: the port's engine, which computes the same function
 bit for bit); on CUDA tensors it launches the kernel or raises.
 ``simplex_tile.launches`` and ``segment_tile.launches`` count kernel
-launches.
+launches, ``segment_tile.tel_launches`` those of them that carried
+counters.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 from ..core.compaction import STAGES, CompactionState, run_segment
 from ..core.pricing import PRICING_RULES, canonicalize_rule
 from ..core.simplex import build_tableau_torch, solve_two_phase
+from ..obs.telemetry import ALL_LANES, INT_LANES, rows_to_tel, tel_to_rows
 from . import _build
 
 RULE_CODES = {rule: code for code, rule in enumerate(PRICING_RULES)}
@@ -91,6 +97,10 @@ def _lib():
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.simplex_segment_launch.restype = ctypes.c_int
+    lib.simplex_segment_tel_launch.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.simplex_segment_tel_launch.restype = ctypes.c_int
     lib.simplex_tile_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.simplex_tile_smem_bytes.restype = ctypes.c_longlong
     lib.simplex_tile_tableau_in_smem.argtypes = [ctypes.c_int] * 4
@@ -113,6 +123,16 @@ def _check_leaves(want: dict, device, contiguous=()):
     for name in contiguous:
         if name in want and not want[name][0].is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def tel_leaves(tel, B: int) -> dict:
+    """The ``_check_leaves`` entries of a state's counter lanes (none when
+    ``tel`` is None): (B,) int32 and float32 lanes."""
+    if tel is None:
+        return {}
+    return {f"tel.{name}": (getattr(tel, name), (B,),
+                            torch.int32 if name in INT_LANES
+                            else torch.float32) for name in ALL_LANES}
 
 
 def _check(A, b, c, ub, work, m, n):
@@ -207,6 +227,7 @@ def _check_segment(state: CompactionState, stage: str, m: int, n: int,
             "thr": (state.thr, (B,), f32),
             "work": (state.work, (B, WORK_COUNTERS), i32)}
     _check_leaves(want, state.T.device, contiguous=tuple(want))
+    _check_leaves(tel_leaves(state.tel, B), state.T.device)
 
 
 def segment_tile(state: CompactionState, steps: int, *, stage: str, m: int,
@@ -219,7 +240,9 @@ def segment_tile(state: CompactionState, steps: int, *, stage: str, m: int,
     ``(state, it)`` with ``it`` the (B,) int32 steps each LP took.
 
     On the card the kernel updates the state's tensors in place and the
-    same tensors come back; the plain version builds new ones."""
+    same tensors come back, with ``tel`` (when the state carries counter
+    lanes) the column views of the packed row the counter-carrying
+    instantiation updated; the plain version builds new ones."""
     rule = canonicalize_rule(pricing)
     if rule not in RULE_CODES:
         raise ValueError(f"the segment kernel prices with {PRICING_RULES}, "
@@ -236,24 +259,33 @@ def segment_tile(state: CompactionState, steps: int, *, stage: str, m: int,
     B = state.T.shape[0]
     it = torch.empty((B,), dtype=torch.int32, device=dev)
     s = state
-    launch = _lib().simplex_segment_launch
+    rows = None if s.tel is None else tel_to_rows(s.tel)
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(
-            s.T.data_ptr(), s.basis.data_ptr(), s.w.data_ptr(),
-            s.flip.data_ptr(), s.ub.data_ptr(), s.phase.data_ptr(),
-            s.thr.data_ptr(), s.status.data_ptr(), s.iters.data_ptr(),
-            s.work.data_ptr(), it.data_ptr(), B, m, n, int(stage == "p1"),
-            int(steps), int(max_iters), float(tol), RULE_CODES[rule],
-            block_threads(m, n), stream)
+        ptrs = (s.T.data_ptr(), s.basis.data_ptr(), s.w.data_ptr(),
+                s.flip.data_ptr(), s.ub.data_ptr(), s.phase.data_ptr(),
+                s.thr.data_ptr(), s.status.data_ptr(), s.iters.data_ptr(),
+                s.work.data_ptr(), it.data_ptr())
+        args = (B, m, n, int(stage == "p1"), int(steps), int(max_iters),
+                float(tol), RULE_CODES[rule], block_threads(m, n), stream)
+        if rows is None:
+            rc = lib.simplex_segment_launch(*ptrs, *args)
+        else:
+            rc = lib.simplex_segment_tel_launch(*ptrs, rows[0].data_ptr(),
+                                                *args)
     if rc != 0:
         raise RuntimeError(
             f"segment_tile kernel launch failed: CUDA error {rc}")
     segment_tile.launches += 1
+    if rows is not None:
+        segment_tile.tel_launches += 1
+        state = state._replace(tel=rows_to_tel(*rows))
     return state, it
 
 
 segment_tile.launches = 0
+segment_tile.tel_launches = 0
 
 
 def segment_tile_plain(state: CompactionState, steps: int, *, stage: str,

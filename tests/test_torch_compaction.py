@@ -31,6 +31,7 @@ from repro_torch.interop import (batch_from_reference, result_arrays,
                                  segment_state_from_tile)
 from repro_torch.kernels import segment_tile
 from repro_torch.kernels.ops import solve_batched_kernel
+from repro_torch.obs import SolveReport, SpanTracer
 
 BITWISE = ("status", "iterations", "x", "objective")
 
@@ -193,17 +194,30 @@ def test_custom_solver_must_accept_compaction():
         got.iterations, solve_batched_torch(batch, device="cpu").iterations)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(backend="revised", telemetry=True), "ROADMAP: obs/"),
-    (dict(telemetry=True), "ROADMAP: obs/"),
-    (dict(tracer=object()), "ROADMAP: obs/"),
-    (dict(backend="revised", tracer=object()), "ROADMAP: obs/"),
-    (dict(backend="pdhg", telemetry=True), "ROADMAP: obs/"),
+@pytest.mark.parametrize("backend,telemetry,traced", [
+    ("revised", True, False),
+    ("tableau", True, False),
+    ("tableau", False, True),
+    ("revised", False, True),
+    ("pdhg", True, False),
 ])
-def test_deferred_options_raise_and_name_their_roadmap_item(kw, item):
+def test_observability_options_report_and_trace(backend, telemetry, traced):
+    """``telemetry=True`` brings back an ``obs.SolveReport`` whose
+    iterations are the result's; a tracer records the scheduler's spans."""
     batch = random_lp_batch(np.random.default_rng(4), B=2, m=3, n=3)
-    with pytest.raises(NotImplementedError, match=item):
-        solve_batched_compacted(batch, device="cpu", **kw)
+    tracer = SpanTracer() if traced else None
+    res = solve_batched_compacted(batch, device="cpu", backend=backend,
+                                  telemetry=telemetry, tracer=tracer)
+    if telemetry:
+        assert isinstance(res.stats, SolveReport)
+        assert res.stats.backend.endswith("Backend")
+        np.testing.assert_array_equal(res.stats.iterations, res.iterations)
+    else:
+        assert res.stats is None
+    if traced:
+        names = {s.name for root in tracer.roots for s in root.walk()}
+        assert {"canonicalize", "dispatch", "recover"} <= names
+        assert "segment[p2]" in names
 
 
 def test_frontier_scheduler_parts_raise_and_name_their_roadmap_item():

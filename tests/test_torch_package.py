@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core import batching
 from repro_torch.core.compaction import (CompactionState, TorchBackend,
-                                         segment_pending,
+                                         map_state, segment_pending,
                                          solve_batched_compacted)
 from repro_torch.core.forms import canonicalize
 from repro_torch.core.lp import (LPBatch, backend_spec, canonicalize_backend,
@@ -78,7 +78,8 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.configs, repro_torch.configs.falcon_mamba_7b, "
             "repro_torch.launch, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.optim, "
-            "repro_torch.distributed, repro_torch.data\n"
+            "repro_torch.distributed, repro_torch.data, repro_torch.obs, "
+            "repro_torch.obs.work\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -427,7 +428,7 @@ def test_new_kernel_sources_are_built_with_the_others():
 
 
 def _clone(state):
-    return CompactionState(*(leaf.clone() for leaf in state))
+    return map_state(torch.clone, state)
 
 
 @pytest.mark.gpu
@@ -518,7 +519,7 @@ def test_revised_entry_points_raise_without_cuda(monkeypatch):
 def _revised_state(seed=0, B=6, m=4, n=5, device="cpu"):
     (A, b, c, ub), m, n = _small_inputs(seed, B, m, n)
     state = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5)
-    return RevisedState(*(leaf.to(device) for leaf in state)), m, n
+    return map_state(lambda leaf: leaf.to(device), state), m, n
 
 
 def test_revised_wrapper_rejects_what_the_kernel_does_not_take():
@@ -598,7 +599,7 @@ def test_revised_kernel_matches_plain_version_on_the_card(pricing):
                       refactor_period=5, rule=pricing)
             before = revised_segment_tile.launches
             got, it = revised_segment_tile(
-                RevisedState(*(leaf.clone() for leaf in state)), 23, **kw)
+                map_state(torch.clone, state), 23, **kw)
             torch.cuda.synchronize()
             assert revised_segment_tile.launches == before + 1
             want, want_it = revised_segment_tile_plain(state, 23, **kw)
@@ -635,7 +636,7 @@ def test_revised_variant_matches_plain_version_on_the_card(shape, pricing):
     steps = 400 if shape == "device" else kw["max_iters"]
     before = revised_segment_tile.launches
     got, it = revised_segment_tile(
-        RevisedState(*(leaf.clone() for leaf in state)), steps, **kw)
+        map_state(torch.clone, state), steps, **kw)
     torch.cuda.synchronize()
     assert revised_segment_tile.launches == before + 1
     want, want_it = revised_segment_tile_plain(state, steps, **kw)
@@ -675,7 +676,7 @@ def test_revised_kernel_runs_any_basis_size_on_the_card(m, n, threads, want,
               refactor_period=16, rule=pricing)
     before = revised_segment_tile.launches
     got, it = revised_segment_tile(
-        RevisedState(*(leaf.clone() for leaf in state)), steps, **kw)
+        map_state(torch.clone, state), steps, **kw)
     torch.cuda.synchronize()
     assert revised_segment_tile.launches == before + 1
     assert int(got.work[:, 3].min()) >= 2        # refactorizations
@@ -724,7 +725,7 @@ def test_pdhg_entry_points_raise_without_cuda(monkeypatch):
 def _pdhg_state(seed=0, B=6, m=4, n=5, device="cpu"):
     (A, b, c, ub), m, n = _small_inputs(seed, B, m, n)
     state = init_pdhg_state(A, b, c, ub)
-    return PdhgState(*(leaf.to(device) for leaf in state)), (A, b, c, ub), \
+    return map_state(lambda leaf: leaf.to(device), state), (A, b, c, ub), \
         m, n
 
 
@@ -861,7 +862,7 @@ def test_pdhg_segment_kernel_matches_plain_version_on_the_card():
         for _ in range(3):
             before = pdhg_segment_tile.launches
             got, it = pdhg_segment_tile(
-                PdhgState(*(t.clone() for t in state)), 7, m=m, n=n,
+                map_state(torch.clone, state), 7, m=m, n=n,
                 max_rounds=40)
             torch.cuda.synchronize()
             assert pdhg_segment_tile.launches == before + 1
