@@ -47,6 +47,32 @@ same LPs through ``solve_batched`` (rel 1e-4); the kernel is timed there
 and at T = 50,000 (2,000,000 boxes), and one box through
 ``solve_hyperbox`` gives the launch floor.
 
+Branch-and-bound (after the simplex kernels' trace): the segment kernel's
+combined stage (``segment_tile(stage="full")``, the counterpart of the
+reference's ``segment_combined``) is held against its plain version at
+atol 0, leaf by leaf, in one 8-step launch from mid-solve full-layout
+states that hold lanes in phase 1, in phase 2 and warm-injected ones,
+every rule, on the lp_100d_50k slice (``shared``) and 256 sc205_like LPs
+(``device``, plain on 128); one launch takes all 50,000 LPs of
+lp_100d_50k to their end (equal to the whole solve, timed beside the
+p1 + p2 segments).  The tableau warm path: all of lp_afiro_100k from the
+slack basis through ``solve_batched(warm=...)`` (statuses and iterations
+of the cold whole solve), re-solved from its own optimum (0 pivots on all
+but at most one in a thousand OPTIMAL members, which re-solve as the
+plain engine re-solves them), and a perturbed 1,024-LP trajectory step
+warm,
+equal bit for bit to ``solve_batched_torch(device="cpu", warm=...)``.
+The MIP fixtures' trees on the card (knapsack 280, assignment 5,
+scheduling 42 proven): tableau dispatch (warm and cold) and stream and
+revised dispatch with the CPU port's nodes, dispatches and LP iterations;
+PDHG dispatch on knapsack and scheduling (``max_nodes`` 200) by proven
+optimum.  Last, a realistic frontier: a seeded 5 x 100 multi-knapsack
+(Chu & Beasley's recipe, the OR-Library mknapcb1 shape; canonically
+105 x 100), best-first to 16,384 nodes, as tableau dispatch (frontier
+1,024), stream (1,024 lanes), dispatch cold and revised dispatch: wall,
+nodes/s, dispatches or segments, LP iterations a node, incumbent, bound,
+gap, launches and the seconds spent building the kernel states.
+
 The revised path (before the box LP): ``solve_batched(lp_100d_50k,
 backend="revised")`` on all 50,000 LPs through the revised kernel, with
 Dantzig and with partial pricing, each held against the oracle and against
@@ -239,12 +265,17 @@ def zero_counts():
         wrapper.launches = 0
         if name in TEL_WRAPPERS:
             wrapper.tel_launches = 0
+    _wrappers()["simplex_segment"].full_launches = 0
 
 
 def counts() -> dict:
+    """Launches since zero_counts() by wrapper, the counter-carrying ones
+    apart ("<name>_tel") and the segment kernel's combined stage apart
+    too ("simplex_segment_full", also inside "simplex_segment")."""
     got = {name: w.launches for name, w in _wrappers().items()}
     got.update({f"{name}_tel": _wrappers()[name].tel_launches
                 for name in TEL_WRAPPERS})
+    got["simplex_segment_full"] = _wrappers()["simplex_segment"].full_launches
     return got
 
 
@@ -647,6 +678,12 @@ def _first(state, k):
     return map_state(lambda leaf: leaf[:k].contiguous(), state)
 
 
+def _pick(state, idx):
+    """The state of the LPs at the indices ``idx``."""
+    from repro_torch.core.compaction import map_state
+    return map_state(lambda leaf: leaf[idx].contiguous(), state)
+
+
 def leaf_pairs(got, want):
     """(name, got, want) of every tensor leaf of two solver states, the
     counter lanes of their ``tel`` leaves included; both states carry the
@@ -753,6 +790,413 @@ def compare_schedule(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
     return out
 
 
+# ---- branch-and-bound: the combined stage, tableau warm starts, trees ----
+
+# The device the branch-and-bound phase runs on.
+CARD = "cuda"
+# The realistic frontier's node budget (lower it first if the smoke
+# outgrows its time limit) and width.
+FRONTIER_NODES = 16_384
+FRONTIER_WIDTH = 1024
+# LPs of the warm trajectory step held against the plain engine on the CPU
+WARM_SLICE = 1024
+# The members of lp_afiro_100k whose re-solve from their own optimum
+# pivots, and their pivots on the port: the reference re-solves these
+# members with pivots too, 5426 once more in its row-sum order
+# (tests/test_torch_warm.py, AFIRO_RESOLVE)
+AFIRO_RESOLVE = {5426: 25, 13721: 7}
+
+
+def bound_full(m, n, B, work):
+    """``bound`` for the combined stage: every pivot, in either phase,
+    updates the full (m+2) x (n+2m+1) state (phase-2 pivots included:
+    the state keeps the artificial columns and the phase-1 row)."""
+    w = work.copy()
+    w[:, 0] = w[:, 0] + w[:, 1]
+    w[:, 1] = 0
+    out = bound(m, n, B, w, segment=True)
+    out.update(phase1_pivots=int(work[:, 0].sum()),
+               phase2_pivots=int(work[:, 1].sum()))
+    return out
+
+
+def slack_carrier(B, m, n):
+    """A WarmStart of the slack basis for B LPs: injecting it rebuilds the
+    cold tableau, so a solve through the warm path starts cold."""
+    import numpy as np
+    from repro_torch.core.lp import WarmStart
+    return WarmStart(m=m, n=n,
+                     basis=np.tile(np.arange(n, n + m, dtype=np.int32),
+                                   (B, 1)),
+                     at_upper=np.zeros((B, n), bool))
+
+
+def compare_combined(name, lp, rule, n_lp=SLICE, n_plain=SLICE, steps=8,
+                     parent_steps=None):
+    """One launch of the combined stage (``segment_tile(stage="full")``)
+    against its plain version, every state leaf at atol 0, from a
+    mid-solve full-layout state that holds lanes in phase 1, lanes in
+    phase 2 and warm-injected lanes, each kind among the ``n_plain``
+    lanes compared: the odd lanes are seeded from their
+    LP's own basis after ``parent_steps`` combined steps (the end of the
+    solve when None), with b scaled by 0.8 on every fourth LP (the
+    injection repairs them: phase 1) and c reweighted on every fourth
+    other (it skips to phase 2, which pivots); then combined steps in
+    eights until both phases have running lanes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lp import LPBatch, WarmStart, default_max_iters
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels.ops import KernelBackend
+    from repro_torch.kernels.simplex_tile import (segment_tile,
+                                                  segment_tile_plain)
+    sub = LPBatch(A=lp.A[:n_lp], b=lp.b[:n_lp], c=lp.c[:n_lp],
+                  ub=None if lp.ub is None else lp.ub[:n_lp])
+    m, n = lp.m, lp.n
+    mi = default_max_iters(m, n)
+    A, b, c, ub = batch_tensors(sub, torch.device(CARD))
+    kb = KernelBackend(m, n, 1e-6, 1e-5, pricing=rule)
+    ps = mi if parent_steps is None else parent_steps
+    parent, _ = kb.run_combined(kb.init(A, b, c, ub), ps, mi)
+    odd = np.arange(n_lp) % 2 == 1
+    slack = slack_carrier(n_lp, m, n)
+    warm = WarmStart(m=m, n=n, basis=np.where(
+        odd[:, None], parent.basis.cpu().numpy(), slack.basis),
+        at_upper=odd[:, None] & parent.flip.cpu().numpy())
+    del parent
+    lane = torch.arange(n_lp, device=CARD)[:, None] % 4
+    scale_c = torch.linspace(0.5, 1.5, n, device=CARD)[None, :]
+    state = kb.init(A, torch.where(lane == 1, 0.8 * b, b), torch.where(
+        lane == 3, c * scale_c, c), ub, warm=warm)
+    advanced = 0
+    while True:
+        running = (state.status == -1).cpu().numpy()
+        p1 = np.flatnonzero(running & (state.phase == 1).cpu().numpy())
+        p2 = np.flatnonzero(running & (state.phase == 2).cpu().numpy())
+        if len(p1) and len(p2):
+            break
+        assert advanced < mi, (name, rule, len(p1), len(p2))
+        state, _ = kb.run_combined(state, 8, mi)
+        advanced += 8
+    # the compared lanes: up to a quarter each of the running phase-2 and
+    # phase-1 lanes, then the first lanes, so that both phases and warm
+    # lanes are among them whatever their place in the batch
+    k = min(n_plain, n_lp)
+    keep = np.zeros(n_lp, bool)
+    keep[p2[:max(1, k // 4)]] = True
+    keep[p1[:max(1, k // 4)]] = True
+    keep[np.flatnonzero(~keep)[:k - int(keep.sum())]] = True
+    idx = np.flatnonzero(keep)
+    lanes = {"phase1_running": int(np.isin(p1, idx).sum()),
+             "phase2_running": int(np.isin(p2, idx).sum()),
+             "warm_lanes": int(odd[idx].sum()), "advanced_steps": advanced}
+    assert all(lanes[f] for f in ("phase1_running", "phase2_running",
+                                  "warm_lanes")), (name, rule, lanes)
+    kw = dict(stage="full", m=m, n=n, max_iters=mi, pricing=rule)
+    before = state.work.clone()
+    (got, it), ms = timed(lambda: segment_tile(_clone(state), steps, **kw))
+    sel = torch.as_tensor(idx, device=CARD)
+    (want, want_it), plain_ms = timed(lambda: segment_tile_plain(
+        _pick(state, sel), steps, **kw))
+    assert torch.equal(it[sel], want_it), (name, rule, "steps differ")
+    err = 0.0
+    for leaf, g, w in leaf_pairs(got, want):
+        torch.testing.assert_close(g[sel], w, rtol=0, atol=0,
+                                   equal_nan=True,
+                                   msg=f"{name} {rule} full {leaf}")
+        if g.dtype.is_floating_point:
+            fin = torch.isfinite(g[sel]) & torch.isfinite(w)
+            err = max(err, float((g[sel] - w).abs()[fin].max())
+                      if bool(fin.any()) else 0.0)
+    work = (got.work - before).cpu().numpy()
+    out = {"compare_combined": name, "pricing": rule, "lps": n_lp,
+           "plain_lps": len(idx), "steps": steps,
+           "variant": simplex_variant(m, n, rule, "full"),
+           "status_counts_after": np.bincount(
+               (got.status.cpu().numpy() + 1).astype(int),
+               minlength=5).tolist(),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lanes}
+    out.update(bound_full(m, n, n_lp, work))
+    emit(out)
+    del A, b, c, ub, state, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def combined_at_full_batch(lp, res_whole, seg_full):
+    """One launch of the combined stage over all of a canonical batch from
+    its cold state, each LP to its end: x, objective, status and
+    iterations equal to the whole-solve main path's; timed on the card
+    beside the p1 + p2 segments' launches (``segment_full_batch``) and the
+    whole solve."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels.ops import KernelBackend
+    from repro_torch.kernels.simplex_tile import segment_tile
+    m, n = lp.m, lp.n
+    mi = default_max_iters(m, n)
+    A, b, c, ub = batch_tensors(lp, torch.device(CARD))
+    kb = KernelBackend(m, n, 1e-6, 1e-5)
+    state = kb.init(A, b, c, ub)
+    del A, b, c, ub
+    (state, it), ms = timed(lambda: segment_tile(state, mi, stage="full",
+                                                 m=m, n=n, max_iters=mi))
+    x, obj, st, iters, y, z = kb.extract(state, "full")
+    for f, got in (("status", st), ("iterations", iters), ("x", x),
+                   ("objective", obj), ("y", y), ("z", z)):
+        assert np.array_equal(got, getattr(res_whole, f), equal_nan=True), f
+    info = {"combined_full_batch": "lp_100d_50k", "lps": lp.batch,
+            "ms": ms, "segments_ms": seg_full["segment_ms"],
+            "segments_p1_ms": seg_full["p1_segment_ms"],
+            "whole_solve_wrapper_ms": seg_full["whole_solve_ms"],
+            "equal_whole_solve": True, "steps_max": int(it.max())}
+    info.update(bound_full(m, n, lp.batch, state.work.cpu().numpy()))
+    emit(info)
+    del state
+    torch.cuda.empty_cache()
+    return info
+
+
+def tableau_warm_card(afiro, lp_af, res_af):
+    """The tableau warm path on the card: all of lp_afiro_100k through it
+    from the slack basis (equal to the cold whole solve), re-solved from
+    its own optimum (0 pivots on all but at most one in a thousand OPTIMAL
+    members; those re-solve as the plain engine re-solves them); step 1 of
+    a
+    perturbed AFIRO trajectory on a ``WARM_SLICE``-LP slice warm from step
+    0, equal bit for bit to the plain engine's warm solve on the CPU."""
+    import numpy as np
+    from repro_torch.core import (LPBatch, canonicalize, solve_batched,
+                                  solve_batched_torch)
+    from repro_torch.io import perturbed_sequence
+    from repro_torch.kernels.simplex_tile import segment_tile
+    zero_counts()
+    t0 = time.perf_counter()
+    first = solve_batched(lp_af, device=CARD,
+                          warm=slack_carrier(lp_af.batch, lp_af.m, lp_af.n))
+    wall_first = time.perf_counter() - t0
+    for f in ("status", "iterations"):
+        assert np.array_equal(getattr(first, f), getattr(res_af, f)), f
+    t1 = time.perf_counter()
+    again = solve_batched(lp_af, device=CARD, warm=first.warm_start())
+    wall_again = time.perf_counter() - t1
+    launches = segment_tile.full_launches
+    assert launches == 2 and counts()["simplex_tile"] == 0, counts()
+    opt = first.status == 0
+    assert np.array_equal(again.status, first.status)
+    # In float32 the re-injected tableau of a few members is not the one
+    # their last pivot left (a basic artificial maps to its row's slack;
+    # the Gauss-Jordan rebuild rounds otherwise), and they pivot again:
+    # exactly the members of AFIRO_RESOLVE, which the reference re-solves
+    # with pivots too; the plain engine re-solves them as the card does
+    moved = np.flatnonzero(opt & (again.iterations > 0))
+    assert {int(i): int(again.iterations[i]) for i in moved} \
+        == AFIRO_RESOLVE, ("warm re-solve pivoted", moved)
+    idx = np.asarray(sorted(AFIRO_RESOLVE))
+    sub = LPBatch(A=lp_af.A[idx], b=lp_af.b[idx], c=lp_af.c[idx],
+                  ub=None if lp_af.ub is None else lp_af.ub[idx])
+    plain = solve_batched_torch(sub, device="cpu",
+                                warm=first.warm_start().take(idx))
+    assert np.array_equal(plain.iterations, again.iterations[idx])
+    assert np.array_equal(plain.status, again.status[idx])
+    np.testing.assert_allclose(again.objective[moved],
+                               first.objective[moved], rtol=1e-4)
+    # a trajectory step that moves A, b and c by up to 20%, so that the
+    # warm solves pivot; the plain engine on the CPU takes the slice
+    seq = perturbed_sequence(afiro, WARM_SLICE, 2,
+                             np.random.default_rng(2018), step_rel=0.2,
+                             perturb=("A", "rhs", "c"))
+    lp0, _ = canonicalize(seq[0])
+    lp1, _ = canonicalize(seq[1])
+    zero_counts()
+    ws = solve_batched(lp0, device=CARD, warm=slack_carrier(
+        WARM_SLICE, lp0.m, lp0.n)).warm_start()
+    got = solve_batched(lp1, device=CARD, warm=ws)
+    launches += segment_tile.full_launches
+    t2 = time.perf_counter()
+    want = solve_batched_torch(lp1, device="cpu", warm=ws)
+    plain_s = time.perf_counter() - t2
+    cold = solve_batched(lp1, device=CARD)
+    for f in ("status", "iterations", "x", "objective", "y", "z"):
+        assert np.array_equal(getattr(got, f), getattr(want, f),
+                              equal_nan=True), f
+    np.testing.assert_array_equal(got.warm.basis, want.warm.basis)
+    warm_it = int(got.iterations.astype(np.int64).sum())
+    cold_it = int(cold.iterations.astype(np.int64).sum())
+    info = {"tableau_warm": "lp_afiro_100k", "lps": lp_af.batch,
+            "slack_start_wall_s": wall_first, "resolve_wall_s": wall_again,
+            "resolve_optimal_lps": int(opt.sum()),
+            "resolve_zero_pivot_lps": int(opt.sum()) - len(moved),
+            "resolve_pivoting_lps": moved.tolist(),
+            "resolve_pivots": again.iterations[moved].tolist(),
+            "resolve_pivots_equal_plain_engine": True,
+            "trajectory_lps": WARM_SLICE,
+            "trajectory_equal_plain_engine": True,
+            "trajectory_warm_iterations": warm_it,
+            "trajectory_cold_iterations": cold_it,
+            "plain_engine_cpu_s": plain_s, "launches": launches}
+    emit(info)
+    return launches
+
+
+BNB_KEYS = ("objective", "proven", "nodes", "dispatches", "lp_iterations",
+            "max_depth")
+MIP_OPT = {"knapsack": 280.0, "assignment": 5.0, "scheduling": 42.0}
+
+
+def bnb_fixtures():
+    """The MIP fixtures' trees on the card, every node relaxation through
+    the CUDA kernels: tableau (dispatch warm and cold, stream), revised
+    (dispatch) with the CPU port's nodes, dispatches and LP iterations;
+    PDHG (dispatch, knapsack and scheduling, max_nodes 200) proving the
+    optima.  Returns the combined stage's launches."""
+    from repro_torch.core import branch_and_bound
+    from repro_torch.io import MIP_FIXTURE_NAMES, fixture_path, read_mps
+    full, rows = 0, []
+    runs = [("tableau dispatch", dict(), "simplex_segment_full"),
+            ("tableau dispatch cold", dict(warm_start=False),
+             "simplex_tile"),
+            ("tableau stream", dict(mode="stream"), "simplex_segment_full"),
+            ("revised dispatch", dict(backend="revised"),
+             "revised_segment")]
+    for name in MIP_FIXTURE_NAMES:
+        g = read_mps(fixture_path(name))
+        for what, kw, kernel in runs:
+            zero_counts()
+            t0 = time.perf_counter()
+            got = branch_and_bound(g, device=CARD, frontier=8, **kw)
+            wall = time.perf_counter() - t0
+            launched = counts()
+            assert launched[kernel] > 0, (name, what, launched)
+            full += launched["simplex_segment_full"]
+            want = branch_and_bound(g, device="cpu", frontier=8, **kw)
+            assert got.proven and got.objective == MIP_OPT[name], \
+                (name, what, got.summary())
+            g_k = {k: getattr(got, k) for k in BNB_KEYS}
+            assert g_k == {k: getattr(want, k) for k in BNB_KEYS}, \
+                (name, what, g_k)
+            rows.append(dict(fixture=name, what=what, wall_s=wall,
+                             launches={k: v for k, v in launched.items()
+                                       if v}, **g_k))
+    for name in ("knapsack", "scheduling"):
+        zero_counts()
+        t0 = time.perf_counter()
+        got = branch_and_bound(read_mps(fixture_path(name)), device=CARD,
+                               backend="pdhg", frontier=8, max_nodes=200)
+        wall = time.perf_counter() - t0
+        launched = counts()
+        assert launched["pdhg"] > 0, launched
+        assert got.proven and abs(got.objective - MIP_OPT[name]) < 1e-3
+        rows.append(dict(fixture=name, what="pdhg dispatch", wall_s=wall,
+                         launches={k: v for k, v in launched.items() if v},
+                         **{k: getattr(got, k) for k in BNB_KEYS}))
+    emit({"bnb_fixtures": rows, "equal_cpu_port": True})
+    return full
+
+
+@contextlib.contextmanager
+def seconds_in(cls, name):
+    """Host seconds spent in method ``name`` of ``cls`` while the context
+    is open, the device synchronised around each call: a one-item list
+    summing them."""
+    import torch
+    orig, own = getattr(cls, name), name in cls.__dict__
+    spent = [0.0]
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+
+    def wrapped(self, *args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = orig(self, *args, **kw)
+        sync()
+        spent[0] += time.perf_counter() - t0
+        return out
+    setattr(cls, name, wrapped)
+    try:
+        yield spent
+    finally:
+        if own:
+            setattr(cls, name, orig)
+        else:
+            delattr(cls, name)
+
+
+def mknap_chu_beasley(rng, m=5, n=100, tightness=0.25):
+    """A multi-dimensional 0-1 knapsack by Chu & Beasley's recipe (J.
+    Heuristics 4:63-86, 1998; the OR-Library mknapcb1 shape at m = 5, n =
+    100): integer weights U[1, 1000], each capacity ``tightness`` times its
+    row's weight sum, profit_j = sum_i w_ij / m + 500 U(0, 1); maximize.
+    Test data, made here from the seed."""
+    import numpy as np
+    from repro_torch.core import GeneralLPBatch
+    w = rng.integers(1, 1001, size=(m, n)).astype(np.float64)
+    cap = tightness * w.sum(axis=1)
+    profit = w.sum(axis=0) / m + 500.0 * rng.uniform(size=n)
+    return GeneralLPBatch.from_arrays(
+        A=w[None], sense=["L"] * m, rhs=cap[None], lb=np.zeros((1, n)),
+        ub=np.ones((1, n)), c=profit[None], maximize=True,
+        integer=np.ones(n, bool), name=f"mknap_cb_{m}x{n}")
+
+
+def bnb_frontier():
+    """A realistic frontier: a seeded 5 x 100 multi-knapsack (canonically
+    105 x 100: the 100 bound rows), best-first, ``FRONTIER_NODES`` nodes,
+    four ways: dispatch (frontier 1,024), stream (1,024 lanes), dispatch
+    cold, revised dispatch.  Wall, nodes/s, dispatches or segments, LP
+    iterations a node, incumbent, bound, gap and launches of each, and
+    the seconds the tableau paths spend building (and warm-injecting)
+    their kernel states (``KernelBackend.init``).
+    Returns the combined stage's launches."""
+    import numpy as np
+    from repro_torch.core import branch_and_bound, canonicalize
+    from repro_torch.kernels.ops import KernelBackend
+    g = mknap_chu_beasley(np.random.default_rng(2018))
+    lp0, _ = canonicalize(g, bound_rows=g.integer)
+    full = 0
+    runs = [("tableau dispatch", dict(frontier=FRONTIER_WIDTH)),
+            ("tableau stream", dict(mode="stream", lanes=FRONTIER_WIDTH)),
+            ("tableau dispatch cold", dict(frontier=FRONTIER_WIDTH,
+                                           warm_start=False)),
+            ("revised dispatch", dict(backend="revised",
+                                      frontier=FRONTIER_WIDTH))]
+    for what, kw in runs:
+        stats = []
+        if kw.get("mode") == "stream":
+            kw = dict(kw, stats_out=stats)
+        zero_counts()
+        # the tableau paths' state setup (the warm injection on the card)
+        with seconds_in(KernelBackend, "init") as setup:
+            t0 = time.perf_counter()
+            res = branch_and_bound(g, device=CARD, search="best",
+                                   max_nodes=FRONTIER_NODES, **kw)
+            wall = time.perf_counter() - t0
+        launched = counts()
+        full += launched["simplex_segment_full"]
+        # best-first may end the budget without an incumbent: then the
+        # objective is NaN and the gap infinite (printed as null)
+        assert np.isfinite(res.bound) and res.nodes > 0
+        if res.x is not None:
+            assert res.bound >= res.objective - 1e-6 * abs(res.objective)
+        found = res.x is not None
+        emit({"bnb_frontier": "mknap_cb_5x100",
+              "canonical": [lp0.m, lp0.n], "seed": 2018,
+              "max_nodes": FRONTIER_NODES, "what": what, "wall_s": wall,
+              "state_setup_s": setup[0],
+              "nodes_per_s": res.nodes / wall, "nodes": res.nodes,
+              "dispatches": res.dispatches,
+              "segments": len(stats) if stats else None,
+              "lp_iterations": res.lp_iterations,
+              "lp_iterations_per_node": res.lp_iterations / res.nodes,
+              "incumbent": res.objective if found else None,
+              "bound": res.bound, "gap": res.gap if found else None,
+              "proven": res.proven, "max_depth": res.max_depth,
+              "launches": {k: v for k, v in launched.items() if v}})
+    return full
+
+
 # ---- the simplex kernels' builds: cycle counters, the parent's source -----
 
 SIMPLEX_TRACE_PHASES = ("price", "ratio", "flip", "scale", "update",
@@ -776,6 +1220,25 @@ def _simplex_argtypes(lib):
         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.simplex_segment_launch.restype = ctypes.c_int
     return lib
+
+
+class _ParentStages:
+    """A simplex_tile build from before the combined stage, behind this
+    tree's C interface: its segment launcher took a flag (1: p1, 0: p2)
+    where this tree passes a stage code (1: p1, 2: p2, 3: full)."""
+
+    STAGE_ARG = 14   # after the 11 state pointers and B, m, n
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def simplex_segment_launch(self, *args):
+        args = list(args)
+        args[self.STAGE_ARG] = {1: 1, 2: 0}[args[self.STAGE_ARG]]
+        return self.lib.simplex_segment_launch(*args)
 
 
 def _toolkit(tool):
@@ -825,6 +1288,12 @@ def _entry_reports(lib):
     return {d: (rows[k], sass.get(k)) for k, d in zip(names, plain)}
 
 
+# Instantiations a source has that its parent may not (by demangled
+# template head): the simplex segment kernel's full stage (kSegFull = 3).
+NEW_STAGE_INSTANTIATIONS = {
+    "simplex_tile": r"simplex_segment_kernel<.*, \(int\)3, \(bool\)0>$"}
+
+
 def counter_free_vs_parent(name, parent_src):
     """This tree's build of library ``name`` against the parent's build of
     ``parent_src``: every kernel instantiation the parent has, with kTel
@@ -844,8 +1313,15 @@ def counter_free_vs_parent(name, parent_src):
                                              src=parent_src))
     head = lambda d: d.split(">(", 1)[0] + ">"  # noqa: E731
     parent = {head(d): v for d, v in old.items()}
-    same, counters = 0, []
+    same, counters, added = 0, [], []
     for d, (ptx, sass) in new.items():
+        if head(d) not in parent and re.search(
+                NEW_STAGE_INSTANTIATIONS.get(name, "$^"), head(d)):
+            # a stage the parent does not have (the simplex segment
+            # kernel's full stage)
+            added.append({"kernel": head(d), "registers": ptx[0],
+                          "spill_bytes": ptx[2] + ptx[3]})
+            continue
         tel = re.match(r"(.*), \(bool\)([01])>$", head(d))
         key = head(d) if head(d) in parent or tel is None else (
             tel.group(1) + ">")
@@ -875,7 +1351,8 @@ def counter_free_vs_parent(name, parent_src):
         t.join()
     emit({"counter_free_vs_parent": name, "instantiations": same,
           "ptxas_equal": True, "sass_equal": True,
-          "counter_instantiations": counters, "nvcc_s": took})
+          "counter_instantiations": counters, "new_instantiations": added,
+          "nvcc_s": took})
 
 
 def simplex_trace_build():
@@ -975,8 +1452,8 @@ def simplex_ab(parent_src, lp100, slices):
     from repro_torch.kernels import _build
     from repro_torch.kernels.ops import KernelBackend
     from repro_torch.kernels.simplex_tile import WORK_COUNTERS, simplex_tile
-    parent = _simplex_argtypes(_build.load("simplex_tile_parent",
-                                           src=parent_src))
+    parent = _ParentStages(_simplex_argtypes(_build.load(
+        "simplex_tile_parent", src=parent_src)))
     new = _simplex_module()._lib()
     order = ("parent", "new", "new", "parent")
 
@@ -3402,7 +3879,7 @@ def main(argv=None) -> int:
     assert simplex_variant(sc205.m, sc205.n) == "device"
     for rule in RULES:
         se = rule == "steepest_edge"
-        compare("sc205_like_2k", sc205, rule, n_plain=32 if se else 128,
+        compare("sc205_like_2k", sc205, rule, n_plain=128,
                 max_iters=600 if se else None)
 
     # ---- compaction path: the segment kernel under the scheduler ----------
@@ -3417,14 +3894,26 @@ def main(argv=None) -> int:
         seg_rows.append(compare_schedule("lp_100d_50k", lp100, rule))
         compare_schedule("lp_afiro_100k", lp_af, rule)
     # sc205_like: a 600-step budget for every rule (most members run to
-    # the cap in f32), the plain version on the first 128 (32 for steepest
-    # edge, whose plain steps cost the most)
+    # the cap in f32), the plain version on the first 128
     for rule in RULES:
-        compare_schedule("sc205_like_2k", sc205, rule,
-                         n_plain=32 if rule == "steepest_edge" else 128,
+        compare_schedule("sc205_like_2k", sc205, rule, n_plain=128,
                          max_iters=600)
     trace_builds[2].join()
     simplex_trace(lp100, lp_af)
+
+    # ---- branch-and-bound: the combined stage, warm starts, trees --------
+    t_bnb = time.perf_counter()
+    comb_rows = []
+    for rule in RULES:
+        comb_rows.append(compare_combined("lp_100d_50k", lp100, rule))
+        comb_rows.append(compare_combined("sc205_like_2k", sc205, rule,
+                                          n_lp=256, n_plain=128,
+                                          parent_steps=700))
+    comb_full = combined_at_full_batch(lp100, res_100, seg_full)
+    launches_full = tableau_warm_card(afiro, lp_af, res_af)
+    launches_full += bnb_fixtures()
+    launches_full += bnb_frontier()
+    emit({"bnb_phase_s": time.perf_counter() - t_bnb})
 
     # ---- revised path: the revised kernel, with warm starts ---------------
     launches_rev = 0
@@ -3549,6 +4038,29 @@ def main(argv=None) -> int:
         "parity": "one launch per stage leaf by leaf; scheduled solve: "
                   "status, iterations and work equal, x, objective, y, z "
                   "within rel 1e-5; every rule and batch"}, {
+        "name": "simplex_segment_full", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/simplex_tile.cu",
+        "replaces": "src/repro/core/compaction.py:229",
+        "launches": launches_full,
+        "max_abs_err": max(r["max_abs_err"] for r in comb_rows),
+        "ms": comb_rows[0]["ms"], "plain_ms": comb_rows[0]["plain_ms"],
+        "bound_ms": comb_rows[0]["bound_ms"],
+        "bound_by": comb_rows[0]["bound_by"], "library_ms": None,
+        "variant": {r["compare_combined"]: r["variant"]
+                    for r in comb_rows},
+        "full_batch_ms": comb_full["ms"],
+        "full_batch_bound_ms": comb_full["bound_ms"],
+        "full_batch_segments_ms": comb_full["segments_ms"],
+        "shapes": [{k: r[k] for k in ("compare_combined", "pricing",
+                                      "variant", "lps", "plain_lps", "ms",
+                                      "plain_ms", "bound_ms",
+                                      "max_abs_err")} for r in comb_rows],
+        "parity": "one 8-step launch of stage full leaf by leaf at atol 0 "
+                  "from states with phase-1, phase-2 and warm-injected "
+                  "lanes, every rule, lp_100d_50k slice (shared) and 256 "
+                  "sc205_like LPs (device); all 50,000 to the end equal "
+                  "to the whole solve; the warm path equal to the plain "
+                  "engine; the fixtures' trees equal to the CPU port's"}, {
         "name": "hyperbox", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hyperbox.cu",
         "replaces": "src/repro/kernels/hyperbox_kernel.py:20",

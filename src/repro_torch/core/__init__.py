@@ -1,12 +1,18 @@
 """The port's solver core: containers, canonicalization, pricing, the
 plain PyTorch engines (tableau, revised, restarted PDHG and its sparse
-form), the compaction scheduler, the box-LP special case and the chunked
-batched entry point."""
+form), the compaction and frontier schedulers, the box-LP special case,
+the chunked batched entry point and branch-and-bound."""
 from .batching import max_chunk_size, solve_batched  # noqa: F401
-from .compaction import (  # noqa: F401
-    SegmentStat, solve_batched_compacted,
+from .branch_bound import (  # noqa: F401
+    BnBResult, branch_and_bound, safe_dual_bound,
 )
-from .forms import GeneralLPBatch, canonicalize  # noqa: F401
+from .compaction import (  # noqa: F401
+    FrontierScheduler, SegmentStat, solve_batched_compacted,
+)
+from .forms import (  # noqa: F401
+    GeneralLPBatch, canonicalize, general_violation, random_general_lp_batch,
+    rebind_bounds,
+)
 from .hyperbox import (  # noqa: F401
     hyperbox_as_general_lp, solve_hyperbox, solve_hyperbox_ref,
 )

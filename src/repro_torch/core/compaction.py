@@ -38,10 +38,13 @@ the state's ``tel`` leaf: the segments update them, the gathers carry
 them, and each LP's lanes are flushed to host buffers at its retirement
 gather, into ``LPResult.stats``.  ``tracer`` (an ``obs.SpanTracer``)
 records the canonicalize, dispatch, ``segment[<stage>]``,
-``bucket_gather`` and recover spans and a ``flush`` event per flush.  The
-frontier scheduler (``FrontierScheduler``, ``segment_combined``, the
-backends' ``scatter``) is not ported yet and raises, naming its ROADMAP.md
-item.
+``bucket_gather`` and recover spans and a ``flush`` event per flush.
+
+``FrontierScheduler`` is the continuous-batching counterpart: a fixed pool
+of lanes, new LPs admitted into the lanes retired ones freed (the
+backends' ``scatter``), every segment the combined two-phase step on the
+full tableau (stage ``full``, ``segment_combined``), for producers that
+make work from results, as branch-and-bound does (core/branch_bound.py).
 """
 from __future__ import annotations
 
@@ -83,7 +86,11 @@ from .simplex import (
     warm_tableau,
 )
 
+# The scheduler's stages; a tableau segment also runs stage "full": the
+# combined two-phase step on the full tableau through both phases, for the
+# frontier scheduler.
 STAGES = ("p1", "p2")
+TABLEAU_STAGES = STAGES + ("full",)
 WEIGHTED_RULES = ("steepest_edge", "devex")
 
 
@@ -106,16 +113,18 @@ class CompactionState(NamedTuple):
                                           #  telemetry off
 
 
-def map_state(fn, state):
-    """``state`` with ``fn`` applied to every tensor leaf, the counter
-    lanes of its ``tel`` leaf included; a ``None`` leaf stays ``None``."""
-    def leaf(v):
+def map_state(fn, state, *others):
+    """``state`` with ``fn`` applied to every tensor leaf, the counter lanes
+    of its ``tel`` leaf included; a ``None`` leaf stays ``None``.  With
+    ``others`` (states of the same type) ``fn`` also gets their matching
+    leaves."""
+    def leaf(v, *ws):
         if v is None:
             return None
         if isinstance(v, tuple):
-            return type(v)(*(leaf(t) for t in v))
-        return fn(v)
-    return type(state)(*(leaf(v) for v in state))
+            return type(v)(*(leaf(*t) for t in zip(v, *ws)))
+        return fn(v, *ws)
+    return type(state)(*(leaf(*t) for t in zip(state, *others)))
 
 
 def auto_segment_k(m: int, n: int) -> int:
@@ -170,7 +179,8 @@ def next_bucket(active: int) -> int:
 def segment_pending(state: CompactionState, stage: str,
                     max_iters: int) -> torch.Tensor:
     """(B,) bool: LPs that step in a segment of ``stage``: running, under
-    their cap and, in stage p1, still in phase 1."""
+    their cap and, in stage p1, still in phase 1 (stage full: in either
+    phase)."""
     pend = (state.status == _RUNNING) & (state.iters < max_iters)
     if stage == "p1":
         pend &= state.phase == 1
@@ -179,16 +189,18 @@ def segment_pending(state: CompactionState, stage: str,
 
 def run_segment(state: CompactionState, steps: int, *, stage: str, m: int,
                 n: int, max_iters: int, tol: float, rule: str = "dantzig"):
-    """At most ``steps`` steps of ``stage`` with the plain engine.
+    """At most ``steps`` steps of ``stage`` with the plain engine: "p1"
+    and "full" on the full tableau, "p2" on the compacted one.
 
     Each LP steps while ``segment_pending`` holds for it; afterwards an LP
     that is still running at its cap is marked ITERATION_LIMIT (in stage
-    p1 only one still in phase 1).  Returns ``(state, it)`` with ``it`` the
-    (B,) int32 count of steps each LP took.  Builds new tensors; the input
-    state is left as it was."""
-    if stage not in STAGES:
-        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
-    full = stage == "p1"
+    p1 only one still in phase 1, in stage full one in either phase).
+    Returns ``(state, it)`` with ``it`` the (B,) int32 count of steps each
+    LP took.  Builds new tensors; the input state is left as it was."""
+    if stage not in TABLEAU_STAGES:
+        raise ValueError(
+            f"stage must be one of {TABLEAU_STAGES}, got {stage!r}")
+    full = stage != "p2"
     B, _, C = state.T.shape
     w = state.w
     if rule in WEIGHTED_RULES:
@@ -208,7 +220,7 @@ def run_segment(state: CompactionState, steps: int, *, stage: str, m: int,
                   rule=rule, full=full, active=act)
         it += act.to(torch.int32)
     capped = (s.status == _RUNNING) & (s.iters >= max_iters)
-    if full:
+    if stage == "p1":
         capped &= s.phase == 1
     status = torch.where(capped, ITERATION_LIMIT, s.status).to(torch.int32)
     w = s.w[:, :n + m].contiguous() if rule in WEIGHTED_RULES else s.w
@@ -216,24 +228,17 @@ def run_segment(state: CompactionState, steps: int, *, stage: str, m: int,
                            state.ub, state.thr, s.work, s.tel), it
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} is not ported to repro_torch yet (ROADMAP: "
-        "core/branch_bound.py, whose frontier streams through it)")
-
-
-def segment_combined(state, steps, *, m, n, tol, rule="dantzig"):
-    """Combined two-phase segments on the full tableau, for the frontier
-    scheduler: not ported yet."""
-    _not_ported("segment_combined")
-
-
-class FrontierScheduler:
-    """Continuous batching over a work producer (admits new LPs into lanes
-    freed by retired ones): not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        _not_ported("FrontierScheduler")
+def segment_combined(state: CompactionState, steps: int, *, m: int, n: int,
+                     max_iters: int, tol: float, rule: str = "dantzig"):
+    """At most ``steps`` combined two-phase steps per LP on the full
+    tableau (stage "full" of ``run_segment``), through both phases; the
+    counterpart of the reference's ``segment_combined``.  The layout never
+    changes, so a lane can take a cold or warm newcomer (which starts in
+    phase 1) at any segment boundary: what the frontier scheduler needs.
+    An LP still running at its cap ends at ITERATION_LIMIT in either
+    phase.  Returns ``(state, it)`` as ``run_segment`` does."""
+    return run_segment(state, steps, stage="full", m=m, n=n,
+                       max_iters=max_iters, tol=tol, rule=rule)
 
 
 class TorchBackend:
@@ -336,10 +341,18 @@ class TorchBackend:
         return tableau_elements(self.m, self.n, compacted=(stage == "p2"))
 
     def run_combined(self, state, steps: int, max_iters: int):
-        _not_ported("TorchBackend.run_combined")
+        """One segment of stage full (``segment_combined``): ``(state,
+        steps the busiest LP took)``."""
+        return self._run(state, steps, max_iters, "full")
 
     def scatter(self, state, new_state, idx):
-        _not_ported("TorchBackend.scatter")
+        """Lanes ``idx`` of ``state`` replaced by the LPs of ``new_state``
+        (one a lane, in order), every leaf, the counter lanes included:
+        the frontier scheduler's admission, the inverse of a gather."""
+        idx = torch.as_tensor(np.asarray(idx), dtype=torch.long,
+                              device=state.status.device)
+        return map_state(lambda a, b: a.index_copy(0, idx, b), state,
+                         new_state)
 
 
 def run_schedule(backend, state: CompactionState, *,
@@ -550,3 +563,162 @@ def solve_batched_compacted(batch: LPBatch, *, device=None,
                          telemetry=telemetry, tracer=tracer)
     with maybe_span(tracer, "recover"):
         return finish_result(rec, res)
+
+
+# ---------------------------------------------------------------------------
+# Frontier refill: continuous batching over a work producer
+# ---------------------------------------------------------------------------
+
+class FrontierScheduler:
+    """Continuous-batching counterpart of ``run_schedule``: a fixed pool of
+    ``lanes`` batch slots (rounded up to a power of two) where new LPs are
+    admitted into the lanes retired ones freed.  Counterpart of the
+    reference's ``FrontierScheduler``.
+
+    Built for producers that make work from results: the branch-and-bound
+    driver (core/branch_bound.py) retires fathomed nodes and pushes their
+    children, which the scheduler admits mid-solve, so the batch never
+    drains below the work available.  Segments run the combined two-phase
+    step on the full tableau (``run_combined``, stage "full") and never
+    compact: a lane must take a cold or warm newcomer at any segment
+    boundary.  Admission (``scatter``) touches no other lane, so each
+    lane's pivots are those of the unsegmented engine, bit for bit.
+
+    Protocol (canonical standard-form arrays, batch on axis 0):
+
+    * ``source(k)``: up to ``k`` new LPs, or ``None`` when no work is
+      available now: a tuple ``(A, b, c, ub, warm, tags)`` with ``j <= k``
+      members; ``warm`` a j-member ``WarmStart`` or None; ``tags``
+      nonnegative ints naming the LPs.
+    * ``sink(tag, row)``: called once per retired LP with a dict of ``x``,
+      ``objective``, ``status``, ``iterations``, ``y`` and ``z`` (NumPy,
+      the engine's extraction) and ``warm``, a 1-member ``WarmStart`` of
+      the lane's final basis and flips, from which children warm-start.
+      ``sink`` may push work that a later ``source`` call returns.
+
+    ``run`` drives segments until every lane is free and ``source`` has
+    nothing more.  **The step budget is per LP and binds inside a
+    segment**: an LP stops at ``max_iters`` steps and retires as
+    ITERATION_LIMIT.  The reference retires over-budget lanes only after a
+    segment, so its LPs may overshoot ``max_iters`` by up to
+    ``segment_k - 1`` steps (ROADMAP.md, queue 3); below the cap the two
+    agree.
+
+    ``device`` (CUDA unless ``"cpu"``) picks the backend:
+    ``kernels.ops.KernelBackend`` (the CUDA segment kernel's stage full) on
+    the card, ``TorchBackend`` on the CPU.  ``stats_out`` (a list)
+    collects one ``SegmentStat(stage="frontier")`` per segment; ``tracer``
+    records one ``segment[frontier]`` span per segment and ``admit`` and
+    ``retire`` events.
+    """
+
+    def __init__(self, m: int, n: int, *, lanes: int = 32, device=None,
+                 tol: Optional[float] = None,
+                 feas_tol: Optional[float] = None,
+                 max_iters: Optional[int] = None,
+                 segment_k: Optional[int] = None,
+                 pricing: str = "dantzig",
+                 stats_out: Optional[List[SegmentStat]] = None,
+                 tracer=None):
+        if lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        self.m, self.n = int(m), int(n)
+        self.lanes = next_bucket(int(lanes))
+        self.device = resolve_device(device)
+        tol, feas_tol = default_tolerances(tol, feas_tol)
+        self.max_iters = int(max_iters if max_iters is not None
+                             else default_max_iters(self.m, self.n))
+        self.segment_k = int(segment_k if segment_k is not None
+                             else auto_segment_k(self.m, self.n))
+        self.stats_out = stats_out
+        self.tracer = tracer
+        if self.device.type == "cuda":
+            from ..kernels.ops import KernelBackend, kernel_rule
+            self.backend = KernelBackend(self.m, self.n, tol, feas_tol,
+                                         pricing=kernel_rule(pricing))
+        else:
+            self.backend = TorchBackend(self.m, self.n, tol, feas_tol,
+                                        pricing=pricing)
+
+    def _put(self, a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device=self.device)
+
+    def _admit(self, state, tags, source):
+        be = self.backend
+        free = np.flatnonzero(tags < 0)
+        if not len(free):
+            return state, tags
+        req = source(len(free))
+        if req is None:
+            return state, tags
+        A, b, c, ub, warm, new_tags = req
+        A = self._put(A)
+        j = A.shape[0]
+        if j > len(free) or j != len(new_tags):
+            raise ValueError(f"source returned {j} LPs / {len(new_tags)} "
+                             f"tags for {len(free)} free lanes")
+        new_state = be.init(A, self._put(b), self._put(c),
+                            None if ub is None else self._put(ub), warm=warm)
+        if state is None:
+            # bootstrap: replicate to fill every lane, retire the copies
+            if j < self.lanes:
+                new_state = be.take(new_state, np.arange(self.lanes) % j)
+                new_state = be.deactivate(new_state,
+                                          np.arange(self.lanes) < j)
+            state = new_state
+            tags[:j] = new_tags
+        else:
+            idx = free[:j]
+            state = be.scatter(state, new_state, idx)
+            tags[idx] = new_tags
+        if self.tracer is not None:
+            self.tracer.event("admit", lps=int(j),
+                              tags=[int(t) for t in new_tags],
+                              occupied=int((tags >= 0).sum()),
+                              lanes=self.lanes)
+        return state, tags
+
+    def run(self, source, sink) -> int:
+        """Drain ``source`` through the lane pool; returns LPs retired."""
+        be = self.backend
+        tags = np.full(self.lanes, -1, np.int64)
+        state = None
+        retired = 0
+        while True:
+            state, tags = self._admit(state, tags, source)
+            active = tags >= 0
+            if not active.any():
+                return retired
+            with maybe_span(self.tracer, "segment[frontier]",
+                            lanes=self.lanes,
+                            occupied=int(active.sum())) as sp:
+                state, done = be.run_combined(state, self.segment_k,
+                                              self.max_iters)
+                if sp is not None:
+                    sp.args["steps"] = int(done)
+            status = be.status_host(state)
+            if self.stats_out is not None:
+                self.stats_out.append(SegmentStat(
+                    stage="frontier", bucket=self.lanes, steps=done,
+                    elements=done * self.lanes * be.elements_per_step("full"),
+                    survivors=int((active & (status == _RUNNING)).sum())))
+            done_mask = active & (status != _RUNNING)
+            if done_mask.any():
+                x, obj, st, it, y, z = be.extract(state, "full")
+                basis = state.basis.cpu().numpy()
+                flip = state.flip.cpu().numpy()
+                for i in np.flatnonzero(done_mask):
+                    if self.tracer is not None:
+                        self.tracer.event("retire", tag=int(tags[i]),
+                                          lane=int(i), status=int(st[i]),
+                                          iterations=int(it[i]))
+                    sink(int(tags[i]), {
+                        "x": x[i], "objective": obj[i],
+                        "status": int(st[i]), "iterations": int(it[i]),
+                        "y": y[i], "z": z[i],
+                        "warm": WarmStart(m=self.m, n=self.n,
+                                          basis=basis[i:i + 1],
+                                          at_upper=flip[i:i + 1])})
+                    retired += 1
+                tags[done_mask] = -1

@@ -1,16 +1,20 @@
 """General-form LP batches and the canonicalization pipeline (NumPy).
 
-A copy of ``repro.core.forms`` restricted to what the port's entry points
-need: ``GeneralLPBatch``, ``canonicalize``, ``Recovery``,
-``ensure_canonical``, ``finish_result`` and ``prepare_warm``.  The port
-keeps its own copy because importing any ``repro.core`` module imports JAX.
+A copy of ``repro.core.forms``: ``GeneralLPBatch`` (with its bound edit
+``with_bounds``), ``canonicalize``, ``Recovery``, ``ensure_canonical``,
+``finish_result`` and ``prepare_warm``, and what branch-and-bound
+(core/branch_bound.py) needs: ``general_violation``, ``general_kkt``,
+``rebind_bounds``, ``canonical_shape`` and ``random_general_lp_batch``.
+The port keeps its own copy because importing any ``repro.core`` module
+imports JAX.
 
     GeneralLPBatch  --canonicalize()-->  (LPBatch, Recovery)
 
 ``canonicalize`` is an invertible, host-side (float64 NumPy) transform:
 presolve (fixed-variable, empty-column and empty-row elimination), bound
 handling (lower-bound shifts, free-column splits, finite upper bounds as the
-native ``LPBatch.ub`` vector), row senses (``>=`` rows negated, ``=`` and
+native ``LPBatch.ub`` vector, or as rows for the columns ``bound_rows``
+selects), row senses (``>=`` rows negated, ``=`` and
 ranged rows as a ``<=`` pair) and power-of-two geometric-mean scaling.
 ``Recovery.recover`` maps an ``LPResult`` on the canonical batch back to
 original coordinates, duals included.  The arithmetic is the reference's
@@ -160,6 +164,127 @@ class GeneralLPBatch:
         return np.einsum("bn,bn->b", self.c,
                          np.asarray(x, np.float64)) + self.c0
 
+    def with_bounds(self, lb=None, ub=None) -> "GeneralLPBatch":
+        """Validated copy-edit: the same batch with new variable bounds.
+
+        The bound-edit entry point for branching (core/branch_bound.py) and
+        MPC-style receding-horizon updates — everything except ``lb``/``ub``
+        is shared with ``self`` (no data copies).  Accepts (n,), (1, n) or
+        (B', n) arrays; when ``self`` holds a single LP, a (B', n) bound
+        stack *broadcasts the batch*: the result is B' copies of the
+        instance differing only in bounds (one frontier of branch-and-bound
+        nodes, say).  Omitted sides keep their current values.  Raises on
+        shape mismatches and on ``lb > ub``."""
+        B, n = self.batch, self.n
+
+        def norm(v, cur, what):
+            if v is None:
+                return cur
+            v = np.asarray(v, np.float64)
+            if v.ndim == 1:
+                v = v[None]
+            if v.ndim != 2 or v.shape[1] != n:
+                raise ValueError(f"{what}: expected (n,)=({n},) or (B, {n}),"
+                                 f" got {v.shape}")
+            return v
+
+        lb2 = norm(lb, self.lb, "lb")
+        ub2 = norm(ub, self.ub, "ub")
+        Bt = max(B, lb2.shape[0], ub2.shape[0])
+        for what, v in (("lb", lb2), ("ub", ub2)):
+            if v.shape[0] not in (1, Bt):
+                raise ValueError(
+                    f"{what} batch {v.shape[0]} incompatible with batch {Bt}")
+        if Bt != B and B != 1:
+            raise ValueError(
+                f"cannot broadcast a batch of {B} to {Bt} bound rows "
+                "(only single-instance batches broadcast)")
+        ex = lambda a, shape: np.broadcast_to(a, shape)  # noqa: E731
+        lb2 = ex(lb2, (Bt, n))
+        ub2 = ex(ub2, (Bt, n))
+        if (lb2 > ub2).any():
+            raise ValueError("lb > ub on some variable")
+        if Bt == B:
+            return dataclasses.replace(self, lb=lb2, ub=ub2)
+        return dataclasses.replace(
+            self, A=ex(self.A, (Bt, self.m, n)), rhs=ex(self.rhs, (Bt, self.m)),
+            c=ex(self.c, (Bt, n)), c0=ex(self.c0, (Bt,)), lb=lb2, ub=ub2)
+
+
+def general_violation(g: GeneralLPBatch, x: np.ndarray) -> np.ndarray:
+    """Max primal violation per LP of ``x`` in *original* coordinates
+    (row activity intervals and variable bounds) — the original-space
+    feasibility certificate used by tests and benchmarks."""
+    x = np.asarray(x, np.float64)
+    lo, hi = g.row_bounds()
+    act = np.einsum("bmn,bn->bm", g.A, x)
+    vrow = np.maximum(np.where(np.isfinite(lo), lo - act, 0.0),
+                      np.where(np.isfinite(hi), act - hi, 0.0))
+    vcol = np.maximum(np.where(np.isfinite(g.lb), g.lb - x, 0.0),
+                      np.where(np.isfinite(g.ub), x - g.ub, 0.0))
+    return np.maximum(vrow.max(axis=1, initial=0.0),
+                      vcol.max(axis=1, initial=0.0))
+
+
+def general_kkt(g: GeneralLPBatch, x: np.ndarray, y: np.ndarray,
+                z: Optional[np.ndarray] = None) -> dict:
+    """Full KKT check of a primal-dual pair in *original* coordinates — the
+    certificate every backend's parity tests share (the dual-side extension
+    of ``general_violation``).
+
+    ``(y, z)`` follow the ``Recovery.recover_duals`` convention
+    (``z = c - A^T y`` with the original objective; signs flip with the
+    sense).  Returns per-LP (B,) arrays:
+
+    * ``primal``          — ``general_violation`` (row + bound violations);
+    * ``stationarity``    — ||z - (c - A^T y)||_inf (0 when z is derived);
+    * ``dual_sign``       — multiplier-sign violations: a row dual pushing
+                            against a bound the row does not have, a reduced
+                            cost with the wrong sign for the variable's
+                            bound structure (free variables need z = 0);
+    * ``complementarity`` — positive multiplier x slack products: row duals
+                            against their row slack, reduced costs against
+                            their bound gaps;
+    * ``max``             — the elementwise max of all four.
+    """
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    zc = np.asarray(g.c, np.float64) - np.einsum("bmn,bm->bn", g.A, y)
+    if z is None:
+        z = zc
+        stat = np.zeros(g.batch)
+    else:
+        z = np.asarray(z, np.float64)
+        stat = np.abs(z - zc).max(axis=1, initial=0.0)
+    csign = 1.0 if g.maximize else -1.0
+    yh, zh = csign * y, csign * z            # max-form multipliers
+    lo, hi = g.row_bounds()
+    act = np.einsum("bmn,bn->bm", g.A, x)
+    hi_f, lo_f = np.isfinite(hi), np.isfinite(lo)
+    lb_f, ub_f = np.isfinite(g.lb), np.isfinite(g.ub)
+    yp, ym = np.maximum(yh, 0.0), np.maximum(-yh, 0.0)
+    zp, zm = np.maximum(zh, 0.0), np.maximum(-zh, 0.0)
+    # max form: y+ needs a finite hi to push against, y- a finite lo;
+    # z+ needs a finite ub (bound dual), z- a finite lb; free cols: z = 0.
+    dual_sign = np.maximum(
+        np.maximum(np.where(~hi_f, yp, 0.0), np.where(~lo_f, ym, 0.0))
+        .max(axis=1, initial=0.0),
+        np.maximum(np.where(~ub_f, zp, 0.0), np.where(~lb_f, zm, 0.0))
+        .max(axis=1, initial=0.0))
+    compl = np.maximum(
+        np.maximum(yp * np.where(hi_f, np.maximum(hi - act, 0.0), 0.0),
+                   ym * np.where(lo_f, np.maximum(act - lo, 0.0), 0.0))
+        .max(axis=1, initial=0.0),
+        np.maximum(zp * np.where(ub_f, np.maximum(g.ub - x, 0.0), 0.0),
+                   zm * np.where(lb_f, np.maximum(x - g.lb, 0.0), 0.0))
+        .max(axis=1, initial=0.0))
+    primal = general_violation(g, x)
+    return {
+        "primal": primal, "stationarity": stat, "dual_sign": dual_sign,
+        "complementarity": compl,
+        "max": np.maximum(np.maximum(primal, stat),
+                          np.maximum(dual_sign, compl)),
+    }
 
 
 def _pow2(s: np.ndarray) -> np.ndarray:
@@ -309,16 +434,25 @@ class Recovery:
 
 def canonicalize(g: GeneralLPBatch, *, presolve: bool = True,
                  scale: Optional[bool] = None,
-                 feas_tol: float = 1e-9) -> Tuple[LPBatch, Recovery]:
+                 feas_tol: float = 1e-9,
+                 bound_rows=False) -> Tuple[LPBatch, Recovery]:
     """General form -> the paper's standard form (see module docstring).
 
     ``scale=None`` follows ``presolve`` (equilibration is part of the
     default presolve pass); pass ``scale=False`` to canonicalize without
     touching the numbers — useful for A/B-ing f32 behavior.
 
-    Finite upper bounds go into the canonical batch's native
-    ``LPBatch.ub`` vector (zero extra rows), except bounds on split free
-    columns, which stay rows: a bound on ``y+ - y-`` is not a column bound.
+    ``bound_rows=True`` restores the legacy encoding of finite upper
+    bounds as one dense ``x_j <= ub_j`` row each; the default routes them
+    into the canonical batch's native ``LPBatch.ub`` vector (zero extra
+    rows).  Bounds on split free columns always stay rows — a bound on
+    ``y+ - y-`` is not a column bound.  A (n,) bool mask forces *those*
+    columns' bounds into rows and leaves the rest native: the
+    branch-and-bound driver uses this for integer columns, because a
+    bound edit that lands in ``b`` (a row's rhs) is repairable by the
+    engines' warm-start phase-1 machinery, while a native ``ub`` edit
+    under a stale basis is not (a basic variable above a freshly
+    tightened native bound goes undetected).
     """
     if scale is None:
         scale = presolve
@@ -393,8 +527,15 @@ def canonicalize(g: GeneralLPBatch, *, presolve: bool = True,
             "upper-bound finiteness must be batch-uniform per column: the "
             "canonical batch needs one static shape")
     bounded_cols = np.flatnonzero(ub_fin.all(axis=0)) if B else np.array([], int)
-    # native bounds, except on free (split) columns, which keep a row
-    ub_cols = bounded_cols[free[bounded_cols]]
+    # native bounds by default; row encoding for free (split) columns and,
+    # under bound_rows=True (or per-column via a mask), for the selection
+    if bound_rows is True:
+        ub_cols = bounded_cols
+    elif bound_rows is False:
+        ub_cols = bounded_cols[free[bounded_cols]]
+    else:
+        forced = np.asarray(bound_rows, bool).reshape(n)[kept]
+        ub_cols = bounded_cols[free[bounded_cols] | forced[bounded_cols]]
     native_cols = np.setdiff1d(bounded_cols, ub_cols)
 
     nk = len(kept)
@@ -478,12 +619,200 @@ def canonicalize(g: GeneralLPBatch, *, presolve: bool = True,
     return lp, rec
 
 
+def rebind_bounds(lp0: LPBatch, rec: Recovery, lb, ub, *,
+                  feas_tol: float = 1e-9) -> Tuple[LPBatch, Recovery]:
+    """Cheap per-LP bound-edit canonicalization: re-run only the *numeric*
+    part of ``canonicalize`` for new variable bounds, reusing the parent's
+    frozen structure (presolve masks, free splits, ub encoding, row blocks,
+    pow2 scales).
+
+    This is the branch-and-bound fast path: a frontier of B nodes differs
+    from the root only in ``lb``/``ub``, so the canonical ``A``/``c`` are
+    the root's (broadcast across the frontier — zero copies) and only the
+    rhs, the lower-bound shift and the native bound vector are recomputed.
+    Crucially the canonical *shape and column meaning are guaranteed
+    stable* across every rebind of the same root, which is what lets a
+    parent node's ``WarmStart`` carrier inject into its children — a full
+    re-``canonicalize`` could flip a presolve mask mid-tree and silently
+    drop every warm start.
+
+    ``lp0``/``rec`` come from ``canonicalize(root)`` (root batch of 1, or
+    of B matching the bound stacks); ``lb``/``ub`` are (B, n) bound stacks
+    in original coordinates.  Raises ``ValueError`` when the new bounds
+    are structurally incompatible with the frozen decisions (finiteness
+    pattern changed, a presolved-fixed column un-fixed, a degenerate
+    padded shell) — callers that can't guarantee stability should fall
+    back to ``canonicalize``.
+    """
+    g0 = rec.general
+    if rec.fixed_cols is None or rec.ub_cols is None:
+        raise ValueError("rebind_bounds needs a Recovery produced by this "
+                         "version's canonicalize (frozen masks missing)")
+    m, n = g0.m, g0.n
+    lb = np.asarray(lb, np.float64)
+    ub = np.asarray(ub, np.float64)
+    if lb.ndim == 1:
+        lb = lb[None]
+    if ub.ndim == 1:
+        ub = ub[None]
+    B = lb.shape[0]
+    if lb.shape != (B, n) or ub.shape != (B, n):
+        raise ValueError(f"bound stacks must be (B, {n}); got lb {lb.shape},"
+                         f" ub {ub.shape}")
+    if g0.batch not in (1, B):
+        raise ValueError(f"root batch {g0.batch} incompatible with {B} "
+                         "bound rows")
+    if (lb > ub).any():
+        raise ValueError("lb > ub on some variable")
+    kept, rows = rec.kept, rec.rows
+    nk, nf = len(kept), int(rec.free.sum())
+    r0, r1 = len(rec.hi_rows), len(rec.hi_rows) + len(rec.lo_rows)
+    if rec.n_canonical != nk + nf or rec.m_canonical != r1 + len(rec.ub_cols):
+        raise ValueError("root canonicalized to a padded degenerate shell; "
+                         "rebind_bounds cannot preserve it — re-canonicalize")
+
+    # --- presolve contributions with the frozen verdicts -------------------
+    lo, hi = g0.row_bounds()
+    lo = np.ascontiguousarray(np.broadcast_to(lo, (B, m)))
+    hi = np.ascontiguousarray(np.broadcast_to(hi, (B, m)))
+    A0 = np.asarray(g0.A, np.float64)
+    csign = 1.0 if g0.maximize else -1.0
+    cmax = np.broadcast_to(csign * np.asarray(g0.c, np.float64), (B, n))
+    baseline = np.zeros((B, n))
+    fx = rec.fixed_cols
+    if len(fx):
+        if (lb[:, fx] != ub[:, fx]).any():
+            raise ValueError(
+                "a presolved-fixed column is no longer fixed (lb != ub); "
+                "the frozen structure cannot represent it — re-canonicalize")
+        baseline[:, fx] = lb[:, fx]
+    dr = rec.dropped_cols
+    if len(dr):
+        val = np.where(cmax[:, dr] > 0, ub[:, dr],
+                       np.where(cmax[:, dr] < 0, lb[:, dr],
+                                np.where(np.isfinite(lb[:, dr]), lb[:, dr],
+                                         ub[:, dr])))
+        if not np.isfinite(val).all():
+            raise ValueError(
+                "an eliminated empty column's cost-optimal bound became "
+                "infinite under the new bounds — re-canonicalize")
+        baseline[:, dr] = val
+    sub = np.concatenate([fx, dr])
+    if len(sub):
+        Ab = np.broadcast_to(A0, (B, m, n))
+        contrib = np.einsum("bmk,bk->bm", Ab[:, :, sub], baseline[:, sub])
+        lo -= contrib
+        hi -= contrib
+    status_override = np.full(B, -1, np.int16)
+    dropped_rows = np.setdiff1d(np.arange(m), rows)
+    if len(dropped_rows):
+        bad = ((np.where(np.isfinite(lo), lo, -np.inf) > feas_tol)
+               | (np.where(np.isfinite(hi), hi, np.inf) < -feas_tol))
+        status_override[bad[:, dropped_rows].any(axis=1)] = INFEASIBLE
+
+    # --- shift + bound vectors over the kept columns -----------------------
+    lo, hi = lo[:, rows], hi[:, rows]
+    lbk, ubk = lb[:, kept], ub[:, kept]
+    lb_fin = np.isfinite(lbk)
+    if (lb_fin != ~rec.free[None, :]).any():
+        raise ValueError(
+            "lower-bound finiteness changed vs the root (a free column "
+            "gained a finite lb or vice versa); the frozen free-split "
+            "structure cannot represent it — re-canonicalize")
+    shift = np.where(lb_fin, lbk, 0.0)
+    Ak = np.broadcast_to(A0[:, rows][:, :, kept], (B, len(rows), nk))
+    contrib = np.einsum("bmk,bk->bm", Ak, shift)
+    lo, hi = lo - contrib, hi - contrib
+    ub_shifted = ubk - shift
+    bounded = np.zeros(nk, bool)
+    bounded[rec.ub_cols] = True
+    bounded[rec.native_cols] = True
+    if (np.isfinite(ub_shifted) != bounded[None, :]).any():
+        raise ValueError(
+            "upper-bound finiteness changed vs the root; the frozen bound "
+            "encoding cannot represent it — re-canonicalize")
+
+    b_can = np.empty((B, rec.m_canonical))
+    b_can[:, :r0] = hi[:, rec.hi_rows]
+    b_can[:, r0:r1] = -lo[:, rec.lo_rows]
+    for k, j in enumerate(rec.ub_cols):
+        b_can[:, r1 + k] = ub_shifted[:, j]
+    ub_can = np.full((B, rec.n_canonical), np.inf)
+    if len(rec.native_cols):
+        ub_can[:, rec.native_cols] = ub_shifted[:, rec.native_cols]
+    if rec.row_scale is not None:
+        b_can = b_can * rec.row_scale
+        ub_can = ub_can / rec.col_scale
+
+    # per-LP equilibration scales make the canonical A/c per-LP only when
+    # the root itself was a batch; a B=1 root broadcasts for free
+    A_t, c_t = np.asarray(lp0.A), np.asarray(lp0.c)
+    if A_t.shape[0] != B:
+        A_t = np.broadcast_to(A_t[:1], (B,) + A_t.shape[1:])
+        c_t = np.broadcast_to(c_t[:1], (B,) + c_t.shape[1:])
+    lp = LPBatch.from_arrays(A_t, b_can, c_t, ub=ub_can)
+    rec_new = dataclasses.replace(
+        rec, general=g0.with_bounds(lb=lb, ub=ub), baseline=baseline,
+        shift=shift, status_override=status_override)
+    return lp, rec_new
+
+
+def canonical_shape(g: GeneralLPBatch, *, presolve: bool = True,
+                    bound_rows: bool = False) -> Tuple[int, int]:
+    """(m, n) of the canonical standard-form batch ``canonicalize`` would
+    produce — the shape the work models must be evaluated at (equalities
+    grow m; free variables grow n; finite upper bounds grow m only under
+    ``bound_rows=True`` or on free columns).
+
+    Computed *analytically* from the bound/row finiteness masks — the
+    presolve keep/drop masks and the shift-invariance of finiteness pin
+    the shape down without materializing (or equilibrating) the canonical
+    arrays, so per-workload callers (work models, launch/dryrun_lp.py)
+    stop paying the full O(B*m*n) ``canonicalize``."""
+    B, m, n = g.batch, g.m, g.n
+    lo, hi = g.row_bounds()
+    A = np.asarray(g.A, np.float64)
+    csign = 1.0 if g.maximize else -1.0
+    cmax = csign * np.asarray(g.c, np.float64)
+    lb = np.asarray(g.lb, np.float64)
+    ub = np.asarray(g.ub, np.float64)
+
+    keep_col = np.ones(n, bool)
+    keep_row = np.ones(m, bool)
+    if presolve:
+        # same keep/drop masks as canonicalize's presolve pass
+        fixed = (lb == ub).all(axis=0) & np.isfinite(lb).all(axis=0)
+        empty = (A == 0.0).all(axis=(0, 1)) & ~fixed
+        val = np.where(cmax > 0, ub,
+                       np.where(cmax < 0, lb,
+                                np.where(np.isfinite(lb), lb, ub)))
+        droppable = empty & np.isfinite(val).all(axis=0)
+        keep_col &= ~(fixed | droppable)
+        keep_row &= ~(A[:, :, keep_col] == 0.0).all(axis=(0, 2))
+
+    kept = np.flatnonzero(keep_col)
+    rows = np.flatnonzero(keep_row)
+    # the lower-bound shift subtracts a finite contribution everywhere, so
+    # row-bound and upper-bound *finiteness* are shift-invariant
+    free = ~np.isfinite(lb[:, kept]).all(axis=0)
+    nk = len(kept)
+    n_can = nk + int(free.sum())
+    ub_fin = np.isfinite(ub[:, kept]).all(axis=0)
+    n_ub_rows = int(ub_fin.sum()) if bound_rows else int((ub_fin & free).sum())
+    m_can = (int(np.isfinite(hi[:, rows]).all(axis=0).sum())
+             + int(np.isfinite(lo[:, rows]).all(axis=0).sum())
+             + n_ub_rows)
+    return max(m_can, 1), max(n_can, 1)
+
+
 def ensure_canonical(batch, *, presolve: bool = True,
-                     scale: Optional[bool] = None):
+                     scale: Optional[bool] = None,
+                     bound_rows: bool = False):
     """Entry-point shim: pass ``LPBatch`` through untouched; canonicalize a
     ``GeneralLPBatch``.  Returns (LPBatch, Recovery-or-None)."""
     if isinstance(batch, GeneralLPBatch):
-        return canonicalize(batch, presolve=presolve, scale=scale)
+        return canonicalize(batch, presolve=presolve, scale=scale,
+                            bound_rows=bound_rows)
     return batch, None
 
 
@@ -535,3 +864,56 @@ def prepare_warm(warm: Optional[WarmStart], rec: Optional[Recovery],
     if wy is not None and rec.row_scale is not None:
         wy = np.asarray(wy) / rec.row_scale
     return dataclasses.replace(warm, x=wx, y=wy)
+
+
+def random_general_lp_batch(rng: np.random.Generator, B: int, m: int, n: int,
+                            *, eq_frac: float = 0.2, ge_frac: float = 0.3,
+                            free_frac: float = 0.0, ranged_frac: float = 0.0,
+                            bounded: bool = True,
+                            maximize: Optional[bool] = None
+                            ) -> GeneralLPBatch:
+    """Random general-form batches built around a known interior point, for
+    the canonicalize->solve->recover property tests.
+
+    Row senses are drawn per structure (shared across the batch); row
+    bounds are placed around ``A @ x0`` so every member is feasible, and
+    with ``bounded=True`` every variable gets a finite upper bound so the
+    canonical LP is bounded.  ``free_frac`` turns a fraction of columns
+    free-below (exercising the split path; such batches may be unbounded —
+    callers compare statuses rather than assume OPTIMAL).
+    """
+    if maximize is None:
+        maximize = bool(rng.integers(2))
+    A = rng.uniform(-3.0, 3.0, size=(B, m, n))
+    A *= rng.uniform(size=(B, m, n)) < 0.6
+    x0 = rng.uniform(0.5, 2.0, size=(B, n))
+    act = np.einsum("bmn,bn->bm", A, x0)
+    sense = np.where(
+        rng.uniform(size=m) < eq_frac, EQ,
+        np.where(rng.uniform(size=m) < ge_frac / max(1e-9, 1 - eq_frac),
+                 GE, LE)).astype("<U1")
+    margin = rng.uniform(0.1, 2.0, size=(B, m))
+    rhs = np.where(sense[None, :] == EQ, act,
+                   np.where(sense[None, :] == GE, act - margin, act + margin))
+    ranges = None
+    if ranged_frac > 0:
+        # range >= the batch-max margin keeps x0 inside the two-sided row
+        ranges = np.where(rng.uniform(size=m) < ranged_frac,
+                          margin.max(axis=0) + rng.uniform(0.1, 2.0, size=m),
+                          np.nan)
+        ranges[sense == EQ] = np.nan   # keep E rows exact (simpler oracle)
+    lb = np.where(rng.uniform(size=n) < 0.5,
+                  rng.uniform(-1.0, 0.4, size=(B, n)), 0.0)
+    lb = np.minimum(lb, x0 - 0.05)
+    if free_frac > 0:
+        lb[:, rng.uniform(size=n) < free_frac] = -np.inf
+    if bounded:
+        ub = x0 + rng.uniform(0.5, 3.0, size=(B, n))
+    else:
+        ub = np.where(rng.uniform(size=n) < 0.5,
+                      x0 + rng.uniform(0.5, 3.0, size=(B, n)), np.inf)
+    c = rng.uniform(-2.0, 2.0, size=(B, n))
+    c0 = rng.uniform(-5.0, 5.0, size=B)
+    return GeneralLPBatch.from_arrays(
+        A, sense, rhs, lb=lb, ub=ub, c=c, c0=c0, maximize=maximize,
+        ranges=ranges, name=f"random_general_{m}x{n}")

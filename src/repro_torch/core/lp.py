@@ -67,6 +67,11 @@ class BackendSpec:
     # needs on this engine's path, the scheduler's gathers included; None:
     # the tableau's ``LPBatch.bytes_per_lp``, twice under the scheduler
     bytes_per_lp: Optional[str] = None
+    # emits dual certificates (``LPResult.y``/``z``) that a consumer can
+    # turn into valid relaxation bounds whatever the engine's own
+    # tolerance: branch-and-bound's safe-bound pass needs it from a
+    # tolerance-based engine (core/branch_bound.py ``safe_dual_bound``)
+    supports_safe_bound: bool = False
 
 
 BACKEND_REGISTRY = {
@@ -75,14 +80,16 @@ BACKEND_REGISTRY = {
     "tableau": BackendSpec(
         name="tableau", exact=True,
         solve="repro_torch.core.simplex:solve_batched_torch",
-        solve_compacted="repro_torch.core.compaction:solve_batched_compacted"),
+        solve_compacted="repro_torch.core.compaction:solve_batched_compacted",
+        supports_safe_bound=True),
     # immutable constraint data, a dense basis inverse updated per pivot
     # (core/revised.py); on cuda the kernel of kernels/csrc/revised_tile.cu
     "revised": BackendSpec(
         name="revised", exact=True,
         solve="repro_torch.core.revised:solve_batched_revised",
         solve_compacted=("repro_torch.core.revised:"
-                         "solve_batched_revised_compacted")),
+                         "solve_batched_revised_compacted"),
+        supports_safe_bound=True),
     # restarted primal-dual hybrid gradient, tolerance-based KKT
     # convergence (core/pdhg.py); on cuda the kernels of
     # kernels/csrc/pdhg_tile.cu; sparse batches go to core/sparse.py
@@ -90,7 +97,8 @@ BACKEND_REGISTRY = {
         name="pdhg", exact=False,
         solve="repro_torch.core.pdhg:solve_batched_pdhg",
         solve_compacted="repro_torch.core.pdhg:solve_batched_pdhg_compacted",
-        bytes_per_lp="repro_torch.core.pdhg:pdhg_bytes_per_lp"),
+        bytes_per_lp="repro_torch.core.pdhg:pdhg_bytes_per_lp",
+        supports_safe_bound=True),
 }
 
 BACKENDS = tuple(BACKEND_REGISTRY)

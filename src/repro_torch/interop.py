@@ -5,10 +5,14 @@ solver's results.  ``batch_from_reference`` turns a reference ``LPBatch`` or
 ``GeneralLPBatch`` into the port's, and ``result_arrays`` turns either
 package's ``LPResult`` into a dict of NumPy arrays, so one input can be fed
 to both packages and their outputs compared field by field.
+``general_from_reference`` carries a ``GeneralLPBatch`` alone, its
+integer mask included, so one MIP feeds both packages' branch-and-bound.
 ``segment_state_from_tile`` turns the reference's segment-kernel state into
 the port's ``CompactionState``, so one segment launch can be compared tile
-by tile; ``revised_state_from_tile`` does the same for the revised
-kernel's state.  Each carries the reference state's telemetry lanes when
+by tile, and ``compaction_state_from_reference`` the reference's
+full-tableau scheduler state, so one combined segment runs from the same
+state in both packages; ``revised_state_from_tile`` does the same for the
+revised kernel's state.  Each carries the reference state's telemetry lanes when
 it has them (``tel_from_reference``), so a port segment can start from the
 reference's mid-solve counters.  ``warm_from_reference`` and ``warm_to_reference`` carry a
 ``WarmStart`` (the solver state one solve hands the next) either way, so
@@ -39,13 +43,19 @@ from .obs.telemetry import ALL_LANES, INT_LANES, TelemetryState
 RESULT_FIELDS = ("x", "objective", "status", "iterations", "y", "z")
 
 
+def general_from_reference(g) -> GeneralLPBatch:
+    """The port's ``GeneralLPBatch`` with every field of a reference one:
+    the data, the row structure, the names and the integer mask."""
+    kw = {f.name: getattr(g, f.name)
+          for f in dataclasses.fields(GeneralLPBatch)}
+    return GeneralLPBatch(**kw)
+
+
 def batch_from_reference(obj):
     """The port's ``GeneralLPBatch`` (when ``obj`` has row senses) or
     ``LPBatch`` with the same data."""
     if hasattr(obj, "sense"):
-        kw = {f.name: getattr(obj, f.name)
-              for f in dataclasses.fields(GeneralLPBatch)}
-        return GeneralLPBatch(**kw)
+        return general_from_reference(obj)
     ub = getattr(obj, "ub", None)
     return LPBatch(A=np.asarray(obj.A), b=np.asarray(obj.b),
                    c=np.asarray(obj.c),
@@ -128,6 +138,39 @@ def segment_state_from_tile(tile, *, m: int, n: int, stage: str,
         thr=put(np.asarray(tile.thr).reshape(-1), f32),
         work=torch.zeros((B, 3), dtype=i32, device=device),
         tel=tel_from_reference(getattr(tile, "tel", None), batch=B,
+                               device=device))
+
+
+def compaction_state_from_reference(ref, *, m: int, n: int,
+                                    device="cpu") -> CompactionState:
+    """The port's ``CompactionState`` from the reference's one on the full
+    (m+2) x (n+2m+1) tableau (``repro.core.compaction.JaxBackend``, the
+    frontier scheduler's layout): the same leaves, the weights cut to the
+    n+m priceable columns (a (B, 1) stub stays one), zero work counters
+    (the reference keeps none) and its telemetry lanes when it has
+    them."""
+    T = np.asarray(ref.T)
+    B = T.shape[0]
+    if T.shape[1:] != (m + 2, n + 2 * m + 1):
+        raise ValueError(f"T has shape {T.shape}, expected the full "
+                         f"({B}, {m + 2}, {n + 2 * m + 1}) tableau")
+    w = np.asarray(ref.w)
+    if w.shape[1] > 1:
+        w = w[:, :n + m]
+
+    def put(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    f32, i32 = torch.float32, torch.int32
+    return CompactionState(
+        T=put(T, f32), basis=put(ref.basis, i32),
+        phase=put(np.asarray(ref.phase).reshape(-1), i32),
+        status=put(np.asarray(ref.status).reshape(-1), i32),
+        iters=put(np.asarray(ref.iters).reshape(-1), i32), w=put(w, f32),
+        flip=put(np.asarray(ref.flip) != 0, torch.bool),
+        ub=put(ref.ub, f32), thr=put(np.asarray(ref.thr).reshape(-1), f32),
+        work=torch.zeros((B, 3), dtype=i32, device=device),
+        tel=tel_from_reference(getattr(ref, "tel", None), batch=B,
                                device=device))
 
 

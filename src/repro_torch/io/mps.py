@@ -27,6 +27,12 @@ _FIXTURE_DIR = os.path.join(
 # provenance notes).  Benchmarks and configs address them by these names.
 FIXTURE_NAMES = ("afiro", "sc50b_like", "sc205_like", "testprob")
 
+# The vendored MIP instances (integer columns): the branch-and-bound
+# driver's fixtures (core/branch_bound.py).  Their LP relaxations read and
+# solve like any other fixture.
+MIP_FIXTURE_NAMES = ("knapsack", "assignment", "scheduling")
+
+
 def fixture_path(name: str) -> str:
     """Absolute path of a vendored fixture (with or without ``.mps``)."""
     if not name.endswith(".mps"):

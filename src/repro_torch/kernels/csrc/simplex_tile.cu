@@ -15,8 +15,14 @@
 // (src/repro_torch/core/compaction.py, `run_segment`): state in, at most
 // `steps` steps, state out.  Stage p1 steps an LP while it is running, in
 // phase 1 and under its cap, on the full (m+2) x (n+2m+1) state; stage p2
-// runs phase-2 steps on the compacted (m+1) x (n+m+1) state.  A block
-// whose LP has nothing to do returns before it loads anything.
+// runs phase-2 steps on the compacted (m+1) x (n+m+1) state.  Stage full,
+// the counterpart of the reference's `segment_combined`
+// (src/repro/core/compaction.py, which the reference runs as XLA), keeps
+// the p1 layout and steps an LP while it is running and under its cap,
+// through phase 1 and on into phase 2: the frontier scheduler's segments,
+// which must take a newcomer in phase 1 in any lane, and the card's warm
+// solves.  A block whose LP has nothing to do returns before it loads
+// anything.
 //
 // What bounds it.  A pivot is a rank-1 update of every live tableau entry:
 // one load and one store of shared memory each, at 128 bytes an SM-cycle,
@@ -37,8 +43,8 @@
 //    about 84 KB a block at 100 x 100, two LPs an SM.  Phase 2 works on
 //    the same storage, rows <= m.  The row stride is odd, so the ratio
 //    test's reads down column e and the rhs meet no bank conflict.
-//  * A p1 segment keeps its state exact with the same storage: each pivot
-//    logs its row l, its pivot element after the complement, the
+//  * A p1 (or full) segment keeps its state exact with the same storage:
+//    each pivot logs its row l, its pivot element after the complement, the
 //    complement flag and the entering column (kept where the ratio test
 //    wrote it); at the end of the launch, or when the log is full, the
 //    logged pivots are replayed in order on the artificial columns (staged
@@ -143,10 +149,11 @@ constexpr int kWorkPivots2 = 1;
 constexpr int kWorkFlips = 2;
 constexpr int kWorkCounters = 3;
 // Stages (the C exports' `stage`): the whole solve, a p1 segment, a p2
-// segment.
+// segment, a full segment (the p1 layout, both phases).
 constexpr int kWhole = 0;
 constexpr int kSegP1 = 1;
 constexpr int kSegP2 = 2;
+constexpr int kSegFull = 3;
 // The counter row (src/repro_torch/obs/telemetry.py INT_LANES): its width
 // and the lanes the simplex books.
 constexpr int kTelInts = 16;
@@ -239,7 +246,7 @@ __device__ __forceinline__ int tr_barrier() {
 #define TR_END() ((void)0)
 #endif
 
-// Rows a stage keeps: m+2 (whole solve, p1) or m+1 (p2).
+// Rows a stage keeps: m+2 (whole solve, p1, full) or m+1 (p2).
 __host__ __device__ inline int stage_rows(int m, int stage) {
   return stage == kSegP2 ? m + 1 : m + 2;
 }
@@ -254,6 +261,11 @@ __host__ __device__ inline int smem_stride(int m, int n) {
   return (n + m + 1) | 1;
 }
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+// Stages that keep the full state with the live columns on chip and log
+// their pivots for the replay on the artificial columns: p1 and full.
+__host__ __device__ constexpr bool logs_pivots(int stage) {
+  return stage == kSegP1 || stage == kSegFull;
+}
 
 // One warp's winner of a reduction, published to the block.
 struct __align__(16) Slot {
@@ -268,32 +280,33 @@ constexpr int kSlotWords = (4 * (3 * kMaxWarps) + kMaxWarps + 3) & ~3;
 
 // Where each buffer of one block's dynamic shared memory starts, in 4-byte
 // words: the reduction slots, the entering column (the pivot log's
-// columns in a p1 segment; x's staging at extraction), the log's rows,
-// pivot elements and complement flags and the replay's two rows of
-// pivot-row values (p1 segments), the bound, flip and basis rows, the
+// columns in a p1 or full segment; x's staging at extraction), the log's
+// rows, pivot elements and complement flags and the replay's two rows of
+// pivot-row values (p1 and full segments), the bound, flip and basis rows,
+// the
 // bound of each row's basic variable, the weights of a weighted rule and,
 // when it fits, the tableau.  The kernels carve their buffers and the
 // launchers size the allocation from this one layout.
 struct Layout {
   size_t col, log_l, log_pe, log_comp, rv, ub, flip, basis, ubB, w, T, words;
   int rpad;  // floats an entering column takes, rows rounded up to 4
-  int cap;   // pivots the log holds (1 outside a p1 segment)
+  int cap;   // pivots the log holds (1 outside a p1 or full segment)
 };
 
 __host__ __device__ inline Layout layout(int m, int n, int rule, int stage,
                                          bool tableau, int cap) {
   Layout L;
   L.rpad = round4(stage_rows(m, stage));
-  L.cap = stage == kSegP1 ? cap : 1;
+  L.cap = logs_pivots(stage) ? cap : 1;
   size_t colw = (size_t)L.cap * L.rpad;
   if (stage == kWhole && colw < (size_t)round4(n)) colw = round4(n);
-  const size_t logw = stage == kSegP1 ? (size_t)L.cap : 0;
+  const size_t logw = logs_pivots(stage) ? (size_t)L.cap : 0;
   L.col = kSlotWords;
   L.log_l = L.col + colw;
   L.log_pe = L.log_l + logw;
   L.log_comp = L.log_pe + logw;
   L.rv = L.log_comp + logw;
-  L.ub = L.rv + (stage == kSegP1 ? 2 * (size_t)m : 0);
+  L.ub = L.rv + (logs_pivots(stage) ? 2 * (size_t)m : 0);
   L.flip = L.ub + n;
   L.basis = L.flip + n;
   L.ubB = L.basis + m;
@@ -395,7 +408,8 @@ __device__ inline Block carve(float* smem, const Layout& L, int m, int n,
   return s;
 }
 
-// The pivot log of a p1 segment: its entering columns sit in the block's
+// The pivot log of a p1 or full segment: its entering columns sit in the
+// block's
 // column region, `rpad` floats apart.
 struct PivotLog {
   float* col;
@@ -536,13 +550,15 @@ __device__ __forceinline__ void tel_add(int k) {
 }
 
 // One step of the LP's solve.  kFull: the combined two-phase step on rows
-// <= m+1 (loop 1, p1 segments); otherwise a phase-2 step on rows <= m.
-// Every thread makes the same decisions from block-broadcast values, so
-// control flow stays uniform across the block.  The entering column goes
-// to s.col; when `lg` is given (a p1 segment) a pivot also logs its row,
-// pivot element and complement flag at `npiv`.  kTel books a pivot at a
-// zero minimum ratio into the counter slot.  Returns 1 after a pivot.
-template <int kRule, bool kFull, bool kTel = false>
+// <= m+1 (loop 1, p1 and full segments); otherwise a phase-2 step on rows
+// <= m.  Every thread makes the same decisions from block-broadcast values,
+// so control flow stays uniform across the block.  The entering column goes
+// to s.col; when `lg` is given (a p1 or full segment) a pivot also logs its
+// row, pivot element and complement flag at `npiv`.  kTel books a pivot at
+// a zero minimum ratio into the counter slot.  kBoth: a kFull step may find
+// the LP in phase 2 (a full segment), so a pivot is counted by its phase.
+// Returns 1 after a pivot.
+template <int kRule, bool kFull, bool kTel = false, bool kBoth = false>
 __device__ int step(const Block& s, int m, int n, float tol, float thr,
                     int& phase, int& status, int& iters, int* work,
                     int& bank, const PivotLog* lg, int npiv) {
@@ -727,7 +743,11 @@ __device__ int step(const Block& s, int m, int n, float tol, float thr,
       lg->comp[npiv] = comp;
     }
   }
-  work[kFull ? kWorkPivots1 : kWorkPivots2] += 1;
+  // constant indices only: a computed one would put `work` on the stack
+  if (kBoth && phase != 1)
+    work[kWorkPivots2] += 1;
+  else
+    work[kFull ? kWorkPivots1 : kWorkPivots2] += 1;
   iters += 1;
   TR_OTHER();
   return 1;
@@ -872,26 +892,31 @@ struct SegmentState {
   int* it;
 };
 
-// One segment: at most `steps` steps of stage p1 (kStage == kSegP1) or p2
-// per LP.  An LP steps while it is running, under its cap and, in p1, in
-// phase 1; one still running at its cap afterwards (in p1: in phase 1) is
-// marked at the iteration limit, as after the whole-solve kernel's loops.
-// A p1 segment runs in rounds of at most `cap` pivots, each ended by the
-// replay of its pivots on the artificial columns.  kTel carries the
-// counter rows `tel`, kTelInts int32 an LP, updated in place (the last
-// parameter, so that the counter-free instantiation reads every other one
-// where it did before the plane).
+// One segment: at most `steps` steps of stage p1 (kStage == kSegP1), p2 or
+// full per LP.  An LP steps while it is running, under its cap and, in p1,
+// in phase 1; one still running at its cap afterwards (in p1: in phase 1)
+// is marked at the iteration limit, as after the whole-solve kernel's
+// loops.  A p1 or full segment runs in rounds of at most `cap` pivots, each
+// ended by the replay of its pivots on the artificial columns.  kTel
+// carries the counter rows `tel`, kTelInts int32 an LP, updated in place
+// (the last parameter, so that the counter-free instantiation reads every
+// other one where it did before the plane); stage full has none.
 template <int kRule, bool kSmemTableau, int kStage, bool kTel = false>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     simplex_segment_kernel(SegmentState g, int m, int n, int steps,
                            int max_iters, float tol, int cap, int* tel) {
-  constexpr bool kFull = kStage == kSegP1;
+  static_assert(!(kTel && kStage == kSegFull),
+                "a full segment carries no counters");
+  // kFull: the full state, live columns on chip and the pivot log (p1,
+  // full); kP1: an LP steps only in phase 1
+  constexpr bool kFull = logs_pivots(kStage);
+  constexpr bool kP1 = kStage == kSegP1;
   const int R = stage_rows(m, kStage), C = global_cols(m, n, kStage);
   const int NP = n + m;
   const int tid = threadIdx.x, NT = blockDim.x;
   const size_t lp = blockIdx.x;
   int phase = g.phase[lp], status = g.status[lp], iters = g.iters[lp];
-  const bool stage_ok = !kFull || phase == 1;
+  const bool stage_ok = !kP1 || phase == 1;
   if (!(status == kRunning && stage_ok && iters < max_iters && steps > 0)) {
     // nothing to do: the tableau is never loaded
     if (tid == 0) {
@@ -942,17 +967,17 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   bool stored = false;  // the device-memory state holds the live columns
   for (;;) {
     int npiv = 0;
-    while (status == kRunning && (!kFull || phase == 1) &&
+    while (status == kRunning && (!kP1 || phase == 1) &&
            iters < max_iters && it < steps && (!kFull || npiv < L.cap)) {
       if (kFull) s.col = lg.col + (size_t)npiv * L.rpad;
-      npiv += step<kRule, kFull, kTel>(s, m, n, tol, thr, phase, status,
-                                       iters, work, bank,
-                                       kFull ? &lg : nullptr, npiv);
+      npiv += step<kRule, kFull, kTel, kStage == kSegFull>(
+          s, m, n, tol, thr, phase, status, iters, work, bank,
+          kFull ? &lg : nullptr, npiv);
       ++it;
     }
     __syncthreads();
     if (!kFull || npiv == 0) break;  // the loop stopped for the LP's sake
-    const bool more = status == kRunning && phase == 1 &&
+    const bool more = status == kRunning && (!kP1 || phase == 1) &&
                       iters < max_iters && it < steps;
     // ---- the round's pivots on the artificial columns --------------------
     TR(kTrReplay, true);
@@ -982,7 +1007,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     TR_OTHER();
     if (!more) break;
   }
-  if (status == kRunning && (!kFull || phase == 1) && iters >= max_iters)
+  if (status == kRunning && (!kP1 || phase == 1) && iters >= max_iters)
     status = kIterationLimit;
 
   if (kSmemTableau && !stored) copy_live(s.T, s.S, Tg_lp, C, m, n, R, false);
@@ -1046,6 +1071,12 @@ cudaError_t dispatch_segment(int stage, bool in_smem, const SegmentState& g,
     return dispatch_segment<kRule, kSegP1, kTel>(in_smem, g, tel, B, m, n,
                                                  steps, max_iters, tol, cap,
                                                  threads, stream);
+  if constexpr (!kTel) {
+    if (stage == kSegFull)
+      return dispatch_segment<kRule, kSegFull, false>(
+          in_smem, g, tel, B, m, n, steps, max_iters, tol, cap, threads,
+          stream);
+  }
   return dispatch_segment<kRule, kSegP2, kTel>(in_smem, g, tel, B, m, n,
                                                steps, max_iters, tol, cap,
                                                threads, stream);
@@ -1066,8 +1097,8 @@ int optin_limit() {
 
 // Bytes of dynamic shared memory one block takes, with the tableau in
 // shared memory (tableau != 0) or left in device memory, for `stage` 0
-// (the whole solve), 1 (a p1 segment, its pivot log full size) or 2 (a p2
-// segment).
+// (the whole solve), 1 or 3 (a p1 or full segment, its pivot log full size)
+// or 2 (a p2 segment).
 extern "C" long long simplex_tile_smem_bytes(int m, int n, int rule,
                                              int tableau, int stage) {
   return (long long)(sizeof(float) *
@@ -1136,13 +1167,14 @@ namespace {
 int segment_launch(void* T, void* basis, void* w, void* flip, const void* ub,
                    void* phase, const void* thr, void* status, void* iters,
                    void* work, void* it, void* tel, int B, int m, int n,
-                   int full, int steps, int max_iters, float tol, int rule,
+                   int stage, int steps, int max_iters, float tol, int rule,
                    int threads, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (m < 1 || n < 1 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 || rule < kDantzig || rule > kDevex)
+      threads % 32 || rule < kDantzig || rule > kDevex ||
+      (stage != kSegP1 && stage != kSegP2 && stage != kSegFull) ||
+      (stage == kSegFull && tel != nullptr))
     return cudaErrorInvalidValue;
-  const int stage = full ? kSegP1 : kSegP2;
   int limit = optin_limit();
   if (limit < 0) return -limit;
   // the counter slot's static shared memory comes out of the same budget
@@ -1180,8 +1212,9 @@ int segment_launch(void* T, void* basis, void* w, void* flip, const void* ub,
 }  // namespace
 
 // Launches one segment block per LP on `stream`; allocates nothing and does
-// not synchronise.  Stage p1 (full != 0) works on T (B, m+2, n+2m+1), stage
-// p2 on T (B, m+1, n+m+1); every state array is updated in place: T, basis
+// not synchronise.  `stage` 1 (p1) and 3 (full) work on T (B, m+2,
+// n+2m+1), stage 2 (p2) on T (B, m+1, n+m+1); every state array is updated
+// in place: T, basis
 // (B, m), w (B, n+m; unread under dantzig), flip (B, n) bytes, phase,
 // status, iters (B,), work (B, 3); ub (B, n) and thr (B,) are read; `it`
 // (B,) receives the steps each LP took.  Returns the CUDA error code of the
@@ -1190,30 +1223,30 @@ extern "C" int simplex_segment_launch(void* T, void* basis, void* w,
                                       void* flip, const void* ub, void* phase,
                                       const void* thr, void* status,
                                       void* iters, void* work, void* it,
-                                      int B, int m, int n, int full, int steps,
-                                      int max_iters, float tol, int rule,
-                                      int threads, void* stream) {
+                                      int B, int m, int n, int stage,
+                                      int steps, int max_iters, float tol,
+                                      int rule, int threads, void* stream) {
   return segment_launch(T, basis, w, flip, ub, phase, thr, status, iters,
-                        work, it, nullptr, B, m, n, full, steps, max_iters,
+                        work, it, nullptr, B, m, n, stage, steps, max_iters,
                         tol, rule, threads, stream);
 }
 
 // simplex_segment_launch through the counter-carrying instantiation: `tel`
 // (B, 16) int32, the packed counter rows of obs.telemetry.tel_to_rows,
 // updated in place (lanes 0-5: iterations and pivots by phase, bound
-// flips, degenerate pivots).
+// flips, degenerate pivots); stages 1 and 2 only.
 extern "C" int simplex_segment_tel_launch(void* T, void* basis, void* w,
                                           void* flip, const void* ub,
                                           void* phase, const void* thr,
                                           void* status, void* iters,
                                           void* work, void* it, void* tel,
-                                          int B, int m, int n, int full,
+                                          int B, int m, int n, int stage,
                                           int steps, int max_iters, float tol,
                                           int rule, int threads,
                                           void* stream) {
   if (tel == nullptr) return cudaErrorInvalidValue;
   return segment_launch(T, basis, w, flip, ub, phase, thr, status, iters,
-                        work, it, tel, B, m, n, full, steps, max_iters, tol,
+                        work, it, tel, B, m, n, stage, steps, max_iters, tol,
                         rule, threads, stream);
 }
 

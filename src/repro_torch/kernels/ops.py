@@ -12,9 +12,15 @@ core/revised.py, core/pdhg.py), and what core/batching.py
   ``KernelBackend``, the counterpart of the reference's ``PallasBackend``.
   ``pricing="partial"`` degrades to dantzig with a warning, as in the
   reference: the kernels keep the whole cost row in shared memory, so
-  block pricing saves nothing.  The tableau kernels have no warm-start
-  injection: ``warm=`` warns and the solve starts cold, on the card, as
-  the reference's tile kernel does.
+  block pricing saves nothing.  ``warm=`` does what the reference's
+  ``solve_batched`` does with it (its JAX engine injects; its tile kernel
+  would start cold): ``KernelBackend.init`` injects the carrier per LP on
+  the device (skip, repair or cold fallback), then with
+  ``compaction=False`` one launch of the segment kernel's combined stage
+  solves the batch through both phases and the result carries the
+  ``WarmStart`` capture (basis, flips, weights), as the engine's does; with
+  ``compaction=True`` the seeded state goes to the scheduler.  A cold solve
+  is one launch of the whole-solve kernel.
 * ``backend="revised"``: one launch of the revised kernel
   (``revised_tile``), with ``warm=`` injected and the result's ``warm``
   capture, or under the scheduler through ``RevisedKernelBackend``, the
@@ -72,12 +78,27 @@ from .revised_tile import revised_segment_tile, revised_tile
 from .simplex_tile import segment_tile, simplex_tile
 
 
+def kernel_rule(pricing: str) -> str:
+    """The rule the tableau kernels price with for ``pricing``: partial
+    degrades to dantzig with a warning (the kernels keep the whole cost
+    row in shared memory, so block pricing saves nothing)."""
+    rule = canonicalize_rule(pricing)
+    if rule == "partial":
+        warnings.warn(
+            "solve_batched_kernel(pricing='partial'): the kernel keeps the "
+            "full cost row in shared memory, so partial pricing saves "
+            "nothing; using dantzig (identical certificates)")
+        rule = "dantzig"
+    return rule
+
+
 class KernelBackend(TorchBackend):
     """Scheduler backend whose segments run the CUDA segment kernel
-    (``segment_tile``; its plain version on CPU tensors).  State layout,
-    counter lanes, gathers and extraction are ``TorchBackend``'s: the
-    kernel works on the unpadded state, one block per LP, so there are no
-    tiles to fill."""
+    (``segment_tile``; its plain version on CPU tensors), stage full
+    (``run_combined``) included.  State layout, counter lanes, gathers,
+    scatters and extraction are ``TorchBackend``'s: the kernel works on
+    the unpadded state, one block per LP, so there are no tiles to
+    fill."""
 
     def segment(self, state, steps: int, stage: str, max_iters: int):
         return segment_tile(state, steps, stage=stage, m=self.m, n=self.n,
@@ -138,8 +159,7 @@ def solve_batched_kernel(batch: LPBatch, *, device=None,
     ``core.compaction.solve_batched_compacted``).  ``backend`` is
     "tableau", "revised" (``refactor_period``: the revised eta clock) or
     "pdhg" (``step_rule`` as in ``core.pdhg.solve_batched_pdhg``);
-    ``warm`` a parent's ``WarmStart``, injected by the revised and pdhg
-    kernel paths and ignored with a warning by the tableau one.
+    ``warm`` a parent's ``WarmStart``, injected by every backend.
     ``telemetry`` and ``tracer`` as in the module docstring."""
     backend = canonicalize_backend(backend)
     if telemetry and not compaction and backend in ("tableau", "pdhg"):
@@ -180,36 +200,55 @@ def _solve_tableau_kernel(batch: LPBatch, dev, *, max_iters, tol, feas_tol,
     """The tableau branch of ``solve_batched_kernel`` on a canonical batch
     with a validated carrier."""
     m, n = batch.m, batch.n
-    if warm is not None:
-        warnings.warn(
-            "solve_batched_kernel(backend='tableau', warm=...): the tableau "
-            "kernels have no warm-start injection; solving cold "
-            "(backend='revised' injects)")
-    rule = canonicalize_rule(pricing)
-    if rule == "partial":
-        warnings.warn(
-            "solve_batched_kernel(pricing='partial'): the kernel keeps the "
-            "full cost row in shared memory, so partial pricing saves "
-            "nothing; using dantzig (identical certificates)")
-        rule = "dantzig"
+    rule = kernel_rule(pricing)
     tol, feas_tol = default_tolerances(tol, feas_tol)
     if compaction:
         runner = KernelBackend(m, n, tol, feas_tol, pricing=rule)
         return schedule_batch(
             runner, batch, dev, max_iters=max_iters, segment_k=segment_k,
             compact_threshold=compact_threshold, stats_out=stats_out,
-            telemetry=telemetry, tracer=tracer)
+            warm=warm, telemetry=telemetry, tracer=tracer)
     if max_iters is None:
         max_iters = default_max_iters(m, n)
     with maybe_span(tracer, "dispatch", backend="tableau", B=batch.batch,
                     m=m, n=n):
         A, b, c, ub = batch_tensors(batch, dev)
+        if warm is not None:
+            return _solve_tableau_warm(A, b, c, ub, m=m, n=n,
+                                       max_iters=int(max_iters), tol=tol,
+                                       feas_tol=feas_tol, rule=rule,
+                                       warm=warm)
         x, obj, status, iters, y, z = simplex_tile(
             A, b, c, ub, m=m, n=n, max_iters=int(max_iters), tol=tol,
             feas_tol=feas_tol, pricing=rule)
         host = lambda t: t.cpu().numpy()  # noqa: E731
         return LPResult(x=host(x), objective=host(obj), status=host(status),
                         iterations=host(iters), y=host(y), z=host(z))
+
+
+def _solve_tableau_warm(A, b, c, ub, *, m, n, max_iters, tol, feas_tol,
+                        rule, warm) -> LPResult:
+    """A warm tableau solve on the card: ``KernelBackend.init`` seeds each
+    LP from the carrier, then one launch of the combined stage takes every
+    LP through both phases to its end (its own ``max_iters``) and the
+    result is extracted with its ``WarmStart`` capture.  Equal to
+    ``core.simplex.solve_batched_torch(warm=...)`` bit for bit: phase-2
+    steps on the full tableau are those the engine makes on the compacted
+    one.  The capture's weights are the n+m priceable columns' (ones under
+    dantzig), the only ones a later injection reads."""
+    runner = KernelBackend(m, n, tol, feas_tol, pricing=rule)
+    state = runner.init(A, b, c, ub, warm=warm)
+    state, _ = runner.run_combined(state, max_iters, max_iters)
+    x, obj, status, iters, y, z = runner.extract(state, "full")
+    w = (state.w if rule != "dantzig"
+         else torch.ones((A.shape[0], n + m), dtype=A.dtype,
+                         device=A.device))
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    capture = WarmStart(m=m, n=n, basis=host(state.basis),
+                        at_upper=host(state.flip), weights=host(w),
+                        pricing=rule)
+    return LPResult(x=x, objective=obj, status=status, iterations=iters,
+                    y=y, z=z, warm=capture)
 
 
 def _solve_revised_kernel(batch: LPBatch, dev, *, max_iters, tol, feas_tol,

@@ -12,7 +12,11 @@ outside its kernel), launches the kernel on the current stream and returns
 ``segment_tile`` is the counterpart of ``segment_pallas`` and its
 ``_segment_kernel``: one resumable segment of the compaction scheduler
 (core/compaction.py) over a ``CompactionState``, at most ``steps`` steps
-per LP, one thread block per LP.  When the state carries counter lanes
+per LP, one thread block per LP.  Its stage "full" is the counterpart of
+the reference's ``segment_combined`` (src/repro/core/compaction.py), which
+the reference runs as XLA: the combined two-phase step on the full
+tableau through both phases, for the frontier scheduler and the card's
+warm tableau solves.  When the state carries counter lanes
 (``state.tel``, ``telemetry=True``) they cross the kernel boundary as the
 packed int32 row of ``obs.telemetry.tel_to_rows``, which the kernel's
 counter-carrying instantiation updates in place (the float32 lanes pass
@@ -23,7 +27,7 @@ On CPU tensors each wrapper runs its plain version (``simplex_tile_plain``,
 bit for bit); on CUDA tensors it launches the kernel or raises.
 ``simplex_tile.launches`` and ``segment_tile.launches`` count kernel
 launches, ``segment_tile.tel_launches`` those of them that carried
-counters.
+counters and ``segment_tile.full_launches`` those of stage full.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import functools
 
 import torch
 
-from ..core.compaction import STAGES, CompactionState, run_segment
+from ..core.compaction import TABLEAU_STAGES, CompactionState, run_segment
 from ..core.pricing import PRICING_RULES, canonicalize_rule
 from ..core.simplex import build_tableau_torch, solve_two_phase
 from ..obs.telemetry import ALL_LANES, INT_LANES, rows_to_tel, tel_to_rows
@@ -44,10 +48,11 @@ RULE_CODES = {rule: code for code, rule in enumerate(PRICING_RULES)}
 WORK_COUNTERS = 3
 
 
-# Stages of the shared-memory accounting (csrc/simplex_tile.cu): the whole
-# solve, a p1 segment (full state, live columns on chip and a pivot log), a
-# p2 segment (compacted state).
-STAGE_CODES = {"whole": 0, "p1": 1, "p2": 2}
+# Stages (csrc/simplex_tile.cu; the segment launcher's `stage` and the
+# shared-memory accounting): the whole solve, a p1 segment (full state,
+# live columns on chip and a pivot log), a p2 segment (compacted state), a
+# full segment (the p1 layout, through both phases).
+STAGE_CODES = {"whole": 0, "p1": 1, "p2": 2, "full": 3}
 # Threads a block takes at most (csrc/simplex_tile.cu kMaxThreads).
 MAX_THREADS = 256
 
@@ -57,8 +62,9 @@ def smem_bytes(m: int, n: int, rule: str = "dantzig", *,
     """Dynamic shared memory of one block, with the tableau's live columns
     in shared memory or (``tableau=False``) left in device memory, as the
     kernels lay it out (csrc/simplex_tile.cu ``layout``), for ``stage``
-    "whole" (the whole solve), "p1" (a p1 segment, its pivot log at full
-    size) or "p2" (a p2 segment).  Needs the built kernel."""
+    "whole" (the whole solve), "p1" or "full" (a p1 or full segment, its
+    pivot log at full size) or "p2" (a p2 segment).  Needs the built
+    kernel."""
     return int(_lib().simplex_tile_smem_bytes(m, n, RULE_CODES[
         canonicalize_rule(rule)], int(tableau), STAGE_CODES[stage]))
 
@@ -213,7 +219,8 @@ def simplex_tile_plain(A, b, c, ub, *, m: int, n: int, max_iters: int,
 def _check_segment(state: CompactionState, stage: str, m: int, n: int,
                    rule: str):
     B = state.T.shape[0]
-    rows, cols = (m + 2, n + 2 * m + 1) if stage == "p1" else (m + 1, n + m + 1)
+    rows, cols = ((m + 1, n + m + 1) if stage == "p2"
+                  else (m + 2, n + 2 * m + 1))
     w_cols = n + m if rule != "dantzig" else state.w.shape[-1]
     f32, i32 = torch.float32, torch.int32
     want = {"T": (state.T, (B, rows, cols), f32),
@@ -233,11 +240,13 @@ def _check_segment(state: CompactionState, stage: str, m: int, n: int,
 def segment_tile(state: CompactionState, steps: int, *, stage: str, m: int,
                  n: int, max_iters: int, tol: float = 1e-6,
                  pricing: str = "dantzig"):
-    """One segment of ``stage`` ("p1": the full tableau, "p2": the
-    compacted one) with the CUDA kernel (the plain version on CPU tensors).
+    """One segment of ``stage`` ("p1": phase-1 steps on the full tableau,
+    "p2": phase-2 steps on the compacted one, "full": both phases on the
+    full tableau) with the CUDA kernel (the plain version on CPU tensors).
     Each LP takes at most ``steps`` steps, stops at its own ``max_iters``
     and, still running at that cap, is marked ITERATION_LIMIT.  Returns
-    ``(state, it)`` with ``it`` the (B,) int32 steps each LP took.
+    ``(state, it)`` with ``it`` the (B,) int32 steps each LP took.  Stage
+    full carries no counters: a state with counter lanes raises there.
 
     On the card the kernel updates the state's tensors in place and the
     same tensors come back, with ``tel`` (when the state carries counter
@@ -247,8 +256,12 @@ def segment_tile(state: CompactionState, steps: int, *, stage: str, m: int,
     if rule not in RULE_CODES:
         raise ValueError(f"the segment kernel prices with {PRICING_RULES}, "
                          f"not {pricing!r}")
-    if stage not in STAGES:
-        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    if stage not in TABLEAU_STAGES:
+        raise ValueError(
+            f"stage must be one of {TABLEAU_STAGES}, got {stage!r}")
+    if stage == "full" and state.tel is not None:
+        raise ValueError("segment_tile(stage='full') carries no counter "
+                         "lanes; the frontier scheduler counts none")
     _check_segment(state, stage, m, n, rule)
     dev = state.T.device
     if dev.type == "cpu":
@@ -267,7 +280,7 @@ def segment_tile(state: CompactionState, steps: int, *, stage: str, m: int,
                 s.flip.data_ptr(), s.ub.data_ptr(), s.phase.data_ptr(),
                 s.thr.data_ptr(), s.status.data_ptr(), s.iters.data_ptr(),
                 s.work.data_ptr(), it.data_ptr())
-        args = (B, m, n, int(stage == "p1"), int(steps), int(max_iters),
+        args = (B, m, n, STAGE_CODES[stage], int(steps), int(max_iters),
                 float(tol), RULE_CODES[rule], block_threads(m, n), stream)
         if rows is None:
             rc = lib.simplex_segment_launch(*ptrs, *args)
@@ -278,6 +291,8 @@ def segment_tile(state: CompactionState, steps: int, *, stage: str, m: int,
         raise RuntimeError(
             f"segment_tile kernel launch failed: CUDA error {rc}")
     segment_tile.launches += 1
+    if stage == "full":
+        segment_tile.full_launches += 1
     if rows is not None:
         segment_tile.tel_launches += 1
         state = state._replace(tel=rows_to_tel(*rows))
@@ -286,6 +301,7 @@ def segment_tile(state: CompactionState, steps: int, *, stage: str, m: int,
 
 segment_tile.launches = 0
 segment_tile.tel_launches = 0
+segment_tile.full_launches = 0
 
 
 def segment_tile_plain(state: CompactionState, steps: int, *, stage: str,

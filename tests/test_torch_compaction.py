@@ -220,20 +220,6 @@ def test_observability_options_report_and_trace(backend, telemetry, traced):
         assert "segment[p2]" in names
 
 
-def test_frontier_scheduler_parts_raise_and_name_their_roadmap_item():
-    from repro_torch.core.compaction import (FrontierScheduler, TorchBackend,
-                                             segment_combined)
-    be = TorchBackend(3, 3, 1e-6, 1e-5)
-    calls = [lambda: FrontierScheduler(3, 3),
-             lambda: segment_combined(None, 4, m=3, n=3, tol=1e-6),
-             lambda: be.scatter(None, None, [0]),
-             lambda: be.run_combined(None, 4, 10)]
-    for call in calls:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP: core/branch_bound"):
-            call()
-
-
 # ---- one segment launch against the reference's segment kernel ----------
 
 def _segment_case(case, rule, stage):

@@ -79,7 +79,7 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.launch, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.optim, "
             "repro_torch.distributed, repro_torch.data, repro_torch.obs, "
-            "repro_torch.obs.work\n"
+            "repro_torch.obs.work, repro_torch.core.branch_bound\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -252,7 +252,8 @@ def test_shared_memory_budget(m, n, fits):
         pytest.skip("needs a CUDA card and the built kernel")
     stride = (n + m + 1) | 1           # the live columns, an odd stride
     for rule in ("dantzig", "steepest_edge", "devex"):
-        for stage, rows in (("whole", m + 2), ("p1", m + 2), ("p2", m + 1)):
+        for stage, rows in (("whole", m + 2), ("p1", m + 2), ("p2", m + 1),
+                            ("full", m + 2)):
             assert tableau_in_smem(m, n, rule, stage=stage) == fits
             tableau = 4 * rows * stride
             assert (smem_bytes(m, n, rule, stage=stage)
@@ -266,6 +267,9 @@ def test_shared_memory_budget(m, n, fits):
         col = 4 * max(-(-(m + 2) // 4) * 4, -(-n // 4) * 4)
         assert (smem_bytes(m, n, rule, stage="p1")
                 - smem_bytes(m, n, rule)) == log - col
+        # a full segment keeps the p1 layout
+        assert smem_bytes(m, n, rule, stage="full") \
+            == smem_bytes(m, n, rule, stage="p1")
 
 
 def test_kernel_build_is_lazy_and_lands_in_an_ignored_directory():
@@ -1097,3 +1101,160 @@ def test_reduced_model_train_step_on_the_card_matches_the_cpu_port():
     launches = cfg.n_layers * chunks * microbatches
     assert ssm_scan_bwd.launches - bwd == launches
     assert ssm_scan.launches - fwd == 2 * launches
+
+
+# ---- the combined stage, the warm tableau path and branch-and-bound ------
+
+def _full_state(batch, pricing, dev, parent_steps=200):
+    """A mid-solve full-layout state holding lanes in phase 1, in phase 2
+    and warm-injected ones: the odd lanes seeded from their LP's own basis
+    after ``parent_steps`` combined steps, b scaled by 0.8 on every fourth
+    LP (repaired: phase 1) and c reweighted on every fourth other (phase
+    2, pivoting), then combined steps (the wrapper's: the kernel on the
+    card) in eights until both phases have running lanes."""
+    m, n = batch.m, batch.n
+    be = KernelBackend(m, n, 1e-6, 1e-5, pricing=pricing)
+    A, b, c, ub = batch_tensors(batch, dev)
+    parent, _ = be.run_combined(be.init(A, b, c, ub), parent_steps, 10_000)
+    odd = np.arange(batch.batch) % 2 == 1
+    cold = np.tile(np.arange(n, n + m, dtype=np.int32), (batch.batch, 1))
+    from repro_torch.core.lp import WarmStart
+    warm = WarmStart(m=m, n=n, basis=np.where(
+        odd[:, None], parent.basis.cpu().numpy(), cold),
+        at_upper=odd[:, None] & parent.flip.cpu().numpy())
+    lane = torch.arange(batch.batch, device=dev)[:, None] % 4
+    state = be.init(A, torch.where(lane == 1, 0.8 * b, b), torch.where(
+        lane == 3, c * torch.linspace(0.5, 1.5, n, device=dev), c), ub,
+        warm=warm)
+    for _ in range(200):
+        running = state.status == -1
+        if bool((running & (state.phase == 1)).any()) and \
+                bool((running & (state.phase == 2)).any()):
+            return state
+        state, _ = be.run_combined(state, 8, 10_000)
+    raise AssertionError("no state with running lanes in both phases")
+
+
+def test_combined_stage_on_cpu_tensors_is_the_plain_version():
+    batch = random_lp_batch(np.random.default_rng(3), B=8, m=6, n=5,
+                            feasible_start=False)
+    state = _full_state(batch, "dantzig", torch.device("cpu"))
+    kw = dict(stage="full", m=6, n=5, max_iters=40)
+    before = segment_tile.launches, segment_tile.full_launches
+    got, it = segment_tile(state, 5, **kw)
+    assert (segment_tile.launches, segment_tile.full_launches) == before
+    want, want_it = segment_tile_plain(state, 5, **kw)
+    assert torch.equal(it, want_it)
+    for g, w in zip(got, want):
+        if g is not None:
+            assert torch.equal(g, w)
+    tel = TorchBackend(6, 5, 1e-6, 1e-5).init(
+        *batch_tensors(batch, torch.device("cpu")), telemetry=True)
+    with pytest.raises(ValueError, match="counter"):
+        segment_tile(tel, 5, **kw)
+    with pytest.raises(ValueError, match="stage"):
+        segment_tile(state, 5, **dict(kw, stage="p3"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pricing", ["dantzig", "devex", "steepest_edge"])
+def test_combined_stage_matches_plain_version_on_the_card(pricing):
+    """One launch of stage full from a state holding lanes in phase 1, in
+    phase 2 and warm-injected ones, in both variants (shared: 30 x 24;
+    device: sc205_like), every leaf equal to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    sc, _ = canonicalize(perturbed_batch(read_mps(fixture_path("sc205_like")),
+                                         8, rng))
+    small = random_lp_batch(rng, B=64, m=30, n=24, feasible_start=False)
+    for batch, fits in ((small, True), (sc, False)):
+        m, n = batch.m, batch.n
+        assert tableau_in_smem(m, n, pricing, stage="full") == fits
+        state = _full_state(batch, pricing, dev, 200 if fits else 700)
+        running = state.status == -1
+        assert bool((running & (state.phase == 1)).any())
+        assert bool((running & (state.phase == 2)).any())
+        for steps, cap in ((8, 10_000), (40, int(state.iters.max()) + 3)):
+            kw = dict(stage="full", m=m, n=n, max_iters=cap,
+                      pricing=pricing)
+            before = segment_tile.full_launches
+            got, it = segment_tile(_clone(state), steps, **kw)
+            torch.cuda.synchronize()
+            assert segment_tile.full_launches == before + 1
+            want, want_it = segment_tile_plain(state, steps, **kw)
+            torch.testing.assert_close(it, want_it, rtol=0, atol=0)
+            for name, g, w in zip(CompactionState._fields, got, want):
+                if g is None:
+                    continue
+                torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                           equal_nan=True, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pricing", ["dantzig", "devex", "steepest_edge"])
+def test_tableau_warm_path_matches_the_engine_on_the_card(pricing):
+    """``warm=`` on the card's tableau path injects (no warning) and equals
+    the plain engine's warm solve bit for bit; a re-solve from its own
+    optimum takes no pivot."""
+    import warnings
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(10)
+    g = perturbed_batch(read_mps(fixture_path("afiro")), 64, rng)
+    first = solve_batched_torch(g, device="cpu", pricing=pricing)
+    g2 = perturbed_batch(read_mps(fixture_path("afiro")), 64,
+                         np.random.default_rng(11))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        before = segment_tile.full_launches
+        again = solve_batched_kernel(g, device="cuda", pricing=pricing,
+                                     warm=first.warm_start())
+        got = solve_batched_kernel(g2, device="cuda", pricing=pricing,
+                                   warm=first.warm_start())
+        assert segment_tile.full_launches == before + 2
+    opt = first.status == 0
+    assert (again.iterations[opt] == 0).all()
+    want = solve_batched_torch(g2, device="cpu", pricing=pricing,
+                               warm=first.warm_start())
+    for f in ("status", "iterations", "x", "objective", "y", "z"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    np.testing.assert_array_equal(got.warm.basis, want.warm.basis)
+
+
+@pytest.mark.gpu
+def test_branch_and_bound_on_the_card_equals_the_cpu_port():
+    """The fixtures' trees on the card (every node relaxation through the
+    CUDA kernels) have the CPU port's nodes, dispatches and LP iterations;
+    PDHG proves the optima."""
+    from repro_torch.core import branch_and_bound
+    from repro_torch.io import MIP_FIXTURE_NAMES
+    from repro_torch.kernels import revised_segment_tile
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    opt = {"knapsack": 280.0, "assignment": 5.0, "scheduling": 42.0}
+    keys = ("objective", "proven", "nodes", "dispatches", "lp_iterations",
+            "max_depth")
+    for name in MIP_FIXTURE_NAMES:
+        g = read_mps(fixture_path(name))
+        for kw in (dict(backend="tableau"), dict(backend="tableau",
+                                                 warm_start=False),
+                   dict(backend="tableau", mode="stream"),
+                   dict(backend="revised")):
+            def launched():
+                if kw["backend"] == "revised":
+                    return revised_segment_tile.launches
+                return segment_tile.launches + simplex_tile.launches
+            before = launched()
+            got = branch_and_bound(g, device="cuda", frontier=8, **kw)
+            want = branch_and_bound(g, device="cpu", frontier=8, **kw)
+            assert got.proven and got.objective == opt[name]
+            assert {k: getattr(got, k) for k in keys} \
+                == {k: getattr(want, k) for k in keys}, (name, kw)
+            assert launched() > before
+    for name in ("knapsack", "scheduling"):
+        res = branch_and_bound(read_mps(fixture_path(name)), device="cuda",
+                               backend="pdhg", frontier=8, max_nodes=200)
+        assert res.proven and abs(res.objective - opt[name]) < 1e-3

@@ -14,6 +14,10 @@ Warm answers agree with cold ones as in the reference's tests/test_warm.py
 (statuses equal, objectives to rtol 2e-3) with no more pivots, and a
 re-solve from its own optimum takes none.
 """
+import dataclasses
+import itertools
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -215,6 +219,149 @@ def test_resolve_from_its_own_optimum_takes_no_pivots(engine):
     np.testing.assert_allclose(warm.objective, cold.objective, rtol=1e-5)
 
 
+# Members of perturbed_batch(afiro, 100_000) (chip_smoke.py's lp_afiro_100k)
+# whose re-solve from their own optimum pivots, with the pivots the port
+# and the reference take: the injection rebuilds a tableau that is not the
+# one the last pivot left (a basic artificial maps to its row's slack, and
+# the Gauss-Jordan rebuild rounds otherwise), so both engines pivot again.
+# On 5426 the reference takes one more: its phase-1 row sums more than 32
+# rows in windows (ROADMAP.md, queue 3; _xla_row_sum).  The last member,
+# a neighbour, re-solves with none.
+AFIRO_RESOLVE = {5426: (25, 26), 13721: (7, 7), 5427: (0, 0)}
+
+
+def _perturbed_members(g, B, members, seed=0, rel=0.01):
+    """Members ``members`` (a range or a list) of ``perturbed_batch(g, B,
+    default_rng(seed), rel)`` without the other ones: each run of
+    consecutive members takes its noise from its place in the generator's
+    stream (A for every member, then rhs, then c; one 64-bit draw a
+    value)."""
+    members = list(members)
+    runs = np.split(members, np.flatnonzero(np.diff(members) != 1) + 1)
+    out, start = {}, 0
+    for f in ("A", "rhs", "c"):
+        a = np.asarray(getattr(g, f)[0], np.float64)
+        parts = []
+        for run in runs:
+            bits = np.random.PCG64(seed)
+            bits.advance(start + int(run[0]) * a.size)
+            noise = 1.0 + rel * np.random.Generator(bits).uniform(
+                -1.0, 1.0, size=(len(run),) + a.shape)
+            noise[run == 0] = 1.0
+            parts.append(a * np.where(a != 0.0, noise, 1.0))
+        out[f] = np.concatenate(parts)
+        start += B * a.size
+    k = len(members)
+    return dataclasses.replace(g, A=out["A"], rhs=out["rhs"], c=out["c"],
+                               lb=np.repeat(g.lb, k, 0),
+                               ub=np.repeat(g.ub, k, 0),
+                               c0=np.repeat(g.c0, k, 0))
+
+
+def _xla_row_sum(x):
+    """``x.sum(axis=1)`` in the reference's CPU order for more than 32
+    terms: windows of 32 over the terms zero-padded (the lower half of the
+    padding first), each window added in order, then the window sums in
+    order; one rounding per add."""
+    L = x.shape[1]
+    W = 32
+    lo = (-L % W) // 2
+    total = np.zeros(x[:, 0].shape, np.float32)
+    for start in range(-lo, L, W):
+        acc = np.zeros(x[:, 0].shape, np.float32)
+        for i in range(max(start, 0), min(start + W, L)):
+            acc = acc + x[:, i]
+        total = total + acc
+    return total
+
+
+def test_afiro_resolve_pivots_and_their_cause():
+    """The warm re-solve of the chip smoke's lp_afiro_100k from its own
+    optimum pivots on exactly members 5426 and 13721 on the card.  On the
+    CPU both packages re-solve those members from the same optimum basis,
+    and the reference pivots on them too: on 13721 the same 7 times, on
+    5426 once more than the port, because its injected phase-1 row and
+    objective sum the 35 rows in windows of 32 (the rest of the injected
+    tableau is bit-equal)."""
+    import jax
+    from repro.core.forms import canonicalize as canonicalize_ref
+    from repro.core.simplex import inject_tableau_warm as inject_ref
+    from repro.io.mps import perturbed_batch as perturbed_batch_ref
+    from repro_torch.core.simplex import inject_tableau_warm
+    g = read_mps(fixture_path("afiro"))
+    small = perturbed_batch_ref(g, 40)
+    picked = _perturbed_members(g, 40, [0, 1, 2, 7, 38, 39])
+    for f in ("A", "rhs", "c"):
+        np.testing.assert_array_equal(getattr(picked, f),
+                                      getattr(small, f)[[0, 1, 2, 7, 38, 39]])
+    members = list(AFIRO_RESOLVE)
+    lp, _ = canonicalize_ref(_perturbed_members(g, 100_000, members))
+    cold_ref = solve_batched_jax(lp)
+    cold = _tableau(lp)
+    np.testing.assert_array_equal(cold.iterations, cold_ref.iterations)
+    np.testing.assert_array_equal(cold.warm.basis, cold_ref.warm.basis)
+    assert (cold.status == OPTIMAL).all()
+    again_ref = solve_batched_jax(lp, warm=cold_ref.warm_start())
+    again = _tableau(lp, warm=cold.warm_start())
+    np.testing.assert_array_equal(again.iterations,
+                                  [p for p, _ in AFIRO_RESOLVE.values()])
+    np.testing.assert_array_equal(again_ref.iterations,
+                                  [r for _, r in AFIRO_RESOLVE.values()])
+    np.testing.assert_array_equal(again.status, again_ref.status)
+    np.testing.assert_allclose(again.objective, again_ref.objective,
+                               rtol=1e-6)
+    # the cause: the injected tableaux differ in the two summed entries
+    # only, and the reference's are the port's terms summed in windows
+    m, n = lp.m, lp.n
+    arrays = [np.asarray(a, np.float32) for a in (
+        lp.A, lp.b, lp.c, lp.upper_bounds())]
+    wb = np.asarray(cold_ref.warm.basis, np.int32)
+    wfl = np.asarray(cold_ref.warm.at_upper, bool)
+    ref = jax.jit(lambda *a: inject_ref(*a, m=m, n=n, feas_tol=1e-5))(
+        *arrays, wb, wfl)
+    got = inject_tableau_warm(*map(torch.tensor, arrays),
+                              torch.tensor(wb), torch.tensor(wfl),
+                              m=m, n=n, feas_tol=1e-5)
+    T_ref, T = np.asarray(ref[0]), got[0].numpy()
+    for r, g_ in zip(ref[1:], got[1:]):
+        np.testing.assert_array_equal(np.asarray(r), g_.numpy())
+    np.testing.assert_array_equal(T[:, :m + 1, :-1], T_ref[:, :m + 1, :-1])
+    np.testing.assert_array_equal(T[:, :m, -1], T_ref[:, :m, -1])
+    basis = got[1].numpy()
+    viol = basis >= n + m
+    rows = T[:, :m, :]
+    cols = np.r_[0:n + m, n + 2 * m]
+    p1 = _xla_row_sum(rows * viol[:, :, None])[:, cols]
+    np.testing.assert_array_equal(T_ref[:, m + 1, cols], p1)
+    assert not np.array_equal(T[0, m + 1, cols], p1[0])
+    cext = np.concatenate([np.where(wfl, -arrays[2], arrays[2]),
+                           np.zeros((len(members), m), np.float32)], 1)
+    cB = np.where(viol, np.float32(0),
+                  np.take_along_axis(cext, np.minimum(basis, n + m - 1), 1))
+    obj_off = (arrays[2] * np.where(wfl, arrays[3], 0)).sum(1)
+    np.testing.assert_array_equal(
+        T_ref[:, m, -1], -(_xla_row_sum(cB * rows[:, :, -1]) + obj_off))
+
+
+def test_afiro_members_that_resolve_with_pivots_in_the_reference():
+    """All 100,000 members of lp_afiro_100k through the reference, cold
+    and then from their own optimum, in slices of 10,000: the members
+    whose re-solve pivots are exactly those of AFIRO_RESOLVE, with the
+    reference's pivots (the card's set is the same: chip_smoke.py)."""
+    from repro.core.forms import canonicalize as canonicalize_ref
+    g = read_mps(fixture_path("afiro"))
+    B, k = 100_000, 10_000
+    moved = {}
+    for lo in range(0, B, k):
+        lp, _ = canonicalize_ref(_perturbed_members(g, B, range(lo, lo + k)))
+        cold = solve_batched_jax(lp)
+        again = solve_batched_jax(lp, warm=cold.warm_start())
+        assert (np.asarray(cold.status) == OPTIMAL).all()
+        it = np.asarray(again.iterations)
+        moved.update({lo + int(i): int(it[i]) for i in np.flatnonzero(it)})
+    assert moved == {i: r for i, (_, r) in AFIRO_RESOLVE.items() if r}
+
+
 def test_tableau_parent_seeds_the_revised_engine():
     seq = _afiro_seq(K=2, seed=3)
     ws = _tableau(seq[0]).warm_start()
@@ -320,13 +467,54 @@ def test_compacted_paths_accept_warm(engine):
 
 
 def test_tableau_kernel_path_warns_and_starts_cold():
+    """The name is the test's first one: the kernel path now injects.
+    Its warm tableau solve under each rule (on CPU tensors: the plain
+    version of the segment kernel's combined stage, one launch through
+    both phases from ``KernelBackend.init(warm=...)``) warns about nothing
+    and equals ``solve_batched_torch(warm=...)`` bit for bit, its capture
+    included (basis, flips, and the weights of the n+m priceable
+    columns); ``compaction=True`` takes the carrier too.  The revised
+    kernel path takes the tableau engine's carrier and answers as the cold
+    solve does."""
+    rng = np.random.default_rng(12)
+    base = random_lp_batch(rng, 6, 7, 6, feasible_start=False)
+    ub = rng.uniform(0.05, 0.6, size=(6, 6))
+    ub[:, ::2] = np.inf
+    bounded = LPBatch.from_arrays(base.A, base.b, base.c, ub=ub)
+    nudged = LPBatch.from_arrays(base.A, base.b * rng.uniform(
+        0.6, 1.1, size=base.b.shape), base.c, ub=ub)
+    pairs = [_afiro_seq(B=4, K=2, seed=12), [bounded, nudged]]
+    for rule, (first, second) in itertools.product(
+            ("dantzig", "steepest_edge", "devex"), pairs):
+        first, second = batch_from_reference(first), \
+            batch_from_reference(second)
+        ws = solve_batched_torch(first, device="cpu",
+                                 pricing=rule).warm_start()
+        want = solve_batched_torch(second, device="cpu", pricing=rule,
+                                   warm=ws)
+        cold = solve_batched_kernel(second, device="cpu", pricing=rule)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = solve_batched_kernel(second, device="cpu", pricing=rule,
+                                       warm=ws)
+            sched = solve_batched_kernel(second, device="cpu", pricing=rule,
+                                         warm=ws, compaction=True,
+                                         segment_k=3)
+        assert _total(got) < _total(cold)
+        for f in ("status", "iterations", "x", "objective", "y", "z"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+            np.testing.assert_array_equal(getattr(sched, f),
+                                          getattr(want, f), err_msg=f)
+        m, n = got.warm.m, got.warm.n
+        np.testing.assert_array_equal(got.warm.basis, want.warm.basis)
+        np.testing.assert_array_equal(got.warm.at_upper, want.warm.at_upper)
+        assert got.warm.pricing == want.warm.pricing == rule
+        np.testing.assert_array_equal(got.warm.weights,
+                                      want.warm.weights[:, :n + m])
     seq = [batch_from_reference(b) for b in _afiro_seq(B=4, K=2, seed=12)]
     ws = solve_batched_torch(seq[0], device="cpu").warm_start()
     cold = solve_batched_kernel(seq[1], device="cpu")
-    with pytest.warns(UserWarning, match="no warm-start injection"):
-        warm = solve_batched_kernel(seq[1], device="cpu", warm=ws)
-    for f in BITWISE:
-        np.testing.assert_array_equal(getattr(warm, f), getattr(cold, f))
     revised = solve_batched_kernel(seq[1], device="cpu", backend="revised",
                                    warm=ws)
     _assert_same_answers(cold, revised)
