@@ -6,7 +6,7 @@
 Builds the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
 source, in parallel), then drives the port's main paths: first
 ``repro_torch.core.solve_batched`` with no device argument, at two of the
-paper's workloads (src/repro/configs/paper_lp.py):
+paper's workloads (src/repro_torch/configs/paper_lp.py):
 
 1. ``lp_100d_50k``: 50,000 random 100 x 100 LPs of the Table-4 phase-1
    class; the first 64 are held against the float64 oracle with the
@@ -207,8 +207,42 @@ this, SRC): the whole-solve kernel on the lp_100d_50k slice and on all
 50,000, and ``solve_batched(backend="pdhg")`` with and without
 compaction; every pair of results equal.
 
-Every launch counter is zeroed just before each main-path run and read just
-after.  Lines of JSON report each phase; the line before the last is the
+The paper's workloads, multi-rank solving and the LP router (after the
+compaction path): every ``configs/paper_lp.py`` workload is built with
+``build_batch`` at its published batch size (the main path's lp_100d_50k,
+its Table-4 phase-1 variant, lp_afiro_100k and lp_300d_2k's 256 LPs come
+from it too, and must equal the batches this script built by hand before);
+lp_5d_100k, lp_28d_100k and lp_sc50b_like_50k are solved through
+``solve_batched`` on the card and held against the float64 oracle on their
+first 64 LPs, and ``canonical_work`` of the two fixture workloads is
+printed.  ``core/distributed.py`` in a world of one rank: ``solve_pjit``,
+the one-shot ``solve_shard_map`` and ``solve_shard_map(segment_k)`` on all
+50,000 LPs of lp_100d_50k equal the whole solve and ``compaction=True``
+leaf by leaf (the ladder too), and revised and pdhg on the 2,048-LP slice
+the same; a two-rank gloo world (a file store) spawned on the one card,
+on the slice, every backend, whole and segmented, equals the world of
+one bit for bit with every bucket a multiple of two.
+``expert_capacity_lp`` at 16 and 160 experts (llama4-scout-17b-a16e's,
+deepseek-v2-236b's) and 1 and 4,096 token groups runs on the card with
+host synchronization forbidden (``torch.cuda.set_sync_debug_mode
+("error")``) and equals its CPU run bit for bit.  Then
+``examples/torch_reachability.py`` runs on the card as a subprocess and
+must exit 0.  Each phase prints its seconds.
+
+The plain versions of the long parity checks run first, in 4 worker
+processes (``Behind``; their own CUDA contexts, the same functions on the
+same device and inputs), while the kernels build: every such check hands
+its plain version over before the main path, and once the workers are
+done and gone, this process runs the rest of the script with the card to
+itself, each check comparing where it always did.  So no time this
+process takes on the card shares it with another process.  A plain time
+taken on a worker was taken beside the other workers (CUDA contexts share
+the card by time slices) and its row says so (``plain_on``); the plain
+versions of the rows the kernel table reports run in this process, alone.
+
+Every launch counter is zeroed just before each path of the run and read
+just after; the kernel table gives each kernel's launches by path and
+their sum.  Lines of JSON report each phase; the line before the last is the
 kernel table, then the card's name and power limit, and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero without that line; so does a run without a card.
@@ -219,8 +253,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -288,6 +324,24 @@ def only(name) -> int:
     return got[name]
 
 
+# launches by kernel and by path of the run: each read from the counters
+# zeroed just before that path (``path_launches``)
+LAUNCHES = {}
+
+
+def path_launches(kernel, path, n):
+    """Record ``n`` launches of ``kernel`` on ``path``; it must launch."""
+    assert n > 0, (kernel, path, "launched no kernel")
+    LAUNCHES.setdefault(kernel, {})[path] = n
+
+
+def launch_keys(kernel) -> dict:
+    """The kernel table's launch keys: the sum over the paths and each
+    path's own count."""
+    return {"launches": sum(LAUNCHES[kernel].values()),
+            "launches_by_path": LAUNCHES[kernel]}
+
+
 def timed(fn):
     """(result, milliseconds) of fn() on the current stream."""
     import torch
@@ -299,6 +353,183 @@ def timed(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+# ---- plain versions on worker processes -----------------------------------
+# The long plain-version computations of the parity checks run in worker
+# processes, each with its own CUDA context, at the start of the run: a
+# check is a generator, which ``start`` runs up to the hand-over of its
+# plain version (``Behind``).  Once every plain version is in and the
+# workers have gone (``wait_plain``), ``finish`` runs the rest of it: the
+# kernel, timed with the card to this process alone, and the comparison.
+# The same function runs on the same device with the same inputs as in
+# this process; only the process differs.  CUDA contexts share the card
+# by time slices, so a plain time taken on a worker was taken beside the
+# other workers, and its row says so (``plain_on``); the checks whose
+# plain times the kernel table reports run their plain version in this
+# process (``here``), after the workers have gone.
+PLAIN_WORKERS = 4
+_POOL = []
+_PENDING = []
+_CLOSED = []
+# by job function: jobs and the seconds they took on the workers
+PLAIN = {}
+
+
+def _plain_worker():
+    import torch
+    torch.set_num_threads(1)
+    torch.zeros(1, device="cuda")
+
+
+def plain_pool():
+    """The worker processes, started at the first call."""
+    assert not _CLOSED, "the workers have gone"
+    if not _POOL:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        _POOL.append(ProcessPoolExecutor(
+            PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_plain_worker))
+    return _POOL[0]
+
+
+def stop_plain_pool():
+    while _POOL:
+        _POOL.pop().shutdown(wait=True, cancel_futures=True)
+
+
+def wait_plain() -> float:
+    """Wait for every job handed to the workers (a failed one raises
+    here), then stop them: from here on the card is this process's alone.
+    Returns the seconds waited."""
+    t0 = time.perf_counter()
+    for future in _PENDING:
+        future.result()
+    _PENDING.clear()
+    stop_plain_pool()
+    _CLOSED.append(True)
+    return time.perf_counter() - t0
+
+
+def _plain_job(fn, args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, t0, time.perf_counter()
+
+
+class Behind:
+    """``fn(*args)`` on a worker process or, with ``here``, in this
+    process when ``result()`` asks for it.  ``where``: what shared the
+    card while it ran."""
+
+    def __init__(self, fn, *args, here=False):
+        self.name, self.fn, self.args = fn.__name__, fn, args
+        self.future = None
+        self.where = "this process alone"
+        if not here:
+            self.future = plain_pool().submit(_plain_job, fn, args)
+            _PENDING.append(self.future)
+            self.where = f"a worker, one of {PLAIN_WORKERS} on the card"
+
+    def result(self):
+        if self.future is None:
+            return self.fn(*self.args)
+        out, start, end = self.future.result()
+        row = PLAIN.setdefault(self.name, {"jobs": 0, "work_s": 0.0})
+        row["jobs"] += 1
+        row["work_s"] += end - start
+        return out
+
+
+def start(check):
+    """Run a check (a generator) up to the hand-over of its plain version."""
+    next(check)
+    return check
+
+
+def finish(check, value=None):
+    """Run the rest of a started check; ``value`` is what its hand-over
+    point receives.  Returns the check's result."""
+    try:
+        check.send(value)
+    except StopIteration as stop:
+        return stop.value
+    raise AssertionError("a check handed over twice")
+
+
+def host(*tensors):
+    return [t.cpu().numpy() for t in tensors]
+
+
+def on_card(arrays):
+    """NumPy arrays (None stays None) as tensors on the card."""
+    import torch
+    return [None if a is None else torch.as_tensor(a, device="cuda")
+            for a in arrays]
+
+
+def plain_simplex(A, b, c, ub, kw):
+    """Worker: the whole-solve kernel's plain version with work counts."""
+    import torch
+    from repro_torch.kernels.simplex_tile import (WORK_COUNTERS,
+                                                  simplex_tile_plain)
+    A, b, c, ub = on_card((A, b, c, ub))
+    work = torch.zeros((A.shape[0], WORK_COUNTERS), dtype=torch.int32,
+                       device="cuda")
+    want, ms = timed(lambda: simplex_tile_plain(A, b, c, ub, work=work,
+                                                **kw))
+    return host(*want), work.cpu().numpy(), ms
+
+
+def plain_schedule(A, b, c, ub, cls, args, kw, max_iters):
+    """Worker: run_schedule on a plain backend (``timed_backend(cls)``):
+    (result, per-LP work, segment ms summed, scheduled ms)."""
+    import importlib
+    module, name = cls.split(":")
+    backend = getattr(importlib.import_module(module), name)
+    pb = timed_backend(backend, revised_state_bytes
+                       if name == "RevisedBackend" else None)(*args, **kw)
+    want, work, _, ms = schedule(pb, *on_card((A, b, c, ub)),
+                                 max_iters=max_iters)
+    return want, work, sum(pb.segment_ms), ms
+
+
+def plain_revised(A, b, c, ub, kw):
+    """Worker: the revised whole solve's plain version with work counts."""
+    import torch
+    from repro_torch.core.revised import WORK_FIELDS, solve_revised
+    A, b, c, ub = on_card((A, b, c, ub))
+    work = torch.zeros((A.shape[0], len(WORK_FIELDS)), dtype=torch.int32,
+                       device="cuda")
+    want, ms = timed(lambda: solve_revised(A, b, c, ub, tol=1e-6,
+                                           feas_tol=1e-5, work=work, **kw))
+    return host(*want), work.cpu().numpy(), ms
+
+
+def plain_pdhg(A, b, c, ub, kw):
+    """Worker: the whole-solve PDHG kernel's plain version."""
+    from repro_torch.kernels.pdhg_tile import pdhg_tile_plain
+    want, ms = timed(lambda: pdhg_tile_plain(*on_card((A, b, c, ub)), **kw))
+    return [None if t is None else t.cpu().numpy() for t in want], ms
+
+
+def plain_pdhg_schedule(sub, m, n, kw):
+    """Worker: the PDHG schedule on the plain backend."""
+    import torch
+    from repro_torch.core.pdhg import PdhgBackend, schedule_pdhg
+    pb = timed_pdhg_backend(PdhgBackend)(m, n)
+    want, ms = timed(lambda: schedule_pdhg(pb, sub, torch.device("cuda"),
+                                           stats_out=None, **kw))
+    return want, sum(pb.segment_ms), ms
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Print the seconds a phase of the run took."""
+    t0 = time.perf_counter()
+    yield
+    emit({"phase": name, "seconds": time.perf_counter() - t0})
 
 
 @contextlib.contextmanager
@@ -383,17 +614,17 @@ def solve_main(name, batch, oracle_batch):
     return res, launches, wall
 
 
-def compare(name, lp, rule, n_lp=SLICE, n_plain=SLICE, max_iters=None):
+def compare(name, lp, rule, n_lp=SLICE, n_plain=SLICE, max_iters=None,
+            here=False):
     """The kernel on the first n_lp LPs of a canonical batch, against the
-    plain version on the first n_plain of them (the same inputs): statuses,
-    iterations and work counts equal, x, objective, y and z within 1e-5
-    relative (NaN where NaN)."""
+    plain version on the first n_plain of them (the same inputs, on a
+    worker): statuses, iterations and work counts equal, x, objective, y
+    and z within 1e-5 relative (NaN where NaN).  A check (``start``, ``finish``)."""
     import numpy as np
     import torch
     from repro_torch.core.lp import LPBatch, default_max_iters
     from repro_torch.core.simplex import batch_tensors
-    from repro_torch.kernels.simplex_tile import (WORK_COUNTERS, simplex_tile,
-                                                  simplex_tile_plain)
+    from repro_torch.kernels.simplex_tile import WORK_COUNTERS, simplex_tile
     sub = LPBatch(A=lp.A[:n_lp], b=lp.b[:n_lp], c=lp.c[:n_lp],
                   ub=None if lp.ub is None else lp.ub[:n_lp])
     A, b, c, ub = batch_tensors(sub, torch.device("cuda"))
@@ -401,17 +632,15 @@ def compare(name, lp, rule, n_lp=SLICE, n_plain=SLICE, max_iters=None):
         max_iters = default_max_iters(lp.m, lp.n)
     kw = dict(m=lp.m, n=lp.n, max_iters=max_iters, pricing=rule)
     k = n_plain
+    plain = Behind(plain_simplex, *host(A[:k], b[:k], c[:k], ub[:k]), kw,
+                   here=here)
+    yield
     work = torch.zeros((n_lp, WORK_COUNTERS), dtype=torch.int32,
                        device="cuda")
-    work_plain = torch.zeros((k, WORK_COUNTERS), dtype=torch.int32,
-                             device="cuda")
     got, ms = timed(lambda: simplex_tile(A, b, c, ub, work=work, **kw))
-    want, plain_ms = timed(lambda: simplex_tile_plain(
-        A[:k], b[:k], c[:k], ub[:k].contiguous(), work=work_plain, **kw))
     work = work.cpu().numpy()
-    work_plain = work_plain.cpu().numpy()
     got = [t[:k].cpu().numpy() for t in got]
-    want = [t.cpu().numpy() for t in want]
+    want, work_plain, plain_ms = plain.result()
     st_eq = bool(np.array_equal(got[2], want[2]))
     it_diff = int((got[3] != want[3]).sum())
     work_diff = int((work[:k] != work_plain).any(axis=1).sum())
@@ -436,7 +665,7 @@ def compare(name, lp, rule, n_lp=SLICE, n_plain=SLICE, max_iters=None):
                                         minlength=4).tolist(),
            "status_equal": st_eq, "iteration_diffs": it_diff,
            "work_diffs": work_diff, "max_rel_obj": rel, "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms}
+           "ms": ms, "plain_ms": plain_ms, "plain_on": plain.where}
     out.update(bound(lp.m, lp.n, n_lp, work))
     emit(out)
     return out
@@ -614,7 +843,7 @@ def compaction_main(lp100, res_whole, wall_whole, full_batch):
     info.update(check_oracle("lp_100d_50k compaction", res,
                              solve_batched_reference(head)))
     emit(info)
-    return got["simplex_segment"], info
+    return got["simplex_segment"], res, stats
 
 
 def binding_budget(lp100, max_iters):
@@ -733,14 +962,14 @@ def compare_segment_launches(name, backend, state, k, steps, max_iters):
 
 
 def compare_schedule(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
-                     max_iters=None):
+                     max_iters=None, here=False):
     """The segment kernel against its plain version: one launch of each
     stage leaf by leaf, then the whole scheduled solve through KernelBackend
-    (all n_lp LPs) against TorchBackend (the first n_plain): statuses,
-    iterations and work equal; x, objective, y, z within rel 1e-5."""
+    (all n_lp LPs) against TorchBackend (the first n_plain, on a worker):
+    statuses, iterations and work equal; x, objective, y, z within rel
+    1e-5.  A check (``start``, ``finish``)."""
     import numpy as np
     import torch
-    from repro_torch.core.compaction import TorchBackend
     from repro_torch.core.lp import LPBatch, default_max_iters
     from repro_torch.core.simplex import batch_tensors
     from repro_torch.kernels.ops import KernelBackend
@@ -751,15 +980,17 @@ def compare_schedule(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
         max_iters = default_max_iters(lp.m, lp.n)
     k = n_plain
     args = (lp.m, lp.n, 1e-6, 1e-5)
+    plain = Behind(plain_schedule, *host(A[:k], b[:k], c[:k], ub[:k]),
+                   "repro_torch.core.compaction:TorchBackend", args,
+                   {"pricing": rule}, max_iters, here=here)
+    yield
     kb = timed_backend(KernelBackend)(*args, pricing=rule)
-    pb = timed_backend(TorchBackend)(*args, pricing=rule)
     launches = compare_segment_launches(name, kb, kb.init(A, b, c, ub), k,
                                         32, max_iters)
     kb = timed_backend(KernelBackend)(*args, pricing=rule)
     got, work, stats, sched_ms = schedule(kb, A, b, c, ub,
                                           max_iters=max_iters)
-    want, work_plain, _, plain_sched_ms = schedule(
-        pb, A[:k], b[:k], c[:k], ub[:k].contiguous(), max_iters=max_iters)
+    want, work_plain, plain_ms, plain_sched_ms = plain.result()
     take = lambda a: np.asarray(a)[:k]  # noqa: E731
     np.testing.assert_array_equal(take(got.status), want.status)
     np.testing.assert_array_equal(take(got.iterations), want.iterations)
@@ -782,8 +1013,9 @@ def compare_schedule(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
            "ladder_stage_bucket_steps_survivors": ladder(stats),
            "max_abs_err": err, "ms": sum(kb.segment_ms),
            "gather_ms": sum(kb.gather_ms), "scheduled_ms": sched_ms,
-           "plain_ms": sum(pb.segment_ms), "plain_scheduled_ms":
-               plain_sched_ms, "state_bytes_moved": kb.moved,
+           "plain_ms": plain_ms, "plain_scheduled_ms":
+               plain_sched_ms, "plain_on": plain.where,
+           "state_bytes_moved": kb.moved,
            "state_roundtrip_ms": moved_ms}
     out.update(bound(lp.m, lp.n, n_lp, work, segment=True))
     emit(out)
@@ -1823,16 +2055,17 @@ def revised_bound(m, n, B, work):
 
 
 def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
-                    max_iters=None):
+                    max_iters=None, here=False):
     """The revised kernel against its plain version on the first n_lp LPs
     (plain: the first n_plain): one launch of each stage leaf by leaf, then
-    the whole solve (status, iterations, x, objective, y, z, basis, bound
-    flags and work counts equal, NaN where NaN)."""
+    the whole solve (its plain version on a worker; status, iterations, x,
+    objective, y, z, basis, bound flags and work counts equal, NaN where
+    NaN).  A check (``start``, ``finish``)."""
     import numpy as np
     import torch
     from repro_torch.core.lp import LPBatch, default_max_iters
     from repro_torch.core.revised import (WORK_FIELDS, auto_refactor_period,
-                                          solve_revised, warm_state)
+                                          warm_state)
     from repro_torch.core.simplex import batch_tensors
     from repro_torch.kernels.revised_tile import (revised_segment_tile,
                                                   revised_segment_tile_plain,
@@ -1844,6 +2077,11 @@ def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
     if max_iters is None:
         max_iters = default_max_iters(m, n)
     K = auto_refactor_period(m, n)
+    wkw = dict(m=m, n=n, max_iters=max_iters, refactor_period=K,
+               pricing=rule)
+    plain = Behind(plain_revised, *host(A[:k], b[:k], c[:k], ub[:k]), wkw,
+                   here=here)
+    yield
     kw = dict(m=m, n=n, max_iters=max_iters, tol=1e-6, refactor_period=K,
               rule=rule)
     state = warm_state(A, b, c, ub, m=m, n=n, feas_tol=1e-5)
@@ -1863,16 +2101,12 @@ def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
                       "running_after": int((got.status == -1).sum())}
         state = got
     del state, got, want
-    wkw = dict(m=m, n=n, max_iters=max_iters, refactor_period=K,
-               pricing=rule)
     work = torch.zeros((n_lp, len(WORK_FIELDS)), dtype=torch.int32,
                        device="cuda")
-    work_plain = torch.zeros((k, len(WORK_FIELDS)), dtype=torch.int32,
-                             device="cuda")
     got, ms = timed(lambda: revised_tile(A, b, c, ub, work=work, **wkw))
-    want, plain_ms = timed(lambda: solve_revised(
-        A[:k], b[:k], c[:k], ub[:k].contiguous(), tol=1e-6, feas_tol=1e-5,
-        work=work_plain, **wkw))
+    want, work_plain, plain_ms = plain.result()
+    want = on_card(want)
+    work_plain = on_card([work_plain])[0]
     err = 0.0
     for i, what in enumerate(("x", "objective", "status", "iterations", "y",
                               "z", "basis", "onub")):
@@ -1891,22 +2125,23 @@ def compare_revised(name, lp, rule, n_lp=SLICE, n_plain=SLICE,
            "variant": variant(m, n), "one_launch": one,
            "status_counts": np.bincount(status.astype(int),
                                         minlength=4).tolist(),
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "plain_on": plain.where}
     out.update(revised_bound(m, n, n_lp, work.cpu().numpy()))
     emit(out)
     return out, got
 
 
-def compare_revised_schedule(name, lp, rule, whole, n_lp=SLICE):
+def compare_revised_schedule(name, lp, rule, n_lp=SLICE):
     """compaction=True for the revised engine on the first n_lp LPs: the
     schedule through RevisedKernelBackend equals the one through the plain
-    RevisedBackend bit for bit; against the whole solve ``whole`` statuses
+    RevisedBackend (on a worker) bit for bit; against the whole solve
+    (what its hand-over point receives: ``finish(check, whole)``) statuses
     are equal and objectives within rel 1e-3 (the reference's contract,
-    tests/test_tile_parity.py)."""
+    tests/test_tile_parity.py).  A check."""
     import numpy as np
     import torch
     from repro_torch.core.lp import LPBatch, default_max_iters
-    from repro_torch.core.revised import RevisedBackend
     from repro_torch.core.simplex import batch_tensors
     from repro_torch.kernels.ops import RevisedKernelBackend
     sub = LPBatch(A=lp.A[:n_lp], b=lp.b[:n_lp], c=lp.c[:n_lp],
@@ -1914,14 +2149,16 @@ def compare_revised_schedule(name, lp, rule, whole, n_lp=SLICE):
     A, b, c, ub = batch_tensors(sub, torch.device("cuda"))
     mi = default_max_iters(lp.m, lp.n)
     args = (lp.m, lp.n, 1e-6, 1e-5)
+    plain = Behind(plain_schedule, *host(A, b, c, ub),
+                   "repro_torch.core.revised:RevisedBackend", args,
+                   {"pricing": rule}, mi)
+    whole = yield
     kb = timed_backend(RevisedKernelBackend, revised_state_bytes)(
         *args, pricing=rule)
-    pb = timed_backend(RevisedBackend, revised_state_bytes)(*args,
-                                                            pricing=rule)
     zero_counts()
     got, _, stats, ms = schedule(kb, A, b, c, ub, max_iters=mi)
     assert counts()["revised_segment"] == len(stats), (counts(), len(stats))
-    want, _, _, plain_ms = schedule(pb, A, b, c, ub, max_iters=mi)
+    want, _, plain_seg_ms, plain_ms = plain.result()
     assert same_result(got, want, ("status", "iterations", "x", "objective",
                                    "y", "z")), (name, rule, "schedules")
     status = whole[2].cpu().numpy().astype(np.int8)
@@ -1939,8 +2176,8 @@ def compare_revised_schedule(name, lp, rule, whole, n_lp=SLICE):
           "iteration_diffs_vs_whole": int((got.iterations != whole[3]
                                            .cpu().numpy()).sum()),
           "ms": sum(kb.segment_ms), "scheduled_ms": ms,
-          "plain_ms": sum(pb.segment_ms), "plain_scheduled_ms": plain_ms,
-          "state_bytes_moved": kb.moved})
+          "plain_ms": plain_seg_ms, "plain_scheduled_ms": plain_ms,
+          "plain_on": plain.where, "state_bytes_moved": kb.moved})
 
 
 def revised_at_full_batch(name, lp):
@@ -2440,27 +2677,40 @@ def _solved_first(status, iters, k):
 
 
 def compare_pdhg(name, lp, rule, n_lp=SLICE, n_plain=512, max_iters=None,
-                 solved_first=False):
+                 solved_first=False, here=False):
     """The whole-solve kernel on the first n_lp LPs against its plain
     version on n_plain of them (the first, or with ``solved_first`` those
     of ``_solved_first``, at least one OPTIMAL): every output equal
     (status, iterations, x, objective, y, z and the warm capture; NaN
-    where NaN)."""
+    where NaN).  The plain version runs on a worker.  A check (``start``,
+    ``finish``); with ``solved_first`` the kernel also runs before the
+    hand-over, untimed, and the timed run after it must equal that one."""
     import numpy as np
     import torch
     from repro_torch.core.pdhg import default_pdhg_max_iters
-    from repro_torch.kernels.pdhg_tile import (pdhg_tile, pdhg_tile_plain,
-                                               variant)
+    from repro_torch.kernels.pdhg_tile import pdhg_tile, variant
     _, (A, b, c, ub) = _pdhg_sub(lp, n_lp)
     m, n, k = lp.m, lp.n, n_plain
     if max_iters is None:
         max_iters = default_pdhg_max_iters(m, n)
     kw = dict(m=m, n=n, max_iters=max_iters, step_rule=rule)
+    first = None
+    if solved_first:
+        first = pdhg_tile(A, b, c, ub, **kw)
+        idx = _solved_first(first[2], first[3], k)
+    else:
+        idx = torch.arange(k, device=A.device)
+    plain = Behind(plain_pdhg, *host(A[idx], b[idx], c[idx], ub[idx]), kw,
+                   here=here)
+    yield
     got, ms = timed(lambda: pdhg_tile(A, b, c, ub, **kw))
-    idx = (_solved_first(got[2], got[3], k) if solved_first
-           else torch.arange(k, device=A.device))
-    want, plain_ms = timed(lambda: pdhg_tile_plain(
-        A[idx], b[idx], c[idx], ub[idx], **kw))
+    for g, f in zip(got, first or ()):
+        if g is not None:
+            torch.testing.assert_close(g, f, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{name} {rule} run to run")
+    del first
+    want, plain_ms = plain.result()
+    want = on_card(want)
     got_k = [g[idx] for g in got]
     for what, g, w in zip(PDHG_OUT, got_k, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
@@ -2480,7 +2730,7 @@ def compare_pdhg(name, lp, rule, n_lp=SLICE, n_plain=512, max_iters=None,
            "mean_iterations": float(iters.mean()),
            "max_iterations": int(iters.max()),
            "max_abs_err": max_err(zip(got_k, want)),
-           "ms": ms, "plain_ms": plain_ms}
+           "ms": ms, "plain_ms": plain_ms, "plain_on": plain.where}
     out.update(pdhg_bound(m, n, n_lp, iters))
     emit(out)
     return out, got
@@ -2541,32 +2791,34 @@ def timed_pdhg_backend(cls):
 
 
 def compare_pdhg_schedule(name, lp, n_lp=SLICE, n_plain=512,
-                          max_iters=8000):
+                          max_iters=8000, here=False):
     """compaction=True on the first n_lp LPs through PdhgKernelBackend
     against the plain PdhgBackend on the first n_plain: equal bit for bit
     (status, iterations, x, objective, y, z); and equal to the whole-solve
-    kernel on the same LPs at the same cap."""
+    kernel on the same LPs at the same cap.  The plain schedule runs on a
+    worker.  A check (``start``, ``finish``)."""
     import numpy as np
     import torch
-    from repro_torch.core.pdhg import PdhgBackend, schedule_pdhg
+    from repro_torch.core.pdhg import schedule_pdhg
     from repro_torch.kernels.ops import PdhgKernelBackend
     from repro_torch.kernels.pdhg_tile import pdhg_tile
+    kw = dict(max_iters=max_iters, segment_k=None, compact_threshold=None)
+    plain_sub, _ = _pdhg_sub(lp, n_plain)
+    plain = Behind(plain_pdhg_schedule, plain_sub, lp.m, lp.n, kw,
+                   here=here)
+    yield
     sub, (A, b, c, ub) = _pdhg_sub(lp, n_lp)
     whole = pdhg_tile(A, b, c, ub, m=lp.m, n=lp.n, max_iters=max_iters)
     del A, b, c, ub
-    plain_sub, _ = _pdhg_sub(lp, n_plain)
     dev = torch.device("cuda")
     kb = timed_pdhg_backend(PdhgKernelBackend)(lp.m, lp.n)
-    pb = timed_pdhg_backend(PdhgBackend)(lp.m, lp.n)
     stats = []
     zero_counts()
-    kw = dict(max_iters=max_iters, segment_k=None, compact_threshold=None)
     got, ms = timed(lambda: schedule_pdhg(kb, sub, dev, stats_out=stats,
                                           **kw))
     launches = counts()["pdhg_segment"]
     assert launches == len(stats) and counts()["pdhg"] == 0, counts()
-    want, plain_ms = timed(lambda: schedule_pdhg(pb, plain_sub, dev,
-                                                 stats_out=None, **kw))
+    want, plain_seg_ms, plain_ms = plain.result()
     fields = ("status", "iterations", "x", "objective", "y", "z")
     k = n_plain
     for f in fields:
@@ -2587,8 +2839,8 @@ def compare_pdhg_schedule(name, lp, n_lp=SLICE, n_plain=512,
            "bitwise_equal_plain_schedule": True,
            "bitwise_equal_whole_solve": True, "max_abs_err": err,
            "ms": sum(kb.segment_ms), "gather_ms": sum(kb.gather_ms),
-           "scheduled_ms": ms, "plain_ms": sum(pb.segment_ms),
-           "plain_scheduled_ms": plain_ms}
+           "scheduled_ms": ms, "plain_ms": plain_seg_ms,
+           "plain_scheduled_ms": plain_ms, "plain_on": plain.where}
     out.update(pdhg_bound(lp.m, lp.n, n_lp, got.iterations))
     emit(out)
     return out
@@ -3700,6 +3952,385 @@ def training():
     return info
 
 
+# ---- the paper's workloads, multi-rank solving, the LP router -------------
+
+WORLD = 2                 # ranks of the gloo world spawned on the one card
+DIST_K = 4                # segment_k of the distributed checks on the slice
+ROUTER_SIZES = ((1, 16), (4096, 16), (1, 160), (4096, 160))
+NEW_WORKLOADS = ("lp_5d_100k", "lp_28d_100k", "lp_sc50b_like_50k")
+
+
+def _digest(*arrays):
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def batch_digest(batch):
+    """A digest of every array of an LPBatch or a GeneralLPBatch."""
+    fields = (("A", "b", "c") if hasattr(batch, "b")
+              else ("A", "rhs", "lb", "ub", "c", "c0"))
+    return _digest(*(getattr(batch, f) for f in fields))
+
+
+def hand_built_digest(name):
+    """Worker: the digest of the batch this script built by hand before
+    configs/paper_lp.py had a counterpart."""
+    import numpy as np
+    from repro_torch.core import random_lp_batch
+    from repro_torch.io import fixture_path, perturbed_batch, read_mps
+    if name == "lp_100d_50k":
+        return batch_digest(random_lp_batch(np.random.default_rng(2018),
+                                            B=50_000, m=100, n=100,
+                                            feasible_start=False))
+    if name == "lp_afiro_100k":
+        return batch_digest(perturbed_batch(read_mps(fixture_path("afiro")),
+                                            100_000))
+    return batch_digest(random_lp_batch(np.random.default_rng(2018), B=256,
+                                        m=300, n=300))
+
+
+def main_batches():
+    """The batches of the main path and the checks, from
+    configs/paper_lp.py ``build_batch``: lp_100d_50k in its Table-4
+    phase-1 variant (``feasible_start=False``, seed 2018; the published
+    entry starts feasible), lp_afiro_100k from seed 0, and 256 LPs of
+    lp_300d_2k; each must equal the batch this script built by hand
+    before (``hand_built_digest``, on a worker)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.paper_lp import build_batch, workload
+    digests = {name: Behind(hand_built_digest, name)
+               for name in ("lp_100d_50k", "lp_afiro_100k", "lp_300d_2k")}
+    lp100 = build_batch(dataclasses.replace(workload("lp_100d_50k"),
+                                            feasible_start=False))
+    g = build_batch(workload("lp_afiro_100k"), rng=np.random.default_rng(0))
+    lp300 = build_batch(workload("lp_300d_2k"), batch=256)
+    return lp100, g, lp300, digests
+
+
+def check_main_batches(batches, digests):
+    equal = {}
+    for name, batch in zip(("lp_100d_50k", "lp_afiro_100k", "lp_300d_2k"),
+                           batches):
+        equal[name] = batch_digest(batch) == digests[name].result()
+        assert equal[name], (name, "build_batch differs from the hand-built "
+                             "batch")
+    emit({"main_batches_from_build_batch": equal})
+
+
+def built_workload(name):
+    """Worker: a configs/paper_lp.py workload built with ``build_batch``
+    at its published batch size: its size, the seconds the build took and,
+    for a fixture, ``canonical_work``."""
+    from repro_torch.analysis.lp_perf import canonical_work
+    from repro_torch.configs.paper_lp import build_batch, workload
+    w = workload(name)
+    t0 = time.perf_counter()
+    batch = build_batch(w)
+    info = {"paper_workload": name, "lps": batch.batch,
+            "shape": [batch.m, batch.n], "fixture": w.fixture,
+            "build_s": time.perf_counter() - t0}
+    assert batch.batch == w.batch and (batch.m, batch.n) == (w.m, w.n)
+    if w.fixture is not None:
+        info["canonical_work"] = canonical_work(batch)
+    return info
+
+
+def solve_workload(name):
+    """A configs/paper_lp.py workload built with ``build_batch`` at its
+    published batch size and solved through ``solve_batched`` on the card,
+    through the whole-solve kernel only (its launches counted from 0 just
+    before), the first 64 held against the float64 oracle; a fixture's
+    ``canonical_work`` beside it.  ``dispatch_s``: the seconds of the
+    wall in the kernel path's dispatch span (the tensors to the card, the
+    launch, the results back); the rest is the host's canonicalization
+    and recovery.  Returns what it prints."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.analysis.lp_perf import canonical_work
+    from repro_torch.configs.paper_lp import build_batch, workload
+    from repro_torch.core import (LPBatch, solve_batched,
+                                  solve_batched_reference)
+    from repro_torch.obs import SpanTracer
+    w = workload(name)
+    t0 = time.perf_counter()
+    batch = build_batch(w)
+    info = {"paper_workload": w.name, "lps": batch.batch,
+            "shape": [batch.m, batch.n], "fixture": w.fixture,
+            "build_s": time.perf_counter() - t0}
+    assert batch.batch == w.batch and (batch.m, batch.n) == (w.m, w.n)
+    if w.fixture is None:
+        head = LPBatch(A=batch.A[:64], b=batch.b[:64], c=batch.c[:64])
+    else:
+        info["canonical_work"] = canonical_work(batch)
+        head = dataclasses.replace(
+            batch, A=batch.A[:64], rhs=batch.rhs[:64], lb=batch.lb[:64],
+            ub=batch.ub[:64], c=batch.c[:64], c0=batch.c0[:64])
+    zero_counts()
+    tracer = SpanTracer()
+    t0 = time.perf_counter()
+    res = solve_batched(batch, tracer=tracer)
+    wall = time.perf_counter() - t0
+    launches = only("simplex_tile")
+    opt = res.status == 0
+    assert res.x.shape == (w.batch, w.n)
+    assert np.isfinite(res.x[opt]).all()
+    assert np.isfinite(res.objective[opt]).all()
+    info.update({"wall_s": wall, "lps_per_s": w.batch / wall,
+                 "dispatch_s": sum(s.dur_s for root in tracer.roots
+                                   for s in root.walk()
+                                   if s.name == "dispatch"),
+                 "launches": launches,
+                 "status_counts": np.bincount(
+                     res.status.astype(int), minlength=4).tolist(),
+                 "mean_iterations": float(res.iterations.mean())})
+    info.update(check_oracle(w.name, res, solve_batched_reference(head)))
+    return info
+
+
+def paper_workloads(behind, solved):
+    """Every configs/paper_lp.py workload built with ``build_batch`` at its
+    published batch size: those of ``behind`` (the main path's
+    lp_100d_50k as published, lp_300d_2k and lp_afiro_100k) on a worker
+    (``built_workload``), the rest of NEW_WORKLOADS solved here
+    (``solve_workload``), beside those of ``solved`` (solved before).
+    Returns the whole-solve kernel's launches by workload."""
+    from repro_torch.configs.paper_lp import WORKLOADS
+    launches = {}
+    for w in WORKLOADS:
+        if w.name in behind:
+            info = behind[w.name].result()
+            info["on_worker"] = True
+        elif w.name in NEW_WORKLOADS:
+            info = solved.get(w.name) or solve_workload(w.name)
+            launches[w.name] = info["launches"]
+        else:
+            raise AssertionError(f"{w.name} was neither built nor solved")
+        emit(info)
+    return launches
+
+
+def _slice(lp, k=SLICE):
+    from repro_torch.core import LPBatch
+    return LPBatch(A=lp.A[:k], b=lp.b[:k], c=lp.c[:k],
+                   ub=None if lp.ub is None else lp.ub[:k])
+
+
+DIST_FIELDS = ("status", "iterations", "x", "objective", "y", "z")
+
+WORLD_RANK = """
+import pickle, sys
+import numpy as np, torch, torch.distributed as dist
+rank, world, store, src, out = sys.argv[1:6]
+rank, world = int(rank), int(world)
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=world)
+from repro_torch.core import solve_pjit, solve_shard_map
+with open(src, "rb") as f:
+    lp, k = pickle.load(f)
+fields = ("status", "iterations", "x", "objective", "y", "z")
+done = {}
+for backend in ("tableau", "revised", "pdhg"):
+    for mode in ("pjit", "one-shot", "segment_k"):
+        stats = []
+        if mode == "pjit":
+            res = solve_pjit(lp, backend=backend)
+        elif mode == "one-shot":
+            res = solve_shard_map(lp, backend=backend)
+        else:
+            res = solve_shard_map(lp, backend=backend, segment_k=k,
+                                  stats_out=stats)
+        done[backend, mode] = ({f: getattr(res, f) for f in fields},
+                               [(s.stage, s.bucket, s.steps, s.survivors)
+                                for s in stats])
+if rank == 0:
+    with open(out, "wb") as f:
+        pickle.dump(done, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def start_world(lp, workdir):
+    """Spawn the WORLD ranks of a gloo world on the one card (a file
+    store, no network), each solving ``lp`` with every backend, whole and
+    in DIST_K-step segments; returns (processes, result path)."""
+    import pickle
+    with open(workdir / "lp.pkl", "wb") as f:
+        pickle.dump((lp, DIST_K), f)
+    out = workdir / "rank0.pkl"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WORLD_RANK, str(r), str(WORLD),
+         str(workdir / "store"), str(workdir / "lp.pkl"), str(out)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(WORLD)]
+    return procs, out
+
+
+def wait_world(procs, out, timeout=600):
+    import pickle
+    for p in procs:
+        so, se = p.communicate(timeout=timeout)
+        assert p.returncode == 0, ("a rank failed", so[-2000:], se[-4000:])
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def same_fields(got, want, what):
+    import numpy as np
+    for f in DIST_FIELDS:
+        g = got[f] if isinstance(got, dict) else getattr(got, f)
+        w = want[f] if isinstance(want, dict) else getattr(want, f)
+        assert np.array_equal(np.asarray(g), np.asarray(w), equal_nan=True), \
+            (what, f)
+
+
+def distributed(lp100, res_whole, res_comp, comp_stats, workdir):
+    """core/distributed.py on the card.  A world of one rank: solve_pjit,
+    the one-shot solve_shard_map and solve_shard_map(segment_k) on all
+    50,000 LPs of lp_100d_50k (tableau) equal the whole solve and
+    compaction=True (the same segment_k, the same ladder) leaf by leaf;
+    revised and pdhg the same on the 2,048-LP slice.  A gloo world of
+    WORLD ranks spawned on the one card, on the slice, every backend, whole
+    and segmented: equal to the world of one bit for bit, every bucket a
+    multiple of WORLD (started after the timed full-batch solves, its
+    files in ``workdir``).  Returns the kernels' launches in the world of
+    one."""
+    import numpy as np
+    from repro_torch.core import solve_batched, solve_pjit, solve_shard_map
+    from repro_torch.core.compaction import auto_segment_k
+    sl = _slice(lp100)
+    zero_counts()
+    walls = {}
+    t0 = time.perf_counter()
+    pjit = solve_pjit(lp100)
+    walls["pjit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one_shot = solve_shard_map(lp100)
+    walls["one_shot_s"] = time.perf_counter() - t0
+    tile_launches = only("simplex_tile")
+    zero_counts()
+    stats = []
+    t0 = time.perf_counter()
+    seg = solve_shard_map(lp100, segment_k=auto_segment_k(lp100.m, lp100.n),
+                          stats_out=stats)
+    walls["segment_k_s"] = time.perf_counter() - t0
+    seg_launches = only("simplex_segment")
+    world = start_world(sl, workdir)
+    try:
+        for res, what in ((pjit, "pjit"), (one_shot, "one-shot"),
+                          (seg, "segment_k")):
+            same_fields(res, res_whole, f"{what} vs the whole solve")
+            same_fields(res, res_comp, f"{what} vs compaction=True")
+        assert ladder(stats) == ladder(comp_stats), "ladder"
+        one = {}
+        for backend in ("tableau", "revised", "pdhg"):
+            whole = solve_batched(sl, backend=backend)
+            comp = solve_batched(sl, backend=backend, compaction=True,
+                                 segment_k=DIST_K)
+            st = []
+            one[backend] = {
+                "pjit": solve_pjit(sl, backend=backend),
+                "one-shot": solve_shard_map(sl, backend=backend),
+                "segment_k": solve_shard_map(sl, backend=backend,
+                                             segment_k=DIST_K, stats_out=st)}
+            for mode, want in (("pjit", whole), ("one-shot", whole),
+                               ("segment_k", comp)):
+                same_fields(one[backend][mode], want, (backend, mode))
+            one[backend]["ladder"] = ladder(st)
+        t0 = time.perf_counter()
+        ranks = wait_world(*world)
+        waited = time.perf_counter() - t0
+        buckets = set()
+        for backend in ("tableau", "revised", "pdhg"):
+            for mode in ("pjit", "one-shot", "segment_k"):
+                got, st = ranks[backend, mode]
+                same_fields(got, one[backend][mode], (WORLD, backend, mode))
+                buckets |= {b for _, b, _, _ in st}
+            assert ranks[backend, "segment_k"][1], (backend, "no segment")
+        assert all(b % WORLD == 0 for b in buckets), buckets
+    finally:   # a failed check leaves no rank running
+        for p in world[0]:
+            if p.poll() is None:
+                p.kill()
+    emit({"distributed": "lp_100d_50k", "world_of_one_lps": lp100.batch,
+          "equal_whole_and_compaction": True, "ladder_equal": True,
+          "whole_launches": tile_launches, "segment_launches": seg_launches,
+          "segments": len(stats), **walls, "slice_lps": SLICE,
+          "world": WORLD, "world_equal_world_of_one": True,
+          "world_buckets": sorted(buckets), "world_wait_s": waited,
+          "world_of_one_slice_ladders": {k: len(v["ladder"])
+                                         for k, v in one.items()}})
+    return tile_launches, seg_launches
+
+
+def lp_router():
+    """core/lp_router.py on the card: ``expert_capacity_lp`` at
+    ROUTER_SIZES (G token groups, E experts: llama4-scout-17b-a16e's 16
+    and deepseek-v2-236b's 160; G = 1 as models/moe.py calls it) with
+    host synchronization forbidden (sync-debug mode "error"), one launch
+    of the whole-solve kernel a call, equal bit for bit to its run on the
+    CPU.  Returns the kernel's launches, read from the counters."""
+    import numpy as np
+    import torch
+    from repro_torch.core import expert_capacity_lp
+    rows, launches = [], 0
+    for G, E in ROUTER_SIZES:
+        rng = np.random.default_rng(2018 + G + E)
+        d = rng.uniform(0.0, 50.0, (G, E)).astype(np.float32)
+        d[:, rng.integers(0, E)] *= 8.0     # a hot expert
+        total, c_max = 4.0 * E, 12.0
+        dev_d = torch.from_numpy(d).cuda()
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        zero_counts()
+        pair[0].record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = expert_capacity_lp(dev_d, total, c_max)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pair[1].record()
+        pair[1].synchronize()
+        ms = pair[0].elapsed_time(pair[1])
+        n = only("simplex_tile")
+        assert n == 1, n
+        launches += n
+        want = expert_capacity_lp(torch.from_numpy(d), total, c_max)
+        assert got.is_cuda and got.shape == (G, E)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+        caps = want.numpy()
+        assert (caps.sum(-1) <= total + 1e-2).all() and (caps <= c_max
+                                                           + 1e-3).all()
+        rows.append({"G": G, "E": E, "ms": ms, "equal_cpu": True,
+                     "host_syncs": 0})
+    emit({"lp_router": rows})
+    return launches
+
+
+def reachability():
+    """examples/torch_reachability.py on the card, as a subprocess, with
+    the card to itself."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples",
+                                      "torch_reachability.py")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, ("torch_reachability.py failed",
+                                  proc.stdout[-2000:], proc.stderr[-4000:])
+    emit({"reachability_example": "examples/torch_reachability.py",
+          "exit": 0, "seconds": time.perf_counter() - t0,
+          "output": proc.stdout.strip().splitlines()})
+
+
 def pdhg_only(parent_src) -> int:
     """Build, trace the PDHG kernel on the lp_100d_50k slice and time it
     against the pdhg_tile.cu at ``parent_src`` in turns."""
@@ -3817,8 +4448,17 @@ def main(argv=None) -> int:
         return revised_only(args.revised_parent)
     if args.simplex_parent:
         return simplex_only(args.simplex_parent)
+    try:
+        return smoke()
+    finally:
+        stop_plain_pool()
+
+
+def smoke() -> int:
+    """The default run (module docstring)."""
     import numpy as np
-    from repro_torch.core import LPBatch, canonicalize, random_lp_batch
+    import torch
+    from repro_torch.core import LPBatch, canonicalize
     from repro_torch.io import fixture_path, perturbed_batch, read_mps
     from repro_torch.kernels import _build
 
@@ -3830,7 +4470,119 @@ def main(argv=None) -> int:
                               simplex_trace_build)]
     for t in trace_builds:
         t.start()
-    took = _build.build()
+    took, failed = {}, []
+
+    def build_all():
+        try:
+            took.update(_build.build())
+        except BaseException as e:   # re-raised below, after the join
+            failed.append(e)
+    build_thread = threading.Thread(target=build_all)
+    build_thread.start()
+    # meanwhile the plain-version workers start: they rebuild by hand the
+    # batches this script used to build (to hold build_batch's against
+    # them), build the workloads no phase solves and run the plain
+    # versions the checks hand over below
+    plain_pool()
+    lp100, g, lp300, digests = main_batches()
+    behind = {name: Behind(built_workload, name)
+              for name in ("lp_100d_50k", "lp_300d_2k", "lp_afiro_100k")}
+    # create the CUDA context before any timed run, so that no main-path
+    # wall time includes it
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    emit({"cuda_context_s": time.perf_counter() - t0})
+    lp_af, _ = canonicalize(g)
+    # the device-memory variant; most of these LPs run to max_iters in f32
+    # (as in the reference), so the plain version takes a slice of them and,
+    # for steepest edge, a shorter budget given to both and a smaller slice
+    sc205, _ = canonicalize(perturbed_batch(
+        read_mps(fixture_path("sc205_like")), SLICE))
+    assert simplex_variant(sc205.m, sc205.n) == "device"
+    checks = {}
+
+    def ahead(key, check):
+        checks[key] = start(check)
+
+    def done(*key, value=None):
+        return finish(checks.pop(key), value)
+
+    # ---- every check whose plain version runs on a worker hands it over
+    # now, the longest first so that the workers end together; the plain
+    # versions of the rows the kernel table reports run in this process
+    # (``here``) when their checks finish, after the workers have gone
+    se = "steepest_edge"
+    with phase("hand_over"):
+        # sc205_like: a 600-step budget for every rule of the schedule
+        # (most members run to the cap in f32), the plain version on the
+        # first 128
+        ahead(("schedule", "sc205", se), compare_schedule(
+            "sc205_like_2k", sc205, se, n_plain=128, max_iters=600))
+        for rule in (se, "devex", "dantzig"):
+            ahead(("compare", "sc205", rule), compare(
+                "sc205_like_2k", sc205, rule, n_plain=128,
+                max_iters=600 if rule == se else None))
+        for rule in REVISED_RULES:
+            ahead(("revised_schedule", "lp_100d_50k", rule),
+                  compare_revised_schedule("lp_100d_50k", lp100, rule))
+            # the device-memory workspace
+            ahead(("revised", "sc205", rule), compare_revised(
+                "sc205_like_2k", sc205, rule, n_plain=128, max_iters=600))
+        # every PDHG variant and step rule against the plain version:
+        # registers (lp_100d_50k 256 threads, lp_afiro_100k one warp),
+        # shared (sc205_like), device (lp_300d_2k).  The linesearch costs
+        # the plain version up to 13 matvecs an iteration: a shorter
+        # budget and the first 128 LPs
+        ahead(("pdhg", "lp100", "malitsky_pock"), compare_pdhg(
+            "lp_100d_50k", lp100, "malitsky_pock", n_plain=128,
+            max_iters=1600))
+        for rule in ("devex", "dantzig"):
+            ahead(("schedule", "sc205", rule), compare_schedule(
+                "sc205_like_2k", sc205, rule, n_plain=128, max_iters=600))
+        for rule in RULES:
+            here = rule == "dantzig"
+            ahead(("schedule", "lp100", rule), compare_schedule(
+                "lp_100d_50k", lp100, rule, here=here))
+            ahead(("compare", "lp100", rule), compare("lp_100d_50k", lp100,
+                                                      rule, here=here))
+        # sc205_like: A in shared memory, one block per SM, at a budget
+        # that keeps the plain version's lockstep loop short
+        ahead(("pdhg", "sc205", "malitsky_pock"), compare_pdhg(
+            "sc205_like_2k", sc205, "malitsky_pock", n_plain=32,
+            max_iters=800))
+        for rule in REVISED_RULES:
+            ahead(("revised", "lp_100d_50k", rule), compare_revised(
+                "lp_100d_50k", lp100, rule, here=rule == "dantzig"))
+        ahead(("pdhg", "lp300", "malitsky_pock"), compare_pdhg(
+            "lp_300d_2k", lp300, "malitsky_pock", n_lp=256, n_plain=16,
+            max_iters=800))
+        ahead(("pdhg", "afiro", "malitsky_pock"), compare_pdhg(
+            "lp_afiro_100k", lp_af, "malitsky_pock", n_plain=128,
+            max_iters=1600))
+        ahead(("pdhg", "sc205", "fixed"), compare_pdhg(
+            "sc205_like_2k", sc205, "fixed", n_plain=128, max_iters=4000))
+        ahead(("pdhg", "lp100", "fixed"), compare_pdhg(
+            "lp_100d_50k", lp100, "fixed", max_iters=PDHG_PLAIN_CAP,
+            here=True))
+        ahead(("pdhg_schedule",), compare_pdhg_schedule("lp_100d_50k", lp100,
+                                                        here=True))
+        ahead(("pdhg", "afiro", "fixed"), compare_pdhg("lp_afiro_100k",
+                                                       lp_af, "fixed"))
+        for rule in RULES:
+            ahead(("compare", "afiro", rule), compare("lp_afiro_100k", lp_af,
+                                                      rule))
+            ahead(("schedule", "afiro", rule), compare_schedule(
+                "lp_afiro_100k", lp_af, rule))
+        for rule in REVISED_RULES:
+            ahead(("revised", "lp_afiro_100k", rule), compare_revised(
+                "lp_afiro_100k", lp_af, rule))
+            ahead(("revised_schedule", "lp_afiro_100k", rule),
+                  compare_revised_schedule("lp_afiro_100k", lp_af, rule))
+
+    build_thread.join()
+    if failed:
+        raise failed[0]
     ptxas = []
     for name in _build.SOURCES:
         report = _build.library_path(name).with_suffix(".log")
@@ -3840,172 +4592,184 @@ def main(argv=None) -> int:
           "ptxas": ptxas[:40]})
     ptx = {"pdhg_segment": pdhg_ptxas(), "revised_segment": revised_ptxas(),
            "simplex_segment": simplex_ptxas()}
-    # create the CUDA context before any timed run, so that no main-path
-    # wall time includes it
-    t0 = time.perf_counter()
-    torch.zeros(1, device="cuda").add_(1)
-    torch.cuda.synchronize()
-    emit({"cuda_context_s": time.perf_counter() - t0})
+    with phase("plain_versions"):
+        # lp_300d_2k: the device-memory variant, whose members need 19,000
+        # iterations and more, at a cap where some converge, the plain
+        # version on those the kernel solved first (so the kernel runs
+        # first, now that it is built) and on members still running at the
+        # cap
+        ahead(("pdhg", "lp300", "fixed"), compare_pdhg(
+            "lp_300d_2k", lp300, "fixed", n_lp=256, n_plain=64,
+            max_iters=40_000, solved_first=True))
+        # lp_sc50b_like_50k's solve is host-bound (the canonicalization of
+        # 50,000 general-form LPs): it runs while this process would wait
+        # for the workers, who share the card with it, and says so
+        sc50b = solve_workload("lp_sc50b_like_50k")
+        sc50b["card_shared_with"] = f"{PLAIN_WORKERS} plain-version workers"
+        emit({"plain_workers": PLAIN_WORKERS, "wait_s": wait_plain()})
 
     # ---- main path: the two paper workloads through solve_batched ---------
-    lp100 = random_lp_batch(np.random.default_rng(2018), B=50_000, m=100,
-                            n=100, feasible_start=False)
-    head = LPBatch(A=lp100.A[:64], b=lp100.b[:64], c=lp100.c[:64])
-    res_100, launches_100, wall_100 = solve_main("lp_100d_50k", lp100, head)
-
-    afiro = read_mps(fixture_path("afiro"))
-    g = perturbed_batch(afiro, 100_000)
-    g64 = dataclasses.replace(g, A=g.A[:64], rhs=g.rhs[:64], lb=g.lb[:64],
-                              ub=g.ub[:64], c=g.c[:64], c0=g.c0[:64])
-    res_af, launches_af, _ = solve_main("lp_afiro_100k", g, g64)
-    assert res_af.status[0] == 0
-    np.testing.assert_allclose(res_af.objective[0], AFIRO_OPT, rtol=1e-4)
-    emit({"afiro_member0_objective": float(res_af.objective[0]),
-          "published": AFIRO_OPT})
+    with phase("main_path"):
+        head = LPBatch(A=lp100.A[:64], b=lp100.b[:64], c=lp100.c[:64])
+        res_100, n, wall_100 = solve_main("lp_100d_50k", lp100, head)
+        path_launches("simplex_tile", "main_path lp_100d_50k", n)
+        afiro = read_mps(fixture_path("afiro"))
+        g64 = dataclasses.replace(g, A=g.A[:64], rhs=g.rhs[:64],
+                                  lb=g.lb[:64], ub=g.ub[:64], c=g.c[:64],
+                                  c0=g.c0[:64])
+        res_af, n, _ = solve_main("lp_afiro_100k", g, g64)
+        path_launches("simplex_tile", "main_path lp_afiro_100k", n)
+        assert res_af.status[0] == 0
+        np.testing.assert_allclose(res_af.objective[0], AFIRO_OPT, rtol=1e-4)
+        emit({"afiro_member0_objective": float(res_af.objective[0]),
+              "published": AFIRO_OPT})
+        check_main_batches((lp100, g, lp300), digests)
 
     # ---- kernel vs plain version on the card ------------------------------
-    lp_af, _ = canonicalize(g)
-    full_100 = kernel_at_full_batch("lp_100d_50k", lp100)
-    kernel_at_full_batch("lp_afiro_100k", lp_af)
-    rows = []
-    for rule in RULES:
-        rows.append(compare("lp_100d_50k", lp100, rule))
-        compare("lp_afiro_100k", lp_af, rule)
-    # the device-memory variant; most of these LPs run to max_iters in f32
-    # (as in the reference), so the plain version takes a slice of them and,
-    # for steepest edge, a shorter budget given to both and a smaller slice
-    sc205, _ = canonicalize(perturbed_batch(
-        read_mps(fixture_path("sc205_like")), SLICE))
-    assert simplex_variant(sc205.m, sc205.n) == "device"
-    for rule in RULES:
-        se = rule == "steepest_edge"
-        compare("sc205_like_2k", sc205, rule, n_plain=128,
-                max_iters=600 if se else None)
+    with phase("simplex_checks"):
+        full_100 = kernel_at_full_batch("lp_100d_50k", lp100)
+        kernel_at_full_batch("lp_afiro_100k", lp_af)
+        rows = []
+        for rule in RULES:
+            rows.append(done("compare", "lp100", rule))
+            done("compare", "afiro", rule)
+        for rule in RULES:
+            done("compare", "sc205", rule)
 
     # ---- compaction path: the segment kernel under the scheduler ----------
-    launches_seg, _ = compaction_main(lp100, res_100, wall_100, full_100)
-    segment_at_full_batch(lp100, full_100)
-    kernel_at_full_batch("lp_100d_50k", lp100)
-    seg_full = segment_at_full_batch(lp100, full_100)
-    for cap in (200, 420):   # all 2,048 LPs at the cap; about half
-        binding_budget(lp100, cap)
-    seg_rows = []
-    for rule in RULES:
-        seg_rows.append(compare_schedule("lp_100d_50k", lp100, rule))
-        compare_schedule("lp_afiro_100k", lp_af, rule)
-    # sc205_like: a 600-step budget for every rule (most members run to
-    # the cap in f32), the plain version on the first 128
-    for rule in RULES:
-        compare_schedule("sc205_like_2k", sc205, rule, n_plain=128,
-                         max_iters=600)
-    trace_builds[2].join()
-    simplex_trace(lp100, lp_af)
+    with phase("compaction"):
+        n, res_comp, comp_stats = compaction_main(lp100, res_100, wall_100,
+                                                  full_100)
+        path_launches("simplex_segment", "compaction lp_100d_50k", n)
+        segment_at_full_batch(lp100, full_100)
+        kernel_at_full_batch("lp_100d_50k", lp100)
+        seg_full = segment_at_full_batch(lp100, full_100)
+        for cap in (200, 420):   # all 2,048 LPs at the cap; about half
+            binding_budget(lp100, cap)
+        seg_rows = []
+        for rule in RULES:
+            seg_rows.append(done("schedule", "lp100", rule))
+            done("schedule", "afiro", rule)
+        for rule in RULES:
+            done("schedule", "sc205", rule)
+        trace_builds[2].join()
+        simplex_trace(lp100, lp_af)
+
+    # ---- the paper's workloads, multi-rank solving, the LP router --------
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        with phase("new_phases"):
+            with phase("paper_workloads"):
+                for name, n in paper_workloads(behind, {
+                        "lp_sc50b_like_50k": sc50b}).items():
+                    path_launches("simplex_tile", f"paper_workloads {name}",
+                                  n)
+            with phase("distributed"):
+                n, n_seg = distributed(lp100, res_100, res_comp, comp_stats,
+                                       Path(tmp))
+                path_launches("simplex_tile", "distributed world of one", n)
+                path_launches("simplex_segment",
+                              "distributed world of one segment_k", n_seg)
+            with phase("lp_router"):
+                path_launches("simplex_tile", "lp_router", lp_router())
+    del res_comp
+    with phase("reachability_example"):
+        reachability()
 
     # ---- branch-and-bound: the combined stage, warm starts, trees --------
-    t_bnb = time.perf_counter()
-    comb_rows = []
-    for rule in RULES:
-        comb_rows.append(compare_combined("lp_100d_50k", lp100, rule))
-        comb_rows.append(compare_combined("sc205_like_2k", sc205, rule,
-                                          n_lp=256, n_plain=128,
-                                          parent_steps=700))
-    comb_full = combined_at_full_batch(lp100, res_100, seg_full)
-    launches_full = tableau_warm_card(afiro, lp_af, res_af)
-    launches_full += bnb_fixtures()
-    launches_full += bnb_frontier()
-    emit({"bnb_phase_s": time.perf_counter() - t_bnb})
+    with phase("branch_and_bound"):
+        comb_rows = []
+        for rule in RULES:
+            comb_rows.append(compare_combined("lp_100d_50k", lp100, rule))
+            comb_rows.append(compare_combined("sc205_like_2k", sc205, rule,
+                                              n_lp=256, n_plain=128,
+                                              parent_steps=700))
+        comb_full = combined_at_full_batch(lp100, res_100, seg_full)
+        for path, fn in (("tableau_warm_card",
+                          lambda: tableau_warm_card(afiro, lp_af, res_af)),
+                         ("bnb_fixtures", bnb_fixtures),
+                         ("bnb_frontier", bnb_frontier)):
+            path_launches("simplex_segment_full", path, fn())
 
     # ---- revised path: the revised kernel, with warm starts ---------------
-    launches_rev = 0
-    for rule in REVISED_RULES:
-        _, got = revised_main("lp_100d_50k", lp100, head, rule, res_100)
-        launches_rev += got
-    launches_rev += revised_warm(afiro, g, g64, traj_lps=100_000)
-    rev_rows = []
-    for rule in REVISED_RULES:
-        row, whole = compare_revised("lp_100d_50k", lp100, rule)
-        rev_rows.append(row)
-        compare_revised_schedule("lp_100d_50k", lp100, rule, whole)
-        _, whole = compare_revised("lp_afiro_100k", lp_af, rule)
-        compare_revised_schedule("lp_afiro_100k", lp_af, rule, whole)
-        del whole
-    for rule in REVISED_RULES:   # the device-memory workspace
-        compare_revised("sc205_like_2k", sc205, rule, n_plain=128,
-                        max_iters=600)
-    rev_full = revised_at_full_batch("lp_100d_50k", lp100)
-    trace_builds[1].join()
-    revised_trace(lp100, lp_af)
+    with phase("revised"):
+        for rule in REVISED_RULES:
+            _, n = revised_main("lp_100d_50k", lp100, head, rule, res_100)
+            path_launches("revised_segment", f"revised_main {rule}", n)
+        path_launches("revised_segment", "revised_warm",
+                      revised_warm(afiro, g, g64, traj_lps=100_000))
+        rev_rows = []
+        for rule in REVISED_RULES:
+            row, whole = done("revised", "lp_100d_50k", rule)
+            rev_rows.append(row)
+            done("revised_schedule", "lp_100d_50k", rule, value=whole)
+            _, whole = done("revised", "lp_afiro_100k", rule)
+            done("revised_schedule", "lp_afiro_100k", rule, value=whole)
+            del whole
+        for rule in REVISED_RULES:
+            done("revised", "sc205", rule)
+        rev_full = revised_at_full_batch("lp_100d_50k", lp100)
+        trace_builds[1].join()
+        revised_trace(lp100, lp_af)
 
     # ---- restarted PDHG: the whole-solve and segment kernels --------------
-    res_pdhg, launches_pdhg, wall_pdhg = pdhg_main(
-        "lp_100d_50k", lp100, head, (lp100.m, lp100.n), res_100)
-    launches_pdhg_seg, pdhg_comp = pdhg_compaction_main(lp100, res_pdhg,
-                                                        wall_pdhg)
-    launches_pdhg += pdhg_warm(g, g64, (lp_af.m, lp_af.n))
-    # every variant and step rule against the plain version: registers
-    # (lp_100d_50k 256 threads, lp_afiro_100k one warp), shared
-    # (sc205_like), device (lp_300d_2k)
-    pdhg_rows = [compare_pdhg("lp_100d_50k", lp100, "fixed",
-                              max_iters=PDHG_PLAIN_CAP)[0]]
-    pdhg_seg_row = compare_pdhg_schedule("lp_100d_50k", lp100)
-    seg_launch_rows = [compare_pdhg_segment("lp_100d_50k", lp100)]
-    # the linesearch costs the plain version up to 13 matvecs an iteration:
-    # a shorter budget and the first 128 LPs
-    pdhg_rows.append(compare_pdhg("lp_100d_50k", lp100, "malitsky_pock",
-                                  n_plain=128, max_iters=1600)[0])
-    pdhg_rows.append(compare_pdhg("lp_afiro_100k", lp_af, "fixed")[0])
-    pdhg_rows.append(compare_pdhg("lp_afiro_100k", lp_af, "malitsky_pock",
-                                  n_plain=128, max_iters=1600)[0])
-    seg_launch_rows.append(compare_pdhg_segment("lp_afiro_100k", lp_af))
-    # sc205_like: A in shared memory, one block per SM, at a budget that
-    # keeps the plain version's lockstep loop short; lp_300d_2k: the
-    # device-memory variant, whose members need 19,000 iterations and more,
-    # at a cap where some converge, the plain version on those the kernel
-    # solved first and on members still running at the cap
-    pdhg_rows.append(compare_pdhg("sc205_like_2k", sc205, "fixed",
-                                  n_plain=128, max_iters=4000)[0])
-    pdhg_rows.append(compare_pdhg("sc205_like_2k", sc205, "malitsky_pock",
-                                  n_plain=32, max_iters=800)[0])
-    seg_launch_rows.append(compare_pdhg_segment("sc205_like_2k", sc205,
-                                                n_plain=128))
-    lp300 = random_lp_batch(np.random.default_rng(2018), B=256, m=300, n=300)
-    pdhg_rows.append(compare_pdhg("lp_300d_2k", lp300, "fixed", n_lp=256,
-                                  n_plain=64, max_iters=40_000,
-                                  solved_first=True)[0])
-    pdhg_rows.append(compare_pdhg("lp_300d_2k", lp300, "malitsky_pock",
-                                  n_lp=256, n_plain=16, max_iters=800)[0])
-    seg_launch_rows.append(compare_pdhg_segment("lp_300d_2k", lp300,
-                                                n_lp=256, n_plain=64))
-    del lp300
-    pdhg_sparse("sc205_like_2k", sc205, max_iters=20_000)
-    pdhg_full = pdhg_full_batch(lp100)
-    trace_builds[0].join()
-    pdhg_trace(lp100)
+    with phase("pdhg"):
+        res_pdhg, n, wall_pdhg = pdhg_main(
+            "lp_100d_50k", lp100, head, (lp100.m, lp100.n), res_100)
+        path_launches("pdhg", "pdhg_main", n)
+        n, pdhg_comp = pdhg_compaction_main(lp100, res_pdhg, wall_pdhg)
+        path_launches("pdhg_segment", "pdhg_compaction_main", n)
+        path_launches("pdhg", "pdhg_warm",
+                      pdhg_warm(g, g64, (lp_af.m, lp_af.n)))
+        pdhg_rows = [done("pdhg", "lp100", "fixed")[0]]
+        pdhg_seg_row = done("pdhg_schedule")
+        seg_launch_rows = [compare_pdhg_segment("lp_100d_50k", lp100)]
+        pdhg_rows.append(done("pdhg", "lp100", "malitsky_pock")[0])
+        pdhg_rows.append(done("pdhg", "afiro", "fixed")[0])
+        pdhg_rows.append(done("pdhg", "afiro", "malitsky_pock")[0])
+        seg_launch_rows.append(compare_pdhg_segment("lp_afiro_100k", lp_af))
+        pdhg_rows.append(done("pdhg", "sc205", "fixed")[0])
+        pdhg_rows.append(done("pdhg", "sc205", "malitsky_pock")[0])
+        seg_launch_rows.append(compare_pdhg_segment("sc205_like_2k", sc205,
+                                                    n_plain=128))
+        pdhg_rows.append(done("pdhg", "lp300", "fixed")[0])
+        pdhg_rows.append(done("pdhg", "lp300", "malitsky_pock")[0])
+        seg_launch_rows.append(compare_pdhg_segment("lp_300d_2k", lp300,
+                                                    n_lp=256, n_plain=64))
+        assert not checks, sorted(checks)
+        emit({"plain_versions_on_workers": PLAIN,
+              "workers": PLAIN_WORKERS})
+        pdhg_sparse("sc205_like_2k", sc205, max_iters=20_000)
+        pdhg_full = pdhg_full_batch(lp100)
+        trace_builds[0].join()
+        pdhg_trace(lp100)
 
     # ---- the telemetry plane: counters through the segment kernels -------
-    del res_pdhg
-    tel_launches = telemetry_main(lp100)
-    tel_rows = telemetry_kernels("lp_100d_50k", lp100)
-    # the device variants of the simplex (both stages) and revised counter
-    # kernels, PDHG's shared one on sc205_like and its device one on
-    # lp_300d_2k's first 64 LPs
-    tel_shapes = [tel_rows,
-                  telemetry_kernels("sc205_like_2k", sc205, B=256),
-                  telemetry_kernels("lp_300d_2k", random_lp_batch(
-                      np.random.default_rng(2018), B=256, m=300, n=300),
-                      B=64, kernels=("pdhg",))]
-    tel_over = telemetry_overhead(lp100)
-    del lp100, res_100, g, lp_af, sc205
+    with phase("telemetry"):
+        del res_pdhg
+        tel_launches = telemetry_main(lp100)
+        tel_rows = telemetry_kernels("lp_100d_50k", lp100)
+        # the device variants of the simplex (both stages) and revised
+        # counter kernels, PDHG's shared one on sc205_like and its device
+        # one on lp_300d_2k's first 64 LPs
+        tel_shapes = [tel_rows,
+                      telemetry_kernels("sc205_like_2k", sc205, B=256),
+                      telemetry_kernels("lp_300d_2k", lp300, B=64,
+                                        kernels=("pdhg",))]
+        tel_over = telemetry_overhead(lp100)
+    del lp100, res_100, g, lp_af, sc205, lp300
     torch.cuda.empty_cache()
 
     # ---- box LP: the hyperbox kernel --------------------------------------
-    box = box_lp()
+    with phase("box_lp"):
+        box = box_lp()
 
     # ---- falcon-mamba-7b serving: the selective-scan kernel ----------------
-    scan = serving()
+    with phase("serving"):
+        scan = serving()
 
     # ---- falcon-mamba-7b training: the scan's backward kernel -------------
-    bwd = training()
+    with phase("training"):
+        bwd = training()
     emit({"total_s": time.perf_counter() - t_start})
 
     main_row = rows[0]   # lp_100d_50k slice, dantzig: the paper's rule
@@ -4015,9 +4779,10 @@ def main(argv=None) -> int:
         "name": "simplex_tile", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/simplex_tile.cu",
         "replaces": "src/repro/kernels/simplex_tile.py:421",
-        "launches": launches_100 + launches_af,
+        **launch_keys("simplex_tile"),
         "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+        "plain_ms": main_row["plain_ms"], "plain_on": main_row["plain_on"],
+        "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"], "library_ms": None,
         "variant": main_row["variant"],
         "full_batch_ms": full_100["ms"],
@@ -4027,9 +4792,10 @@ def main(argv=None) -> int:
         "name": "simplex_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/simplex_tile.cu",
         "replaces": "src/repro/kernels/simplex_tile.py:494",
-        "launches": launches_seg,
+        **launch_keys("simplex_segment"),
         "max_abs_err": seg_row["max_abs_err"], "ms": seg_row["ms"],
-        "plain_ms": seg_row["plain_ms"], "bound_ms": seg_row["bound_ms"],
+        "plain_ms": seg_row["plain_ms"], "plain_on": seg_row["plain_on"],
+        "bound_ms": seg_row["bound_ms"],
         "bound_by": seg_row["bound_by"], "library_ms": None,
         "variant": {"p1": seg_row["p1_variant"], "p2": seg_row["p2_variant"]},
         "full_batch_ms": seg_full["segment_ms"],
@@ -4041,7 +4807,7 @@ def main(argv=None) -> int:
         "name": "simplex_segment_full", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/simplex_tile.cu",
         "replaces": "src/repro/core/compaction.py:229",
-        "launches": launches_full,
+        **launch_keys("simplex_segment_full"),
         "max_abs_err": max(r["max_abs_err"] for r in comb_rows),
         "ms": comb_rows[0]["ms"], "plain_ms": comb_rows[0]["plain_ms"],
         "bound_ms": comb_rows[0]["bound_ms"],
@@ -4075,9 +4841,10 @@ def main(argv=None) -> int:
         "name": "revised_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/revised_tile.cu",
         "replaces": "src/repro/kernels/revised_tile.py:221",
-        "launches": launches_rev,
+        **launch_keys("revised_segment"),
         "max_abs_err": rev_rows[0]["max_abs_err"], "ms": rev_rows[0]["ms"],
         "plain_ms": rev_rows[0]["plain_ms"],
+        "plain_on": rev_rows[0]["plain_on"],
         "bound_ms": rev_rows[0]["bound_ms"],
         "bound_by": rev_rows[0]["bound_by"], "library_ms": None,
         "variant": rev_rows[0]["variant"],
@@ -4089,10 +4856,11 @@ def main(argv=None) -> int:
         "name": "pdhg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pdhg_tile.cu",
         "replaces": "src/repro/kernels/pdhg_tile.py:268",
-        "launches": launches_pdhg,
+        **launch_keys("pdhg"),
         "max_abs_err": max(r["max_abs_err"] for r in pdhg_rows),
         "ms": pdhg_row["ms"],
-        "plain_ms": pdhg_row["plain_ms"], "bound_ms": pdhg_row["bound_ms"],
+        "plain_ms": pdhg_row["plain_ms"], "plain_on": pdhg_row["plain_on"],
+        "bound_ms": pdhg_row["bound_ms"],
         "bound_by": pdhg_row["bound_by"], "library_ms": None,
         "variant": pdhg_row["variant"],
         "slice_max_iters": pdhg_row["max_iters"],
@@ -4101,7 +4869,8 @@ def main(argv=None) -> int:
         "full_batch_bound_ms": pdhg_full["bound_ms"],
         "shapes": [{k: r[k] for k in (
             "compare_pdhg", "step_rule", "variant", "lps", "max_iters",
-            "ms", "bound_ms", "plain_ms", "plain_lps", "max_abs_err")}
+            "ms", "bound_ms", "plain_ms", "plain_on", "plain_lps",
+            "max_abs_err")}
             for r in pdhg_rows],
         "parity": "every output equal (NaN where NaN): both step rules, "
                   "lp_100d_50k and lp_afiro_100k (A in registers), "
@@ -4110,11 +4879,12 @@ def main(argv=None) -> int:
         "name": "pdhg_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pdhg_tile.cu",
         "replaces": "src/repro/kernels/pdhg_tile.py:469",
-        "launches": launches_pdhg_seg,
+        **launch_keys("pdhg_segment"),
         "max_abs_err": max([pdhg_seg_row["max_abs_err"]]
                            + [r["max_abs_err"] for r in seg_launch_rows]),
         "ms": pdhg_seg_row["ms"],
         "plain_ms": pdhg_seg_row["plain_ms"],
+        "plain_on": pdhg_seg_row["plain_on"],
         "bound_ms": pdhg_seg_row["bound_ms"],
         "bound_by": pdhg_seg_row["bound_by"], "library_ms": None,
         "variant": pdhg_comp["variant"],

@@ -4,9 +4,13 @@ constructors of the architectures ported so far.
 ``ARCH_IDS`` and ``CANONICAL`` are the reference's (``repro/configs``).
 Only falcon-mamba-7b runs in the port yet; ``get_config`` of any other id
 raises ``NotImplementedError`` (ROADMAP: the rest of the LM scaffold lists
-the model modules and configs still to port).
+the model modules and configs still to port).  ``paper_lp`` holds the
+paper's LP workloads (``WORKLOADS``, ``build_batch``); it is not an
+architecture.
 """
 from importlib import import_module
+
+from . import paper_lp  # noqa: F401
 
 ARCH_IDS = (
     "deepseek_v2_236b",

@@ -171,9 +171,12 @@ class SegmentStat:
     survivors: int = -1  # running LPs after the segment
 
 
-def next_bucket(active: int) -> int:
-    """Next power of two >= active."""
-    return 1 << max(0, active - 1).bit_length()
+def next_bucket(active: int, pad_multiple: int = 1) -> int:
+    """Next power of two >= active, rounded up to a multiple of
+    ``pad_multiple`` (a backend's ``pad_multiple``: the world size of
+    core/distributed.py, so every rank holds as many lanes)."""
+    b = 1 << max(0, active - 1).bit_length()
+    return -(-b // pad_multiple) * pad_multiple
 
 
 def segment_pending(state: CompactionState, stage: str,
@@ -243,9 +246,11 @@ def segment_combined(state: CompactionState, steps: int, *, m: int, n: int,
 
 class TorchBackend:
     """Segment runners on the plain PyTorch engine (any device); the
-    counterpart of the reference's ``JaxBackend``.  No backend of the port
-    pads its batch, so every slot holds one of the caller's LPs until a
-    gather fills a bucket."""
+    counterpart of the reference's ``JaxBackend``.  Its buckets are plain
+    powers of two (``pad_multiple`` 1); core/distributed.py wraps a backend
+    whose buckets are multiples of the world size."""
+
+    pad_multiple = 1
 
     def __init__(self, m: int, n: int, tol: float, feas_tol: float,
                  pricing: str = "dantzig"):
@@ -322,6 +327,10 @@ class TorchBackend:
     def phase_host(self, state) -> np.ndarray:
         return state.phase.cpu().numpy()
 
+    def tel_host(self, state) -> dict:
+        """The counter lanes of ``state`` as NumPy arrays, by lane name."""
+        return tel_to_numpy(state.tel)
+
     def extract(self, state: CompactionState, stage: str):
         """(x, obj, status, iters, y, z) as NumPy; RUNNING reads as the
         iteration limit, objectives and duals are NaN off OPTIMAL."""
@@ -361,10 +370,12 @@ def run_schedule(backend, state: CompactionState, *,
                  compact_threshold: Optional[float] = None,
                  stats_out: Optional[List[SegmentStat]] = None,
                  work_out: Optional[np.ndarray] = None,
+                 orig: Optional[np.ndarray] = None,
                  tracer=None) -> LPResult:
     """Drive a backend from its initial ``state`` (``backend.init``) through
     segmented stage p1 (full tableau) and stage p2 (phase-compacted) with
-    survivor gathers in between.
+    survivor gathers in between.  Buckets are powers of two rounded up to
+    ``backend.pad_multiple``.
 
     ``max_iters`` is each LP's own step budget; ``None`` takes
     ``default_max_iters``, ``segment_k=None`` ``auto_segment_k`` and
@@ -373,7 +384,9 @@ def run_schedule(backend, state: CompactionState, *,
     gather, survivors at the end.  ``stats_out`` (a list) collects one
     ``SegmentStat`` per segment; ``work_out``, a (B, 3) integer array when
     given, receives each LP's phase-1 pivots, phase-2 pivots and bound
-    flips.
+    flips.  ``orig``, when given, is the caller's batch index of each slot
+    the backend's host reads cover, -1 for a padding slot (already
+    terminal); by default slot i holds LP i.
 
     When the state carries counter lanes (``state.tel`` not None) each
     LP's lanes are flushed with its results, and ``LPResult.stats`` holds
@@ -392,9 +405,12 @@ def run_schedule(backend, state: CompactionState, *,
         compact_threshold=resolve_compact_threshold(compact_threshold,
                                                     int(segment_k)))
     max_iters = int(max_iters)
-    B = int(state.status.shape[0])
-    # orig[i]: the caller's batch index in slot i (-1 for a gather's fill)
-    orig = np.arange(B, dtype=np.int64)
+    # orig[i]: the caller's batch index in slot i (-1: padding or a
+    # gather's fill)
+    if orig is None:
+        orig = np.arange(int(state.status.shape[0]), dtype=np.int64)
+    orig = np.asarray(orig, dtype=np.int64)
+    B = int((orig >= 0).sum())
     out_x = np.zeros((B, n), np.float32)
     out_obj = np.full((B,), np.nan, np.float32)
     out_status = np.full((B,), ITERATION_LIMIT, np.int8)
@@ -418,7 +434,7 @@ def run_schedule(backend, state: CompactionState, *,
         if work_out is not None:
             work_out[oi] = backend.work_host(state)[sel]
         if tel_host is not None:
-            for name, vals in tel_to_numpy(state.tel).items():
+            for name, vals in backend.tel_host(state).items():
                 tel_host[name][oi] = vals[sel]
         if tracer is not None:
             tracer.event("flush", stage=stage, lps=int(sel.sum()))
@@ -431,7 +447,7 @@ def run_schedule(backend, state: CompactionState, *,
         cur = len(orig)
         if n_run == 0:
             return state, orig, status
-        bucket = next_bucket(n_run)
+        bucket = next_bucket(n_run, backend.pad_multiple)
         if bucket >= cur or n_run >= config.compact_threshold * cur:
             return state, orig, status
         # retire everyone's current results, then gather the survivors

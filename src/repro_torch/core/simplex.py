@@ -380,6 +380,17 @@ def tableau_elements(m: int, n: int, compacted: bool = False) -> int:
     return (m + 2) * (n + 2 * m + 1)
 
 
+def flops_per_pivot(m: int, n: int, compacted: bool = False) -> int:
+    """Approximate flops of one pivot across one tableau (Table-5-style
+    Gflop/s accounting): the rank-1 update, 2 * rows * C, plus the two
+    reductions and the row scale."""
+    if compacted:
+        rows, C = m + 1, n + m + 1
+    else:
+        rows, C = m + 2, n + 2 * m + 1
+    return 2 * rows * C + (2 * C + 3 * m) + C
+
+
 def compact_tableau(T: torch.Tensor, *, m: int, n: int) -> torch.Tensor:
     """One-shot phase compaction: drop the m artificial columns and the
     phase-1 row, (B, m+2, n+2m+1) -> (B, m+1, n+m+1).  Basic artificials

@@ -1,10 +1,11 @@
-"""Fixed-format MPS reader -> ``GeneralLPBatch`` (NumPy).
+"""Fixed-format MPS reader and writer <-> ``GeneralLPBatch`` (NumPy).
 
-A copy of ``repro.io.mps``'s reader and batch constructors (``read_mps``,
-``fixture_path``, ``perturbed_batch``, ``perturbed_sequence``): the port
-needs them on a machine without JAX.  Parsing accepts the classic sections
+A copy of ``repro.io.mps`` (``read_mps``, ``write_mps``, ``fixture_path``,
+``perturbed_batch``, ``perturbed_sequence``): the port needs them on a
+machine without JAX.  Parsing accepts the classic sections
 (NAME, ROWS, COLUMNS, RHS, RANGES, BOUNDS, ENDATA) plus OBJSENSE, tolerant of
-whitespace; ``*`` lines are comments.  ``perturbed_batch`` expands one
+whitespace; ``*`` lines are comments.  ``write_mps`` writes one instance
+that reads back bit for bit (values at ``%.12g``).  ``perturbed_batch`` expands one
 instance into a B-sized batch by multiplicative perturbation of the nonzero
 data, the paper's recipe for same-shape batches (Sec. 6).  Fixtures resolve
 to the repository's ``tests/fixtures/``, shared with the reference package.
@@ -193,6 +194,97 @@ def read_mps(path: str) -> GeneralLPBatch:
         ranges=rng_arr, name=name,
         row_names=[rname for _, rname in row_order], col_names=col_order,
         integer=integer)
+
+
+def _num(v: float) -> str:
+    return f"{v:.12g}"
+
+
+def _pairs(label: str, items) -> list:
+    """Format (row, value) pairs two per line under a section label."""
+    out = []
+    items = list(items)
+    for k in range(0, len(items), 2):
+        pair = items[k:k + 2]
+        line = f"    {label:<10}{pair[0][0]:<10}{_num(pair[0][1]):>14}"
+        if len(pair) == 2:
+            line += f"   {pair[1][0]:<10}{_num(pair[1][1]):>14}"
+        out.append(line)
+    return out
+
+
+def write_mps(g: GeneralLPBatch, path: str) -> None:
+    """Write a single-member ``GeneralLPBatch`` as fixed-format MPS.
+
+    Round-trip contract: ``read_mps(write_mps(g))`` reproduces the batch
+    bit-identically at %.12g (tests/test_torch_write_mps.py holds
+    it on every fixture).
+    """
+    if g.batch != 1:
+        raise ValueError(
+            f"write_mps writes one instance, got a batch of {g.batch} "
+            "(slice it, or write the un-perturbed source instance)")
+    m, n = g.m, g.n
+    rows = list(g.row_names) if g.row_names else [f"R{i}" for i in range(m)]
+    cols = list(g.col_names) if g.col_names else [f"C{j}" for j in range(n)]
+    out = [f"NAME          {g.name}"]
+    if g.maximize:
+        out += ["OBJSENSE", "    MAX"]
+    out.append("ROWS")
+    out += [f" {g.sense[i]}  {rows[i]}" for i in range(m)]
+    out.append(" N  COST")
+    out.append("COLUMNS")
+    intg = (np.zeros(n, bool) if g.integer is None
+            else np.asarray(g.integer, bool))
+    in_int = False
+    for j in range(n):
+        if intg[j] != in_int:
+            mk = "INTORG" if intg[j] else "INTEND"
+            out.append(f"    MARKER                 'MARKER'"
+                       f"                 '{mk}'")
+            in_int = bool(intg[j])
+        items = [(rows[i], g.A[0, i, j]) for i in range(m)
+                 if g.A[0, i, j] != 0.0]
+        if g.c[0, j] != 0.0 or not items:
+            # an explicit objective entry also *declares* columns that have
+            # no nonzeros at all, so they survive the round-trip
+            items.append(("COST", g.c[0, j]))
+        out += _pairs(cols[j], items)
+    if in_int:
+        out.append("    MARKER                 'MARKER'"
+                   "                 'INTEND'")
+    out.append("RHS")
+    items = [(rows[i], g.rhs[0, i]) for i in range(m) if g.rhs[0, i] != 0.0]
+    if g.c0[0] != 0.0:
+        items.append(("COST", -g.c0[0]))
+    out += _pairs("RHS", items)
+    if g.ranges is not None and np.isfinite(g.ranges).any():
+        out.append("RANGES")
+        out += _pairs("RNG", [(rows[i], g.ranges[i]) for i in range(m)
+                              if np.isfinite(g.ranges[i])])
+    blines = []
+    for j in range(n):
+        lo, hi = g.lb[0, j], g.ub[0, j]
+        if lo == 0.0 and np.isinf(hi):
+            continue
+        if lo == hi:
+            blines.append(f" FX BND       {cols[j]:<10}{_num(lo):>14}")
+            continue
+        if np.isneginf(lo) and np.isinf(hi):
+            blines.append(f" FR BND       {cols[j]:<10}")
+            continue
+        if np.isneginf(lo):
+            blines.append(f" MI BND       {cols[j]:<10}")
+        elif lo != 0.0:
+            blines.append(f" LO BND       {cols[j]:<10}{_num(lo):>14}")
+        if not np.isinf(hi):
+            blines.append(f" UP BND       {cols[j]:<10}{_num(hi):>14}")
+    if blines:
+        out.append("BOUNDS")
+        out += blines
+    out.append("ENDATA")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
 
 
 def perturbed_batch(g: GeneralLPBatch, B: int,

@@ -79,7 +79,9 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.launch, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.optim, "
             "repro_torch.distributed, repro_torch.data, repro_torch.obs, "
-            "repro_torch.obs.work, repro_torch.core.branch_bound\n"
+            "repro_torch.obs.work, repro_torch.core.branch_bound, "
+            "repro_torch.analysis.lp_perf, repro_torch.configs.paper_lp, "
+            "repro_torch.core.distributed, repro_torch.core.lp_router\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -1258,3 +1260,46 @@ def test_branch_and_bound_on_the_card_equals_the_cpu_port():
         res = branch_and_bound(read_mps(fixture_path(name)), device="cuda",
                                backend="pdhg", frontier=8, max_nodes=200)
         assert res.proven and abs(res.objective - opt[name]) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,E", [(1, 16), (4096, 16), (1, 160), (4096, 160)])
+def test_expert_capacity_lp_on_the_card_equals_the_cpu(G, E):
+    """The router's LP through the whole-solve kernel, on device tensors
+    with no host synchronization (sync-debug mode "error"), equal bit for
+    bit to its run on the CPU (the plain version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import expert_capacity_lp
+    d = np.random.default_rng(G + E).uniform(0, 50, (G, E)).astype(np.float32)
+    want = expert_capacity_lp(torch.from_numpy(d), 4.0 * E, 12.0)
+    dev_d = torch.from_numpy(d).cuda()
+    torch.cuda.synchronize()
+    before = simplex_tile.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = expert_capacity_lp(dev_d, 4.0 * E, 12.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.is_cuda and simplex_tile.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_world_of_one_segmented_equals_compaction_on_the_card():
+    """solve_shard_map(segment_k=4) in a world of one rank through the
+    segment kernel equals solve_batched(compaction=True, segment_k=4) leaf
+    by leaf, ladder included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import solve_shard_map
+    batch = random_lp_batch(np.random.default_rng(8), B=300, m=30, n=24,
+                            feasible_start=False)
+    stats, want_stats = [], []
+    got = solve_shard_map(batch, segment_k=4, stats_out=stats)
+    want = batching.solve_batched(batch, compaction=True, segment_k=4,
+                                  stats_out=want_stats)
+    for f in ("status", "iterations", "x", "objective", "y", "z"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    assert [vars(s) for s in stats] == [vars(s) for s in want_stats]
