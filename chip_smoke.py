@@ -158,6 +158,26 @@ bf16, and traced against a float32 twin of the model), and the kernel is
 timed at (4, 512, 8192, 16) beside its bytes bound, its plain version and
 a ``torch.add`` of the same bytes.
 
+Hybrid serving (after falcon-mamba's, once that model is freed):
+hymba-1.5b at its published config (32 layers, d_model 1600, 25 heads
+over 5 KV heads of 64, SwiGLU d_ff 5504, vocab 32,001, sliding window
+1,024, d_inner 3200, state 16, q_chunk 256, kv_chunk 512, bf16 parameters
+drawn on the card from a seeded generator) serves 2 waves of 4 prompts of
+2,048 tokens and 32 generated tokens through ``serve``: longer than the
+window, so the window masks whole kv chunks in prefill and old keys in
+decode, and four 512-token scan chunks a layer carry h0 to the kernel.
+The scan kernel must launch exactly 32 x 4 x 2 = 256 times and no other
+kernel; it is held against ``ssm_scan_plain`` on the inputs layer 0's
+and layer 31's last chunk received (``max_abs_err`` 0.0) and timed at
+(4, 512, 3200, 16) beside its bytes bound.  A float32 twin cut to 2
+layers runs one 1,536-token prompt and 8 greedy decode steps on the card
+and on the CPU (equal tokens, logits within ``TWIN_ATOL``), and on the
+card its prefill(1,024) followed by 512 decode steps, which cross the
+window, must end within ``TWIN_ATOL`` of its prefill(1,536).  Tokens/s,
+time to first token, prefill and decode seconds a wave, decode ms a step,
+peak device memory and the kernels' device time in one prefill and one
+decode step are printed.
+
 Training (after serving, once its model and kept tensors are freed):
 falcon-mamba-7b at its full published width in bf16 (d_model 4096,
 d_inner 8192, state 16, dt_rank 256, vocab 65,024), cut to 24 layers with
@@ -3537,15 +3557,16 @@ def scan_vs_plain(dA, dBx, h0):
 
 
 def kernel_profile(fn, top=6):
-    """The device time of the kernels fn() launches, from torch.profiler:
-    (milliseconds summed over every kernel, the ``top`` largest by name
-    with their milliseconds and counts)."""
+    """The device time of the kernels fn() launches, from torch.profiler
+    tracing the device alone: (milliseconds summed over every kernel, the
+    ``top`` largest by name with their milliseconds and counts).  Host
+    operators are not traced: their processing took 31 s for one
+    hymba-1.5b prefill."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -3770,6 +3791,249 @@ def serving():
     return info
 
 
+# ---- hymba-1.5b serving (models/attention.py, the hybrid block) ----------
+
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA = {"batch": 4, "prompt_len": 2048, "gen": 32, "requests": 2}
+# the float32 twin: its depth, one prompt, greedy steps on the card and the
+# CPU, and the prefix that 512 decode steps extend across the window
+TWIN = {"layers": 2, "prompt_len": 1536, "gen": 8, "prefix": 1024}
+# logits of the twin, card against CPU and decode against prefill: float32
+# products summed in other orders (cuBLAS, MKL; one row against many) over
+# 2 full-width layers and 512 decode steps; logits are O(5)
+TWIN_ATOL = 1e-3
+
+
+def greedy(model, prompts, steps):
+    """prefill, the KV leaves padded, then ``steps`` greedy decode steps:
+    the tokens (B, steps + 1) and the real-vocab logits of each
+    (steps + 1, B, V) as float32 on the host."""
+    import torch
+    from repro_torch.launch.serve import pad_kv
+    V = model.cfg.vocab
+    B, P = prompts.shape
+    logits, caches = model.prefill(prompts)
+    caches = pad_kv(caches, P + steps)
+    seen = [logits[:, :V].float().cpu()]
+    for g in range(steps):
+        tok = logits[:, :V].argmax(-1)
+        pos = torch.full((B,), P + g, dtype=torch.long, device=prompts.device)
+        logits, caches = model.decode_step(caches, tok, pos)
+        seen.append(logits[:, :V].float().cpu())
+    out = torch.stack(seen)
+    return out.argmax(-1).T, out
+
+
+def hymba_twin(model, device):
+    """The first TWIN["layers"] layers of ``model`` in float32 on
+    ``device`` (its bf16 parameters widened exactly), scanning with the
+    kernel's plain version on the CPU."""
+    import torch
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(model.cfg, n_layers=TWIN["layers"],
+                              dtype="float32", param_dtype="float32",
+                              ssm_impl="kernel")
+    twin = LM(cfg, device=torch.device(device))   # uninitialized, then copied
+    src = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, dst in twin.named_parameters():
+            assert dst.shape == src[name].shape, name
+            dst.copy_(src[name])
+    return twin
+
+
+def hymba_twin_checks(model):
+    """The float32 twin on the card against the CPU (greedy tokens equal,
+    logits within TWIN_ATOL) and, on the card, prefill(prefix) followed
+    by decode steps to the prompt's end against one prefill of it."""
+    import torch
+    from repro_torch.launch.serve import pad_kv
+    card = hymba_twin(model, "cuda")
+    cpu = hymba_twin(card, "cpu")
+    gen = torch.Generator().manual_seed(SERVE_SEED)
+    prompt = torch.randint(0, model.cfg.vocab, (1, TWIN["prompt_len"]),
+                           generator=gen)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        tok_card, logit_card = greedy(card, prompt.cuda(), TWIN["gen"])
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok_cpu, logit_cpu = greedy(cpu, prompt, TWIN["gen"])
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float((logit_card - logit_cpu).abs().max())
+
+        # decode across the window: 512 steps from a 1,024-token prefill
+        P0, P = TWIN["prefix"], TWIN["prompt_len"]
+        ids = prompt.cuda()
+        t0 = time.perf_counter()
+        _, caches = card.prefill(ids[:, :P0])
+        caches = pad_kv(caches, P)
+        for p in range(P0, P):
+            stepped, caches = card.decode_step(
+                caches, ids[:, p], torch.full((1,), p, device="cuda"))
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        whole, _ = card.prefill(ids)
+        V = model.cfg.vocab
+        window_err = float((stepped[:, :V] - whole[:, :V]).abs().max())
+        scale = float(whole[:, :V].abs().max())
+    info = {"twin_layers": TWIN["layers"], "prompt_len": P,
+            "greedy_steps": TWIN["gen"], "tolerance": TWIN_ATOL,
+            "card_tokens": tok_card[0].tolist(),
+            "card_vs_cpu_tokens_equal": bool(torch.equal(tok_card, tok_cpu)),
+            "card_vs_cpu_max_abs_err": cpu_err,
+            "decode_steps": P - P0, "prefix": P0,
+            "decode_vs_prefill_max_abs_err": window_err,
+            "logit_scale": scale, "card_greedy_s": card_s,
+            "cpu_greedy_s": cpu_s, "card_decode_steps_s": steps_s}
+    emit({"hymba_float32_twin": info})
+    assert info["card_vs_cpu_tokens_equal"], info
+    assert cpu_err <= TWIN_ATOL and window_err <= TWIN_ATOL, info
+    del card, cpu, caches
+    return info
+
+
+def serving_hymba():
+    """hymba-1.5b at its published config served through
+    repro_torch.launch.serve.serve (module docstring); returns the scan
+    kernel's row at the hybrid's shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssm_scan_bt_ds, ssm_scan_plain
+    from repro_torch.launch.serve import pad_kv, serve, set_matmul_policy
+    from repro_torch.models import build_model
+
+    policy = set_matmul_policy()
+    cfg = get_config(HYMBA_ARCH)
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab,
+            cfg.sliding_window, cfg.d_inner, cfg.q_chunk, cfg.kv_chunk,
+            cfg.param_dtype) == ("hybrid", 32, 1600, 25, 5, 64, 5504, 32001,
+                                 1024, 3200, 256, 512, "bfloat16")
+    assert HYMBA["prompt_len"] > cfg.sliding_window
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED)     # drawn on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+
+    # the first wave's last chunk in layers 0 and 31, as the served run
+    # hands them to the kernel
+    chunks = HYMBA["prompt_len"] // SCAN_CHUNK
+    last = cfg.n_layers - 1
+    calls = {layer: layer * chunks + chunks - 1 for layer in (0, last)}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with phase("serving_hymba.serve"), \
+            scan_inputs_kept(set(calls.values())) as kept:
+        res = serve(cfg, model, seed=SERVE_SEED, **HYMBA)
+    launches = only("ssm_scan")
+    assert launches == cfg.n_layers * chunks * HYMBA["requests"] == 256, \
+        launches
+    peak = torch.cuda.max_memory_allocated()
+    real = {layer: kept[call] for layer, call in calls.items()}
+    kept_bytes = sum(t.numel() * 4 for ins in real.values() for t in ins)
+    tokens = res["tokens"]
+    assert tokens.shape == (HYMBA["requests"], HYMBA["batch"], HYMBA["gen"])
+    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    wave_tokens = HYMBA["batch"] * HYMBA["gen"]
+    emit({"serve": HYMBA_ARCH, "config": {
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+              "d_head": cfg.d_head, "d_ff": cfg.d_ff,
+              "sliding_window": cfg.sliding_window,
+              "q_chunk": cfg.q_chunk, "kv_chunk": cfg.kv_chunk,
+              "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+              "dt_rank": cfg.dt_rank, "vocab": cfg.vocab,
+              "dtype": cfg.dtype},
+          "params": n_params, "param_bytes": param_bytes,
+          "init_on_card_s": init_s, **HYMBA, "seed": SERVE_SEED,
+          "matmul_policy": policy, "scan_launches": launches,
+          "tokens_per_s": res["tokens_per_s"], "wall_s": res["wall_s"],
+          "tokens_per_s_by_wave": [
+              wave_tokens / (p + d)
+              for p, d in zip(res["prefill_s"], res["decode_s"])],
+          "ttft_s": res["prefill_s"], "prefill_s": res["prefill_s"],
+          "decode_s": res["decode_s"],
+          "decode_ms_per_token_step": [
+              1e3 * d / (HYMBA["gen"] - 1) for d in res["decode_s"]],
+          "peak_device_bytes": peak,
+          "peak_includes_kept_scan_input_bytes": kept_bytes,
+          "sample_tokens": tokens[:, 0, :8].tolist()})
+
+    with phase("serving_hymba.profiles"), torch.inference_mode():
+        errs = {}
+        for layer, (dA, dBx, h0) in real.items():
+            assert float(h0.abs().max()) > 0
+            errs[f"layer{layer}"] = scan_vs_plain(dA, dBx, h0)
+        max_err = max(errs.values())
+        assert max_err == 0.0, errs
+
+        # the kernels' device time in one decode step at the served
+        # length and in one 2,048-token prefill (wave 0's again: it must
+        # give wave 0's first tokens)
+        rng = np.random.default_rng(SERVE_SEED)   # serve's first wave
+        prompts = torch.as_tensor(
+            rng.integers(0, cfg.vocab, (HYMBA["batch"],
+                                        HYMBA["prompt_len"])),
+            dtype=torch.long, device="cuda")
+        again = []
+        t0 = time.perf_counter()
+        prefill_ms, prefill_top = kernel_profile(
+            lambda: again.append(model.prefill(prompts)), top=8)
+        profile_s = time.perf_counter() - t0
+        logits, caches = again.pop()
+        first_tok = logits[:, :cfg.vocab].argmax(-1).cpu().numpy()
+        caches = pad_kv(caches, HYMBA["prompt_len"] + HYMBA["gen"])
+        pos = torch.full((HYMBA["batch"],), HYMBA["prompt_len"],
+                         device="cuda")
+        step_ms, step_top = kernel_profile(
+            lambda: model.decode_step(caches, prompts[:, 0], pos), top=8)
+        del logits, caches, again
+    with phase("serving_hymba.twin"):
+        twin = hymba_twin_checks(model)
+    del model
+    torch.cuda.empty_cache()
+
+    # the kernel timed on layer 0's served inputs at the hybrid's shape
+    dA, dBx, h0 = real[0]
+    del real, kept
+    hs = torch.empty_like(dA)
+    ms = timed_avg(lambda: ssm_scan_bt_ds(dA, dBx, h0))
+    plain_ms = timed_avg(lambda: ssm_scan_plain(dA, dBx, h0), reps=3)
+    yard_ms = timed_avg(lambda: torch.add(dA, dBx, out=hs))
+    B, T = dA.shape[:2]
+    L = dA.shape[2] * dA.shape[3]
+    nbytes = 4 * (3 * B * T * L + 2 * B * L)
+    info = {"kernel": "ssm_scan", "arch": HYMBA_ARCH,
+            "shape": list(dA.shape),
+            "first_token_reproduced": bool(
+                (first_tok == tokens[0, :, 0]).all()),
+            "kernel_vs_plain_max_abs_err": errs, "max_abs_err": max_err,
+            "decode_step_kernel_ms": step_ms,
+            "decode_busy_share": step_ms / (
+                1e3 * res["decode_s"][-1] / (HYMBA["gen"] - 1)),
+            "decode_top_kernels": step_top,
+            "prefill_kernel_ms": prefill_ms,
+            "prefill_busy_share": prefill_ms / (1e3 * res["prefill_s"][-1]),
+            "prefill_top_kernels": prefill_top,
+            "prefill_profile_s": profile_s,
+            "ms": ms, "plain_ms": plain_ms, "yardstick_ms": yard_ms,
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "bound_by": "bytes", "launches": launches,
+            "achieved_bytes_per_s": nbytes / (ms * 1e-3),
+            "twin_card_vs_cpu_max_abs_err": twin["card_vs_cpu_max_abs_err"],
+            "twin_decode_vs_prefill_max_abs_err":
+                twin["decode_vs_prefill_max_abs_err"]}
+    emit(info)
+    del dA, dBx, h0, hs
+    torch.cuda.empty_cache()
+    return info
+
+
 # ---- falcon-mamba-7b training (launch/train.py, csrc/ssm_scan.cu) --------
 
 TRAIN_LAYERS = 24            # full width, depth cut to fit AdamW in 80 GB
@@ -3945,6 +4209,7 @@ def training():
                          "PyTorch call computes the reverse recurrence",
             "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
             "bound_by": "bytes", "launches": got["ssm_scan_bwd"],
+            "fwd_launches": got["ssm_scan"],
             "achieved_bytes_per_s": nbytes / (ms * 1e-3)}
     emit(info)
     del dA, hs, h0, g_hs, g_hT, out, kept
@@ -4766,10 +5031,19 @@ def smoke() -> int:
     # ---- falcon-mamba-7b serving: the selective-scan kernel ----------------
     with phase("serving"):
         scan = serving()
+        path_launches("ssm_scan", f"serve {SERVE_ARCH}", scan["launches"])
+
+    # ---- hymba-1.5b serving: attention, the hybrid block, the scan kernel -
+    with phase("serving_hymba"):
+        hymba = serving_hymba()
+        path_launches("ssm_scan", f"serve {HYMBA_ARCH}", hymba["launches"])
 
     # ---- falcon-mamba-7b training: the scan's backward kernel -------------
     with phase("training"):
         bwd = training()
+        path_launches("ssm_scan", f"train {SERVE_ARCH} (forward and "
+                      "recompute)", bwd["fwd_launches"])
+        path_launches("ssm_scan_bwd", f"train {SERVE_ARCH}", bwd["launches"])
     emit({"total_s": time.perf_counter() - t_start})
 
     main_row = rows[0]   # lp_100d_50k slice, dantzig: the paper's rule
@@ -4907,18 +5181,23 @@ def smoke() -> int:
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:44",
-        "launches": scan["launches"], "max_abs_err": scan["max_abs_err"],
+        **launch_keys("ssm_scan"), "max_abs_err": max(
+            scan["max_abs_err"], hymba["max_abs_err"]),
         "ms": scan["ms"], "plain_ms": scan["plain_ms"],
         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
         "library_ms": None, "yardstick_ms": scan["yardstick_ms"],
         "yardstick": scan["yardstick"], "shape": scan["shape"],
+        "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                      "yardstick_ms", "max_abs_err")}
+                   for r in (scan, hymba)],
         "parity": "hs and hT equal to the plain version on layer 0's and "
-                  "layer 63's second-chunk inputs and at four odd "
-                  "shapes"}, {
+                  "layer 63's second-chunk inputs of falcon-mamba-7b, on "
+                  "layer 0's and layer 31's last-chunk inputs of "
+                  "hymba-1.5b and at four odd shapes"}, {
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:57",
-        "launches": bwd["launches"], "max_abs_err": bwd["max_abs_err"],
+        **launch_keys("ssm_scan_bwd"), "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": None, "yardstick_ms": bwd["yardstick_ms"],

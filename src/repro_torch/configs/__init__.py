@@ -2,8 +2,8 @@
 constructors of the architectures ported so far.
 
 ``ARCH_IDS`` and ``CANONICAL`` are the reference's (``repro/configs``).
-Only falcon-mamba-7b runs in the port yet; ``get_config`` of any other id
-raises ``NotImplementedError`` (ROADMAP: the rest of the LM scaffold lists
+Only falcon-mamba-7b and hymba-1.5b run in the port yet; ``get_config`` of
+any other id raises ``NotImplementedError`` (ROADMAP: the rest of the LM scaffold lists
 the model modules and configs still to port).  ``paper_lp`` holds the
 paper's LP workloads (``WORKLOADS``, ``build_batch``); it is not an
 architecture.
@@ -39,7 +39,7 @@ CANONICAL = {
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
-PORTED = ("falcon_mamba_7b",)
+PORTED = ("falcon_mamba_7b", "hymba_1_5b")
 
 
 def get_config(arch: str):

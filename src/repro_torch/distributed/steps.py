@@ -1,5 +1,5 @@
-"""The train step (the one-device part of the reference's
-``distributed/steps.py`` ``make_train_step``).
+"""The train, prefill and decode steps (the one-device part of the
+reference's ``distributed/steps.py``).
 
 The batch is split along its leading axis into ``microbatches``; each
 takes one ``torch.autograd.grad`` of the model's loss, added into float32
@@ -60,3 +60,32 @@ def make_train_step(model, optimizer, microbatches: int = 1):
         return {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def make_prefill_step(model):
+    """``prefill_step(tokens, extra=None) -> (logits, caches)``, the
+    model's prefill.  ``extra`` carries the reference's "patches" or
+    "frames" inputs, which only the vlm and encdec families take; they
+    are not ported yet (ROADMAP: the rest of the LM scaffold), so any
+    such input raises."""
+
+    def prefill_step(tokens, extra=None):
+        inputs = sorted(k for k in (extra or {}) if k in ("patches",
+                                                          "frames"))
+        if inputs:
+            raise NotImplementedError(
+                f"{', '.join(inputs)} inputs: the vlm and encdec families "
+                "are not ported yet (ROADMAP: the rest of the LM scaffold)")
+        return model.prefill(tokens)
+
+    return prefill_step
+
+
+def make_decode_step(model):
+    """``decode_step(caches, token, pos) -> (logits, caches)``, the
+    model's decode step."""
+
+    def decode_step(caches, token, pos):
+        return model.decode_step(caches, token, pos)
+
+    return decode_step

@@ -20,7 +20,8 @@ one parent basis can seed both packages.  ``pdhg_state_from_reference``
 turns the reference's PDHG state (engine or tile layout) into the port's
 ``PdhgState``, so one round or one segment launch runs from the same
 state in both packages.  ``lm_from_reference`` turns the reference LM's
-parameter tree into the port's ``LM``, so both compute the same function;
+parameter tree (every layer group: ``norm1``, ``attn``, ``ssm``, ``norm2``,
+``mlp``) into the port's ``LM``, so both compute the same function;
 ``lm_to_reference`` is its inverse, for parameters and for gradients.
 All of them read attributes only; nothing here imports the reference
 package.
@@ -268,9 +269,15 @@ def lm_from_reference(cfg, params_np, device="cpu") -> LM:
 
     with torch.no_grad():
         put_group(model.embed, params_np["embed"])
+        groups = dict(model.blocks[0].named_children()) if model.blocks \
+            else {}
+        if set(params_np["layers"]) != set(groups):
+            raise ValueError(f"reference layer groups "
+                             f"{sorted(params_np['layers'])} differ from "
+                             f"the port's {sorted(groups)}")
         for i, block in enumerate(model.blocks):
-            put_group(block.norm1, params_np["layers"]["norm1"], i)
-            put_group(block.ssm, params_np["layers"]["ssm"], i)
+            for g in groups:
+                put_group(getattr(block, g), params_np["layers"][g], i)
         put_group(model.final_norm, params_np["final_norm"])
         put_group(model.head, params_np.get("head") or {})
     return model
@@ -300,7 +307,8 @@ def lm_to_reference(model: LM, tensors=None) -> dict:
 
     layers = {g: {k: np.stack([leaf[f"blocks.{i}.{g}.{k}"]
                                for i in range(len(model.blocks))])
-                  for k in getattr(model.blocks[0], g).keys()}
-              for g in ("norm1", "ssm")} if len(model.blocks) else {}
+                  for k in group_params.keys()}
+              for g, group_params in model.blocks[0].named_children()} \
+        if len(model.blocks) else {}
     return {"embed": group("embed."), "layers": layers,
             "final_norm": group("final_norm."), "head": group("head.")}

@@ -1,16 +1,17 @@
 """Batched serving driver: prefill + greedy decode over request waves
 (static batch), reporting tokens/s (the reference's ``launch/serve.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-Without ``--device`` it runs on the card.  ``serve`` is the loop as a
-function, for scripts that drive it and read its tokens and timings.  The
-reference pads every cache leaf whose axis 2 equals the prompt length to
-the full length; the ssm family's caches (h, conv) have no sequence axis,
-so nothing is padded here (ROADMAP queue 3: the reference's padding
-corrupts the SSM state when d_inner or the conv width equals the prompt
-length).
+Without ``--device`` it runs on the card; ``--arch`` defaults to
+hymba-1.5b, as the reference's does.  ``serve`` is the loop as a
+function, for scripts that drive it and read its tokens and timings.
+After prefill, only the KV leaves' sequence axis is padded from the
+prompt length P to P + G rows (``pad_kv``).  The reference pads every
+cache leaf whose axis 2 equals P, and the SSM leaves (h, conv) have no
+sequence axis: at P = conv_dim - 1 it pads the conv window, at P =
+d_inner the state (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -19,9 +20,12 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models import LM, build_model
+from ..models.attention import KVCache
+from ..models.transformer import HymbaCache
 
 
 def set_matmul_policy() -> dict:
@@ -34,6 +38,18 @@ def set_matmul_policy() -> dict:
     return {"allow_tf32": m.allow_tf32,
             "allow_bf16_reduced_precision_reduction":
                 m.allow_bf16_reduced_precision_reduction}
+
+
+def pad_kv(caches, total: int):
+    """The caches with their KV leaves' sequence axis (axis 2 of the
+    stacked (L, B, S, KV, dh)) zero-padded to ``total`` rows; SSM leaves
+    unchanged."""
+    if isinstance(caches, HymbaCache):
+        return caches._replace(kv=pad_kv(caches.kv, total))
+    if isinstance(caches, KVCache):
+        return KVCache(*(F.pad(t, (0, 0, 0, 0, 0, total - t.shape[2]))
+                         for t in caches))
+    return caches
 
 
 def serve(cfg, model: LM, *, batch: int, prompt_len: int, gen: int,
@@ -66,6 +82,7 @@ def serve(cfg, model: LM, *, batch: int, prompt_len: int, gen: int,
                                       dtype=torch.long, device=dev)
             t0 = time.perf_counter()
             logits, caches = model.prefill(prompts)
+            caches = pad_kv(caches, P + G)
             tok = logits[:, :cfg.vocab].argmax(-1)
             tokens[wave, :, 0] = tok.cpu().numpy()   # waits for the card
             t1 = time.perf_counter()
@@ -90,7 +107,7 @@ def serve(cfg, model: LM, *, batch: int, prompt_len: int, gen: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="falcon-mamba-7b")
+    ap.add_argument("--arch", default="hymba-1.5b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

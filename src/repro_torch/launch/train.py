@@ -1,6 +1,8 @@
 """Training entry point (the reference's ``launch/train.py``): AdamW steps of
 the port's LM on the synthetic LM data, with gradient-accumulation
-microbatching, a straggler watchdog and an optional loss-curve CSV.
+microbatching, a straggler watchdog and an optional loss-curve CSV.  It
+trains the ssm family; the hybrid family (hymba) is served, not trained
+yet (ROADMAP: the rest of the LM scaffold, hybrid training).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
         --reduced --steps 3 --batch 2 --seq 32 --device cpu
@@ -47,6 +49,11 @@ def train(cfg, model: LM, *, batch: int, seq: int, steps: int,
     in ``step_s``), ``tokens_per_s`` (batch x seq / step_s) and
     ``stragglers`` (steps slower than ``straggler_factor`` x the running
     median)."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: training the hybrid family is not ported yet "
+            "(ROADMAP: the rest of the LM scaffold, hybrid training); the "
+            "port serves it")
     if min(batch, seq, steps, microbatches) < 1:
         raise ValueError("batch, seq, steps and microbatches must be >= 1")
     dev = resolve_device(device)

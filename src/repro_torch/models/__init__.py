@@ -1,5 +1,6 @@
-"""The port's model zoo: so far the ssm family (falcon-mamba-7b), whose
-prefill runs the CUDA selective-scan kernel on the card."""
+"""The port's model zoo: so far the ssm family (falcon-mamba-7b) and the
+hybrid family (hymba-1.5b), whose prefill runs the CUDA selective-scan
+kernel on the card."""
 import torch
 
 from ..device import resolve_device

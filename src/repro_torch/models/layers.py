@@ -7,16 +7,25 @@ dtype.  The two frameworks give different numbers from one seed, so tests
 carry the reference's parameters over with ``interop.lm_from_reference``;
 with ``gen=None`` an init allocates its tensor uninitialized for that.
 Weights keep the reference's (in, out) layout, so ``x @ w`` is the
-reference's product.  The MLPs and RoPE wait for the slices that run them
-(ROADMAP: the rest of the LM scaffold).
+reference's product.  The MLPs (SwiGLU, squared ReLU, tanh-approximate
+GELU) and RoPE, which rotates the two halves of the head dimension in
+float32, follow the reference op by op.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor (the port's ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -69,6 +78,61 @@ def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6):
         var = xf.var(-1, keepdim=True, unbiased=False)
         out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].float() \
             + p["bias"].float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs (SwiGLU / squared-ReLU / GELU)
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg: ModelConfig, device, d_ff: int | None = None) -> dict:
+    """SwiGLU: w_gate, w_up (D, F) and w_down (F, D); every other kind:
+    w_in (D, F) and w_down (F, D)."""
+    D, F_ = cfg.d_model, d_ff or cfg.d_ff
+    dtype = torch_dtype(cfg.param_dtype)
+    if cfg.mlp_kind == "swiglu":
+        return {"w_gate": dense_init(gen, D, F_, dtype, device),
+                "w_up": dense_init(gen, D, F_, dtype, device),
+                "w_down": dense_init(gen, F_, D, dtype, device)}
+    return {"w_in": dense_init(gen, D, F_, dtype, device),
+            "w_down": dense_init(gen, F_, D, dtype, device)}
+
+
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (..., D) -> (..., D) in x's dtype.  Any kind but swiglu and relu2
+    is the tanh-approximate GELU, as in the reference."""
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif cfg.mlp_kind == "relu2":  # nemotron-4 squared ReLU
+        h = F.relu(x @ p["w_in"]).square()
+    else:  # gelu (whisper); jax.nn.gelu(approximate=True)
+        h = F.gelu(x @ p["w_in"], approximate="tanh")
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(d: int, theta: float, device=None) -> torch.Tensor:
+    """(d/2,) float32 inverse frequencies theta^(-2i/d)."""
+    return 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                         device=device) / d))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, d_head) or (..., S, d); positions: (..., S).  Rotates
+    the two halves of the last axis (not interleaved pairs) in float32 and
+    casts back to x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)             # (d/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, d/2)
+    if x.dim() == angles.dim() + 1:                          # head axis
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 

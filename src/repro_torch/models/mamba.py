@@ -26,18 +26,12 @@ import torch.nn.functional as F
 from ..core.fp import fma
 from ..kernels.ssm_scan import ssm_scan_bt_ds
 from .config import ModelConfig
-from .layers import dense_init, normal_init, torch_dtype
+from .layers import TensorSpec, dense_init, normal_init, torch_dtype
 
 
 class MambaCache(NamedTuple):
     h: torch.Tensor     # (B, d_inner, state) f32 SSM state
     conv: torch.Tensor  # (B, conv_dim - 1, d_inner) rolling conv window
-
-
-class TensorSpec(NamedTuple):
-    """Shape and dtype of a tensor (the port's ``jax.ShapeDtypeStruct``)."""
-    shape: tuple
-    dtype: torch.dtype
 
 
 def mamba_init(gen, cfg: ModelConfig, device) -> dict:

@@ -1,29 +1,47 @@
 """Decoder-only LM assembly (the reference's ``models/transformer.py``),
-for the ssm family: falcon-mamba.
+for the ssm family (falcon-mamba) and the hybrid family (hymba: GQA with
+a sliding window and Mamba on the same input, mean-fused).
 
 ``LM`` is an ``nn.Module`` with a ``ModuleList`` of blocks; the reference's
 ``lax.scan`` over stacked layers becomes a Python loop, and the caches it
-returns are stacked on a leading layer axis as the reference's are.
-Parameters keep the reference's names and (in, out) layouts and are
-trainable; serving runs under ``torch.inference_mode()``.  ``loss_fn`` is
-the reference's sequence-chunked cross entropy, and ``remat="block"``
-checkpoints each block in train mode (``torch.utils.checkpoint``, the
-counterpart of ``jax.checkpoint``), so the backward recomputes a block's
-forward, scan kernel included.  The other families (attention, MoE, MLA,
-hybrid, VLM) wait for their slices (ROADMAP: the rest of the LM
-scaffold).
+returns are stacked on a leading layer axis as the reference's are
+(``HymbaCache`` leaves included).  Parameters keep the reference's names
+and (in, out) layouts and are trainable; serving runs under
+``torch.inference_mode()``.  ``loss_fn`` is the reference's
+sequence-chunked cross entropy, and ``remat="block"`` checkpoints each
+block in train mode (``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint``), so the backward recomputes a block's forward, scan
+kernel included.  The dense, MoE, MLA, encdec and VLM families wait for
+their slices (ROADMAP: the rest of the LM scaffold).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .attention import KVCache, gqa_apply, gqa_cache_shape, gqa_init
 from .config import ModelConfig
-from .layers import (apply_norm, embed_init, embed_lookup, head_init,
-                     logits_apply, norm_init, token_nll, torch_dtype)
-from .mamba import MambaCache, TensorSpec, mamba_apply, mamba_cache_shape, \
-    mamba_init
+from .layers import (TensorSpec, apply_norm, embed_init, embed_lookup,
+                     head_init, logits_apply, mlp_apply, mlp_init, norm_init,
+                     token_nll, torch_dtype)
+from .mamba import MambaCache, mamba_apply, mamba_cache_shape, mamba_init
+
+class HymbaCache(NamedTuple):
+    kv: KVCache
+    ssm: MambaCache
+
+
+def map_cache(fn, *caches):
+    """``fn`` applied leaf by leaf across caches of one structure (nested
+    NamedTuples of tensors or ``TensorSpec``s); a cache of the same
+    structure."""
+    first = caches[0]
+    if isinstance(first, (torch.Tensor, TensorSpec)):
+        return fn(*caches)
+    return type(first)(*(map_cache(fn, *leaves) for leaves in zip(*caches)))
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -32,38 +50,63 @@ def _params(tensors: dict) -> nn.ParameterDict:
 
 def check_ported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` unless ``cfg`` runs only modules the
-    port has: a pure-SSM stack without MLPs."""
-    if cfg.family != "ssm" or cfg.attn_kind != "none":
+    port has: the ssm and hybrid families, with a dense MLP or none."""
+    if cfg.family not in ("ssm", "hybrid") or cfg.attn_kind == "mla" \
+            or cfg.mlp_kind == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP: "
-            "the rest of the LM scaffold); the port runs the ssm family")
-    if cfg.d_ff or cfg.mlp_kind == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MLP blocks are not ported yet (ROADMAP: the rest "
-            "of the LM scaffold)")
+            f"{cfg.name}: the {cfg.family} family (attention "
+            f"{cfg.attn_kind}, MLP {cfg.mlp_kind}) is not ported yet "
+            "(ROADMAP: the rest of the LM scaffold); the port runs the ssm "
+            "and hybrid families with dense MLPs")
 
 
 class Block(nn.Module):
-    """One pre-norm residual block: x + mamba(norm1(x))."""
+    """One pre-norm residual block: x + mixer(norm1(x)), then, where the
+    config has an MLP, x + mlp(norm2(x)).  The ssm family's mixer is
+    Mamba; the hybrid's is 0.5 * (gqa(h) + mamba(h)) on the same h."""
 
     def __init__(self, cfg: ModelConfig, gen, device):
         super().__init__()
         self.cfg = cfg
-        self.norm1 = _params(norm_init(cfg.d_model, cfg.norm_kind,
-                                       torch_dtype(cfg.param_dtype), device))
+        dtype = torch_dtype(cfg.param_dtype)
+        self.norm1 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
+                                       device))
+        if cfg.family == "hybrid":
+            self.attn = _params(gqa_init(gen, cfg, device))
         self.ssm = _params(mamba_init(gen, cfg, device))
+        self.has_mlp = bool(cfg.d_ff)
+        if self.has_mlp:
+            self.norm2 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
+                                           device))
+            self.mlp = _params(mlp_init(gen, cfg, device))
 
-    def forward(self, x, *, mode: str, cache: MambaCache | None = None):
-        h = apply_norm(self.norm1, x, self.cfg.norm_kind)
-        a, new_cache = mamba_apply(self.ssm, h, self.cfg, mode=mode,
-                                   cache=cache)
-        return x + a, new_cache
+    def forward(self, x, *, mode: str, positions=None, cache=None, pos=None):
+        cfg = self.cfg
+        h = apply_norm(self.norm1, x, cfg.norm_kind)
+        if cfg.family == "hybrid":
+            a1, kv_new = gqa_apply(
+                self.attn, h, cfg, positions=positions, mode=mode,
+                cache=None if cache is None else cache.kv, pos=pos)
+            a2, ssm_new = mamba_apply(
+                self.ssm, h, cfg, mode=mode,
+                cache=None if cache is None else cache.ssm)
+            a = 0.5 * (a1 + a2)
+            new_cache = None if mode == "train" else HymbaCache(kv_new,
+                                                                ssm_new)
+        else:
+            a, new_cache = mamba_apply(self.ssm, h, cfg, mode=mode,
+                                       cache=cache)
+        x = x + a
+        if self.has_mlp:
+            x = x + mlp_apply(self.mlp, apply_norm(self.norm2, x,
+                                                   cfg.norm_kind), cfg)
+        return x, new_cache
 
 
 class LM(nn.Module):
-    """Decoder LM of the ssm family.  ``generator`` draws the parameters
-    (embedding, blocks, head, in that order); ``None`` leaves them
-    uninitialized for ``interop.lm_from_reference`` to fill."""
+    """Decoder LM of the ssm or hybrid family.  ``generator`` draws the
+    parameters (embedding, blocks, head, in that order); ``None`` leaves
+    them uninitialized for ``interop.lm_from_reference`` to fill."""
 
     def __init__(self, cfg: ModelConfig, *, device, generator=None):
         super().__init__()
@@ -87,23 +130,25 @@ class LM(nn.Module):
         x = embed_lookup(self.embed, tokens)
         return x.to(torch_dtype(self.cfg.dtype))
 
-    def _run_layers(self, x, *, mode, caches: MambaCache | None = None):
+    def _run_layers(self, x, *, mode, positions=None, caches=None,
+                    pos=None):
         if mode == "train":
             for block in self.blocks:
                 if self.cfg.remat == "block":
                     x, _ = checkpoint(block, x, mode=mode,
+                                      positions=positions,
                                       use_reentrant=False)
                 else:
-                    x, _ = block(x, mode=mode)
+                    x, _ = block(x, mode=mode, positions=positions)
             return x, None
         new = []
         for i, block in enumerate(self.blocks):
-            cache_l = None if caches is None else MambaCache(caches.h[i],
-                                                             caches.conv[i])
-            x, c = block(x, mode=mode, cache=cache_l)
+            cache_l = None if caches is None else \
+                map_cache(lambda t: t[i], caches)
+            x, c = block(x, mode=mode, positions=positions, cache=cache_l,
+                         pos=pos)
             new.append(c)
-        return x, MambaCache(h=torch.stack([c.h for c in new]),
-                             conv=torch.stack([c.conv for c in new]))
+        return x, map_cache(lambda *ts: torch.stack(ts), *new)
 
     def _head(self):
         return self.head if len(self.head) else self.embed
@@ -118,7 +163,8 @@ class LM(nn.Module):
         tensors on the model's device.  Labels < 0 are masked.  Returns
         the mean next-token cross entropy (a float32 scalar)."""
         x = self._embed_inputs(batch["tokens"])
-        x, _ = self._run_layers(x, mode="train")
+        x, _ = self._run_layers(x, mode="train",
+                                positions=self._positions(x))
         x = apply_norm(self.final_norm, x, self.cfg.norm_kind)
         return self._chunked_ce(x, batch["labels"])
 
@@ -139,25 +185,44 @@ class LM(nn.Module):
         return tot / cnt.clamp(min=1.0)
 
     # -- serving --------------------------------------------------------------
+    @staticmethod
+    def _positions(x):
+        B, S = x.shape[:2]
+        return torch.arange(S, device=x.device)[None].expand(B, S)
+
     def prefill(self, tokens):
         """tokens: (B, S) integer.  Returns (last-position logits
-        (B, vocab_padded) float32, caches stacked on a layer axis)."""
+        (B, vocab_padded) float32, caches stacked on a layer axis; the
+        hybrid's KV leaves hold the S prompt rows)."""
         x = self._embed_inputs(tokens)
-        x, caches = self._run_layers(x, mode="prefill")
+        x, caches = self._run_layers(x, mode="prefill",
+                                     positions=self._positions(x))
         return self._logits(x), caches
 
-    def decode_step(self, caches: MambaCache, token, pos):
-        """token: (B,) integer; pos: (B,) write position (the ssm family
-        keeps no positional state).  Returns (logits (B, vocab_padded),
-        updated caches)."""
+    def decode_step(self, caches, token, pos):
+        """token: (B,) integer; pos: (B,) the position each sequence
+        writes and attends from (its KV row; the ssm family keeps no
+        positional state).  Returns (logits (B, vocab_padded), updated
+        caches)."""
         x = self._embed_inputs(token[:, None])
-        x, new_caches = self._run_layers(x, mode="decode", caches=caches)
+        x, new_caches = self._run_layers(x, mode="decode",
+                                         positions=pos[:, None],
+                                         caches=caches, pos=pos)
         return self._logits(x), new_caches
 
     # -- cache shapes ---------------------------------------------------------
-    def cache_shape(self, batch: int, seq: int) -> MambaCache:
-        """Shapes of the stacked caches; the ssm family's do not grow with
-        ``seq``."""
+    def cache_shape(self, batch: int, seq: int):
+        """Shapes of the stacked caches, the reference's: the ssm family's
+        do not grow with ``seq``; the hybrid's KV leaves are
+        ``gqa_cache_shape``'s (window-sized, see there)."""
         L = self.cfg.n_layers
-        return MambaCache(*(TensorSpec((L,) + s.shape, s.dtype)
-                            for s in mamba_cache_shape(self.cfg, batch)))
+
+        def stack(tree):
+            return map_cache(lambda s: TensorSpec((L,) + s.shape, s.dtype),
+                             tree)
+
+        ssm = mamba_cache_shape(self.cfg, batch)
+        if self.cfg.family == "hybrid":
+            return stack(HymbaCache(
+                kv=gqa_cache_shape(self.cfg, batch, seq), ssm=ssm))
+        return stack(ssm)

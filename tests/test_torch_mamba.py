@@ -28,7 +28,7 @@ from repro.models.layers import apply_norm as ref_apply_norm
 from repro.models.layers import logits_apply as ref_logits_apply
 from repro.models.mamba import MambaCache as RefCache
 from repro.models.mamba import mamba_apply as ref_mamba_apply
-from repro_torch.configs import ARCH_IDS, CANONICAL, get_config
+from repro_torch.configs import ARCH_IDS, CANONICAL, PORTED, get_config
 from repro_torch.interop import lm_from_reference
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve
@@ -91,8 +91,9 @@ def test_config_registry_is_the_reference_one():
         assert cfg.n_params() == ref.n_params()
         assert dataclasses.asdict(cfg.reduced()) == \
             dataclasses.asdict(ref.reduced())
-    for arch in CANONICAL:
-        if arch != ARCH:
+    assert PORTED == ("falcon_mamba_7b", "hymba_1_5b")
+    for arch, key in CANONICAL.items():
+        if key not in PORTED:
             with pytest.raises(NotImplementedError, match=UNPORTED):
                 get_config(arch)
     with pytest.raises(KeyError):
@@ -174,12 +175,42 @@ def test_cache_shapes_are_the_reference_ones():
         assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
 
 
-def test_unported_families_raise():
+@pytest.mark.parametrize("arch", ["qwen3-32b", "llama4-scout-17b-a16e",
+                                  "deepseek-v2-236b"])
+def test_unported_families_raise(arch):
+    """The dense, MoE and MLA families stay unported."""
     with pytest.raises(NotImplementedError, match=UNPORTED):
-        LM(ref_get_config("qwen3-32b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match=UNPORTED):
-        LM(dataclasses.replace(get_config(ARCH).reduced(), d_ff=128),
-           device="cpu")
+        LM(ref_get_config(arch).reduced(), device="cpu")
+
+
+def test_an_ssm_block_with_an_mlp_matches_the_reference():
+    """falcon-mamba with d_ff set: the reference builds norm2 and an MLP
+    of its own kind ("none" falls through to the tanh GELU) after the
+    Mamba mixer, and so does the port."""
+    ref_cfg = dataclasses.replace(ref_get_config(ARCH).reduced(), d_ff=128,
+                                  ssm_impl="kernel")
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), d_ff=128,
+                              ssm_impl="kernel")
+    model = ref_build_model(ref_cfg)
+    params, _ = model.init(jax.random.PRNGKey(1))
+    assert set(params["layers"]) == {"norm1", "ssm", "norm2", "mlp"}
+    assert set(params["layers"]["mlp"]) == {"w_in", "w_down"}
+    lm = lm_from_reference(cfg, jax.tree.map(np.asarray, params), "cpu")
+    prompts = _tokens(ref_cfg, (2, 24), seed=12)
+    tok = _tokens(ref_cfg, (2,), seed=13)
+    pos = np.full((2,), 24)
+    logits_r, caches_r = jax.jit(model.prefill)(
+        params, jnp.asarray(prompts, jnp.int32))
+    step_r, _ = jax.jit(model.decode_step)(params, caches_r,
+                                           jnp.asarray(tok, jnp.int32),
+                                           jnp.asarray(pos, jnp.int32))
+    with torch.inference_mode():
+        logits, caches = lm.prefill(torch.from_numpy(prompts))
+        step, _ = lm.decode_step(caches, torch.from_numpy(tok),
+                                 torch.from_numpy(pos))
+    _close(logits, logits_r, "prefill logits")
+    _close_cache(caches, caches_r)
+    _close(step, step_r, "decode logits")
 
 
 # ---- mamba_apply ------------------------------------------------------------
@@ -309,7 +340,8 @@ def test_serving_at_a_prompt_length_equal_to_d_inner_decodes_correctly():
 
 
 def test_serve_cli_on_the_cpu_decodes_what_a_longer_prefill_predicts(capsys):
-    res = serve_main(["--reduced", "--batch", "2", "--prompt-len", "128",
+    res = serve_main(["--arch", ARCH, "--reduced", "--batch", "2",
+                      "--prompt-len", "128",
                       "--gen", "4", "--requests", "1", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "allow_bf16_reduced_precision_reduction': False" in out

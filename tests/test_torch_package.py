@@ -76,6 +76,7 @@ def test_import_leaves_jax_and_the_reference_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.io, repro_torch.interop, repro_torch.models, "
             "repro_torch.configs, repro_torch.configs.falcon_mamba_7b, "
+            "repro_torch.configs.hymba_1_5b, repro_torch.models.attention, "
             "repro_torch.launch, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.optim, "
             "repro_torch.distributed, repro_torch.data, repro_torch.obs, "
@@ -1031,11 +1032,57 @@ def test_serve_cli_scans_with_the_kernel_on_the_card(capsys):
         pytest.skip("needs a CUDA card")
     cfg = get_config("falcon-mamba-7b").reduced()
     before = ssm_scan.launches
-    res = serve_main(["--reduced", "--batch", "2", "--prompt-len", "1024",
+    res = serve_main(["--arch", "falcon-mamba-7b", "--reduced", "--batch",
+                      "2", "--prompt-len", "1024",
                       "--gen", "2", "--requests", "2"])
     assert ssm_scan.launches == before + 2 * cfg.n_layers * 2
     assert res["tokens"].shape == (2, 2, 2)
     assert "[serve] wave 1: generated 2x2 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_reduced_hymba_serves_on_the_card_as_on_the_cpu():
+    """The reduced hybrid model (window 32, chunks of 32) on the card: a
+    96-token prefill and three decode steps past it match the CPU port's
+    (the kernel's plain scan) in logits and every cache leaf at atol
+    1e-5, and the prefill scans with the kernel once a layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.launch.serve import pad_kv, set_matmul_policy
+    set_matmul_policy()
+    cfg = get_config("hymba-1.5b").reduced()
+    cpu = build_model(dataclasses.replace(cfg, ssm_impl="kernel"),
+                      device="cpu", seed=0)
+    card = build_model(cfg, device="cpu", seed=0).to("cuda")
+    toks = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, (2, 99)))
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+    def leaves(c):
+        return (c.kv.k, c.kv.v, c.ssm.h, c.ssm.conv)
+
+    before = ssm_scan.launches
+    with torch.inference_mode():
+        want, want_c = cpu.prefill(toks[:, :96])
+        got, got_c = card.prefill(toks[:, :96].cuda())
+        assert ssm_scan.launches == before + cfg.n_layers
+        want_c, got_c = pad_kv(want_c, 99), pad_kv(got_c, 99)
+        for g in range(4):
+            close(got, want)
+            for a, b in zip(leaves(got_c), leaves(want_c)):
+                close(a, b)
+            if g == 3:
+                break
+            pos = torch.full((2,), 96 + g)
+            want, want_c = cpu.decode_step(want_c, toks[:, 96 + g], pos)
+            got, got_c = card.decode_step(got_c, toks[:, 96 + g].cuda(),
+                                          pos.cuda())
+        with pytest.raises(IndexError, match="outside the cache"):
+            card.decode_step(got_c, toks[:, 0].cuda(),
+                             torch.full((2,), 99, device="cuda"))
 
 
 # ---- the scan's backward (csrc/ssm_scan.cu) and the training path ----------
