@@ -79,7 +79,7 @@ Dantzig and with partial pricing, each held against the oracle and against
 the tableau run's statuses.  Warm starts: ``lp_afiro_100k`` solved cold
 through the revised kernel (member 0 at the published optimum), re-solved
 from its own ``warm_start()`` (every OPTIMAL member at 0 iterations), and
-step 1 of a 100,000-member perturbed AFIRO trajectory solved warm from
+step 1 of a 10,000-member perturbed AFIRO trajectory solved warm from
 step 0 against its cold solve (equal statuses, objectives within rel
 2e-3, no more iterations).  The kernel is held against its plain version
 on 2,048-LP slices of both batches for both rules (one launch of each
@@ -178,7 +178,49 @@ time to first token, prefill and decode seconds a wave, decode ms a step,
 peak device memory and the kernels' device time in one prefill and one
 decode step are printed.
 
-Training (after serving, once its model and kept tensors are freed):
+Dense serving (after hymba's, once that model is freed): qwen3-32b at
+its published config (64 layers, d_model 5120, 64 heads over 8 KV heads
+of 128, qk-norm, SwiGLU d_ff 25,600, vocab 151,936, rope theta 1e6, bf16
+parameters drawn on the card from a seeded generator, 65.5 GB) serves 2
+waves of 4 prompts of 2,048 tokens and 32 generated tokens through
+``serve``; no custom kernel may launch (every launch counter stays 0).
+Tokens/s, time to first token, prefill and decode seconds a wave, decode
+ms a step, peak device memory and the kernels' device time in one
+prefill and one decode step are printed.  A float32 twin at full width
+cut to 2 layers (built on the CPU from the bf16 parameters, the served
+model freed, then copied to the card) runs one 1,024-token prompt and 8
+greedy decode steps on the card and on the CPU (equal tokens, logits
+within ``TWIN_ATOL``), and on the card prefill(1,016) followed by 8
+decode steps must end within ``TWIN_ATOL`` of prefill(1,024).
+
+MoE serving (after the dense phase, once that model is freed):
+llama4-scout-17b-a16e at its published width (d_model 5120, 40 heads
+padded to 48 over 8 KV heads of 128, 16 experts of 8,192, top-1, one
+shared expert, vocab 202,048, rope theta 5e5, q and kv chunks of 2,048,
+bf16 from a seeded generator), cut to 12 of its 48 layers (57.2 GB; all
+48 are 217 GB), with ``lp_capacity=True`` set by
+``dataclasses.replace``, serves the same load through ``serve``.  Every
+MoE layer call solves the router's LP with the whole-solve simplex
+kernel: exactly 12 x (1 + 31) x 2 = 768 launches and no other custom
+kernel.  The router's caps in layer 0's first prefill and layer 11's
+last decode step equal the plain version's solve of the same demand on
+the CPU bit for bit; the share of routed tokens kept is printed per wave
+for prefill and decode; one decode-shaped ``moe_apply`` call passes with
+host synchronization forbidden (``torch.cuda.set_sync_debug_mode
+("error")``).  The serving metrics and profiles are printed as above,
+with the simplex kernel's device time in a decode step.  A float32 twin
+at full width cut to 1 layer and a 32,000-token vocabulary (the
+embedding's first rows and the head's first columns) runs one
+1,024-token prompt and 8 greedy steps on the card and on the CPU, with
+``lp_capacity`` on and off: the routing (expert, slot and keep of every
+token in every call) and the tokens equal, the logits within
+``TWIN_ATOL``, the smallest top-1/top-2 probability gap and |cap - slot|
+printed.  Decode against prefill is checked with ``lp_capacity`` off at
+capacity factor 100 (capacity drops make routing depend on the batch, as
+in the reference's test_decode_matches_prefill).
+
+Training (after the serving phases, once their models and kept tensors
+are freed):
 falcon-mamba-7b at its full published width in bf16 (d_model 4096,
 d_inner 8192, state 16, dt_rank 256, vocab 65,024), cut to 24 layers with
 the reference CLI's own depth override, since the whole model with AdamW
@@ -1956,6 +1998,10 @@ def box_lp():
 # ---- the revised simplex (core/revised.py, csrc/revised_tile.cu) ---------
 
 REVISED_RULES = ("dantzig", "partial")
+# members of the revised warm-start trajectory (three solves): a solve of
+# 100,000 general-form AFIRO copies costs 20-25 s of host
+# canonicalization, which the run's 1,200 s cannot spare three times
+TRAJ_LPS = 10_000
 
 
 def revised_main(name, batch, oracle_batch, pricing, tableau_res=None):
@@ -3556,12 +3602,13 @@ def scan_vs_plain(dA, dBx, h0):
                float((hT - want_hT).abs().max()))
 
 
-def kernel_profile(fn, top=6):
+def kernel_profile(fn, top=6, match=None):
     """The device time of the kernels fn() launches, from torch.profiler
     tracing the device alone: (milliseconds summed over every kernel, the
-    ``top`` largest by name with their milliseconds and counts).  Host
-    operators are not traced: their processing took 31 s for one
-    hymba-1.5b prefill."""
+    ``top`` largest by name with their milliseconds and counts), and with
+    ``match`` a third item, the milliseconds of the kernels whose name
+    holds it.  Host operators are not traced: their processing took 31 s
+    for one hymba-1.5b prefill."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3574,8 +3621,13 @@ def kernel_profile(fn, top=6):
     assert kernels, "the profiler saw no device time"
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return total, [{"kernel": e.key[:80], "ms": e.self_device_time_total / 1e3,
-                    "count": e.count} for e in kernels[:top]]
+    out = (total, [{"kernel": e.key[:80],
+                    "ms": e.self_device_time_total / 1e3,
+                    "count": e.count} for e in kernels[:top]])
+    if match is None:
+        return out
+    return out + (sum(e.self_device_time_total for e in kernels
+                      if match in e.key) / 1e3,)
 
 
 @contextlib.contextmanager
@@ -3598,21 +3650,6 @@ def scan_inputs_kept(calls):
         yield kept
     finally:
         mamba.ssm_scan_bt_ds = real
-
-
-def float32_twin(model):
-    """The same LM in float32: its bf16 parameters widened (exactly),
-    activations and products in float32, the scan unchanged."""
-    import torch
-    from repro_torch.models import LM
-    cfg = dataclasses.replace(model.cfg, dtype="float32",
-                              param_dtype="float32")
-    twin = LM(cfg, device=model.device)       # uninitialized, then copied
-    with torch.no_grad():
-        for dst, src in zip(twin.parameters(), model.parameters()):
-            assert dst.shape == src.shape
-            dst.copy_(src)
-    return twin
 
 
 def step_gap(model, prompts, n):
@@ -3733,7 +3770,7 @@ def serving():
         n = SCAN_CHUNK
         stepped, whole, caches, pos = step_gap(model, prompts, n)
         consistency = {"bf16_decode_vs_prefill": logit_gap(stepped, whole)}
-        twin = float32_twin(model)
+        twin = float32_cut(model, "cuda", model.cfg.n_layers)
         stepped32, whole32, _, _ = step_gap(twin, prompts, n)
         del twin
         torch.cuda.empty_cache()
@@ -3824,22 +3861,85 @@ def greedy(model, prompts, steps):
     return out.argmax(-1).T, out
 
 
-def hymba_twin(model, device):
-    """The first TWIN["layers"] layers of ``model`` in float32 on
-    ``device`` (its bf16 parameters widened exactly), scanning with the
-    kernel's plain version on the CPU."""
+def float32_cut(model, device, layers, vocab=None, **changes):
+    """The first ``layers`` layers of ``model`` in float32 on ``device``
+    (its bf16 parameters widened exactly), its config otherwise changed
+    by ``changes``; with ``vocab``, the embedding's first ``vocab`` rows
+    and the head's first ``vocab`` columns."""
     import torch
     from repro_torch.models import LM
-    cfg = dataclasses.replace(model.cfg, n_layers=TWIN["layers"],
+    cfg = dataclasses.replace(model.cfg, n_layers=layers,
+                              vocab=vocab or model.cfg.vocab,
                               dtype="float32", param_dtype="float32",
-                              ssm_impl="kernel")
+                              **changes)
     twin = LM(cfg, device=torch.device(device))   # uninitialized, then copied
     src = dict(model.named_parameters())
     with torch.no_grad():
         for name, dst in twin.named_parameters():
-            assert dst.shape == src[name].shape, name
-            dst.copy_(src[name])
+            cut = src[name][tuple(slice(0, d) for d in dst.shape)]
+            assert cut.shape == dst.shape, name
+            assert cut.shape == src[name].shape or \
+                name in ("embed.table", "head.w"), name
+            dst.copy_(cut)
     return twin
+
+
+def reconfigure(lm, **changes):
+    """Point ``lm`` and its blocks at its config with ``changes``: flags
+    the forward pass reads (lp_capacity, capacity_factor), no
+    parameter."""
+    cfg = dataclasses.replace(lm.cfg, **changes)
+    lm.cfg = cfg
+    for block in lm.blocks:
+        block.cfg = cfg
+
+
+def card_vs_cpu(card, cpu, prompt, steps):
+    """One prompt and ``steps`` greedy decode steps through the twin on
+    the card and on the CPU: equal tokens, and the largest logit
+    difference."""
+    import torch
+    t0 = time.perf_counter()
+    tok_card, logit_card = greedy(card, prompt.cuda(), steps)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok_cpu, logit_cpu = greedy(cpu, prompt, steps)
+    cpu_s = time.perf_counter() - t0
+    return {"card_tokens": tok_card[0].tolist(),
+            "card_vs_cpu_tokens_equal": bool(torch.equal(tok_card, tok_cpu)),
+            "card_vs_cpu_max_abs_err": float((logit_card - logit_cpu)
+                                             .abs().max()),
+            "card_greedy_s": card_s, "cpu_greedy_s": cpu_s}
+
+
+def decode_vs_prefill(card, prompt, prefix):
+    """On the card: prefill(prompt[:prefix]), then decode steps to the
+    prompt's end, against one prefill of the whole prompt."""
+    import torch
+    from repro_torch.launch.serve import pad_kv
+    ids = prompt.cuda()
+    P = ids.shape[1]
+    t0 = time.perf_counter()
+    _, caches = card.prefill(ids[:, :prefix])
+    caches = pad_kv(caches, P)
+    for p in range(prefix, P):
+        stepped, caches = card.decode_step(
+            caches, ids[:, p], torch.full((1,), p, device="cuda"))
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    whole, _ = card.prefill(ids)
+    V = card.cfg.vocab
+    return {"decode_steps": P - prefix, "prefix": prefix,
+            "decode_vs_prefill_max_abs_err": float(
+                (stepped[:, :V] - whole[:, :V]).abs().max()),
+            "logit_scale": float(whole[:, :V].abs().max()),
+            "card_decode_steps_s": steps_s}
+
+
+def twin_prompt(cfg, n):
+    import torch
+    gen = torch.Generator().manual_seed(SERVE_SEED)
+    return torch.randint(0, cfg.vocab, (1, n), generator=gen)
 
 
 def hymba_twin_checks(model):
@@ -3847,49 +3947,20 @@ def hymba_twin_checks(model):
     logits within TWIN_ATOL) and, on the card, prefill(prefix) followed
     by decode steps to the prompt's end against one prefill of it."""
     import torch
-    from repro_torch.launch.serve import pad_kv
-    card = hymba_twin(model, "cuda")
-    cpu = hymba_twin(card, "cpu")
-    gen = torch.Generator().manual_seed(SERVE_SEED)
-    prompt = torch.randint(0, model.cfg.vocab, (1, TWIN["prompt_len"]),
-                           generator=gen)
+    card = float32_cut(model, "cuda", TWIN["layers"], ssm_impl="kernel")
+    cpu = float32_cut(card, "cpu", TWIN["layers"])
+    prompt = twin_prompt(model.cfg, TWIN["prompt_len"])
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        tok_card, logit_card = greedy(card, prompt.cuda(), TWIN["gen"])
-        card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        tok_cpu, logit_cpu = greedy(cpu, prompt, TWIN["gen"])
-        cpu_s = time.perf_counter() - t0
-        cpu_err = float((logit_card - logit_cpu).abs().max())
-
-        # decode across the window: 512 steps from a 1,024-token prefill
-        P0, P = TWIN["prefix"], TWIN["prompt_len"]
-        ids = prompt.cuda()
-        t0 = time.perf_counter()
-        _, caches = card.prefill(ids[:, :P0])
-        caches = pad_kv(caches, P)
-        for p in range(P0, P):
-            stepped, caches = card.decode_step(
-                caches, ids[:, p], torch.full((1,), p, device="cuda"))
-        torch.cuda.synchronize()
-        steps_s = time.perf_counter() - t0
-        whole, _ = card.prefill(ids)
-        V = model.cfg.vocab
-        window_err = float((stepped[:, :V] - whole[:, :V]).abs().max())
-        scale = float(whole[:, :V].abs().max())
-    info = {"twin_layers": TWIN["layers"], "prompt_len": P,
-            "greedy_steps": TWIN["gen"], "tolerance": TWIN_ATOL,
-            "card_tokens": tok_card[0].tolist(),
-            "card_vs_cpu_tokens_equal": bool(torch.equal(tok_card, tok_cpu)),
-            "card_vs_cpu_max_abs_err": cpu_err,
-            "decode_steps": P - P0, "prefix": P0,
-            "decode_vs_prefill_max_abs_err": window_err,
-            "logit_scale": scale, "card_greedy_s": card_s,
-            "cpu_greedy_s": cpu_s, "card_decode_steps_s": steps_s}
+        info = {"twin_layers": TWIN["layers"],
+                "prompt_len": TWIN["prompt_len"],
+                "greedy_steps": TWIN["gen"], "tolerance": TWIN_ATOL,
+                **card_vs_cpu(card, cpu, prompt, TWIN["gen"]),
+                **decode_vs_prefill(card, prompt, TWIN["prefix"])}
     emit({"hymba_float32_twin": info})
     assert info["card_vs_cpu_tokens_equal"], info
-    assert cpu_err <= TWIN_ATOL and window_err <= TWIN_ATOL, info
-    del card, cpu, caches
+    assert info["card_vs_cpu_max_abs_err"] <= TWIN_ATOL and \
+        info["decode_vs_prefill_max_abs_err"] <= TWIN_ATOL, info
+    del card, cpu
     return info
 
 
@@ -4032,6 +4103,351 @@ def serving_hymba():
     del dA, dBx, h0, hs
     torch.cuda.empty_cache()
     return info
+
+
+# ---- qwen3-32b and llama4-scout-17b-a16e serving (models/moe.py) ---------
+
+DENSE_ARCH = "qwen3-32b"
+MOE_ARCH = "llama4-scout-17b-a16e"
+GQA_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32, "requests": 2}
+# llama4-scout's depth: 12 of 48 layers (4.43 GB each, 57.2 GB with the
+# embedding and head): the layers one card holds as one stage of a
+# four-stage pipeline; all 48 are 217 GB
+MOE_LAYERS = 12
+# the float32 twins: depth, vocabulary (the MoE twin's embedding and head
+# cut to their first 32,000 rows and columns), one prompt, greedy steps on
+# the card and the CPU, and the prefix that decode steps extend
+DENSE_TWIN = {"layers": 2, "vocab": None, "prompt_len": 1024, "gen": 8,
+              "prefix": 1016}
+MOE_TWIN = {"layers": 1, "vocab": 32_000, "prompt_len": 1024, "gen": 8,
+            "prefix": 1016}
+SERVE_CONFIG_KEYS = ("family", "n_layers", "d_model", "n_heads",
+                     "n_heads_padded", "n_kv_heads", "d_head", "d_ff",
+                     "mlp_kind", "qk_norm", "n_experts", "top_k",
+                     "n_shared_experts", "d_ff_expert", "capacity_factor",
+                     "lp_capacity", "vocab", "rope_theta", "q_chunk",
+                     "kv_chunk", "dtype")
+
+
+@contextlib.contextmanager
+def routes_kept(inputs=False):
+    """Keep every ``Routing`` that models/moe.py's ``route`` returns, in
+    call order (with ``inputs``, each call's x and router too).  Yields
+    the list; the layer runs, and its router launches, as without this."""
+    from repro_torch.models import moe
+    real, kept = moe.route, []
+
+    def keep(x, router, cfg, capacity):
+        r = real(x, router, cfg, capacity)
+        kept.append((r, (x, router, capacity)) if inputs else r)
+        return r
+
+    moe.route = keep
+    try:
+        yield kept
+    finally:
+        moe.route = real
+
+
+def serve_line(arch, cfg, model, res, policy, init_s, peak, **extra):
+    """Print and return the serving line of ``res`` (``serve``'s result
+    on GQA_SERVE)."""
+    load = GQA_SERVE
+    wave_tokens = load["batch"] * load["gen"]
+    line = {"serve": arch,
+            "config": {k: getattr(cfg, k) for k in SERVE_CONFIG_KEYS},
+            "params": sum(p.numel() for p in model.parameters()),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+            "init_on_card_s": init_s, **load, "seed": SERVE_SEED,
+            "matmul_policy": policy, "tokens_per_s": res["tokens_per_s"],
+            "wall_s": res["wall_s"],
+            "tokens_per_s_by_wave": [
+                wave_tokens / (p + d)
+                for p, d in zip(res["prefill_s"], res["decode_s"])],
+            "ttft_s": res["prefill_s"], "prefill_s": res["prefill_s"],
+            "decode_s": res["decode_s"],
+            "decode_ms_per_token_step": [
+                1e3 * d / (load["gen"] - 1) for d in res["decode_s"]],
+            "peak_device_bytes": peak,
+            "sample_tokens": res["tokens"][:, 0, :8].tolist(), **extra}
+    emit(line)
+    return line
+
+
+def serve_profiles(model, res, match=None):
+    """The kernels' device time in one prefill of the served run's first
+    wave (again: it should give that wave's first tokens) and in one
+    decode step at the served length, with the busy shares against the
+    served run's last wave; with ``match``, the time of the kernels whose
+    name holds it too."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import pad_kv
+    cfg, load = model.cfg, GQA_SERVE
+    B, P = load["batch"], load["prompt_len"]
+    rng = np.random.default_rng(SERVE_SEED)   # serve's first wave
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
+                              dtype=torch.long, device="cuda")
+    again = []
+    t0 = time.perf_counter()
+    prefill = kernel_profile(lambda: again.append(model.prefill(prompts)),
+                             top=8, match=match)
+    profile_s = time.perf_counter() - t0
+    logits, caches = again.pop()
+    first_tok = logits[:, :cfg.vocab].argmax(-1).cpu().numpy()
+    caches = pad_kv(caches, P + load["gen"])
+    pos = torch.full((B,), P, device="cuda")
+    step = kernel_profile(
+        lambda: model.decode_step(caches, prompts[:, 0], pos), top=8,
+        match=match)
+    del logits, caches, again
+    step_wall_ms = 1e3 * res["decode_s"][-1] / (load["gen"] - 1)
+    info = {"first_token_reproduced": bool(
+                (first_tok == res["tokens"][0, :, 0]).all()),
+            "prefill_kernel_ms": prefill[0],
+            "prefill_busy_share": prefill[0] / (1e3 * res["prefill_s"][-1]),
+            "prefill_top_kernels": prefill[1],
+            "prefill_profile_s": profile_s,
+            "decode_step_kernel_ms": step[0],
+            "decode_busy_share": step[0] / step_wall_ms,
+            "decode_top_kernels": step[1]}
+    if match is not None:
+        info.update({f"prefill_{match}_ms": prefill[2],
+                     f"decode_step_{match}_ms": step[2],
+                     f"decode_step_{match}_share_of_wall":
+                         step[2] / step_wall_ms})
+    return info
+
+
+def serving_dense():
+    """qwen3-32b at its published config served through
+    repro_torch.launch.serve.serve (module docstring): no custom kernel
+    launches; its float32 twin on the card against the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, set_matmul_policy
+    from repro_torch.models import build_model
+
+    policy = set_matmul_policy()
+    cfg = get_config(DENSE_ARCH)
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.d_head, cfg.qk_norm, cfg.mlp_kind, cfg.d_ff,
+            cfg.vocab, cfg.rope_theta, cfg.param_dtype) == \
+        ("dense", 64, 5120, 64, 8, 128, True, "swiglu", 25600, 151936, 1e6,
+         "bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED)     # drawn on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with phase("serving_dense.serve"):
+        res = serve(cfg, model, seed=SERVE_SEED, **GQA_SERVE)
+    launched = counts()
+    assert not any(launched.values()), launched   # no custom kernel
+    peak = torch.cuda.max_memory_allocated()
+    tokens = res["tokens"]
+    assert tokens.shape == (GQA_SERVE["requests"], GQA_SERVE["batch"],
+                            GQA_SERVE["gen"])
+    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    line = serve_line(DENSE_ARCH, cfg, model, res, policy, init_s, peak,
+                      custom_kernel_launches=launched)
+    with phase("serving_dense.profiles"), torch.inference_mode():
+        prof = serve_profiles(model, res)
+    emit({"serve_profile": DENSE_ARCH, **prof})
+
+    with phase("serving_dense.twin"), torch.inference_mode():
+        spec = DENSE_TWIN
+        cpu = float32_cut(model, "cpu", spec["layers"], spec["vocab"])
+        del model
+        torch.cuda.empty_cache()
+        card = float32_cut(cpu, "cuda", spec["layers"])
+        prompt = twin_prompt(card.cfg, spec["prompt_len"])
+        twin = {"twin_layers": spec["layers"],
+                "prompt_len": spec["prompt_len"],
+                "greedy_steps": spec["gen"], "tolerance": TWIN_ATOL,
+                **card_vs_cpu(card, cpu, prompt, spec["gen"]),
+                **decode_vs_prefill(card, prompt, spec["prefix"])}
+        emit({"dense_float32_twin": twin})
+        assert twin["card_vs_cpu_tokens_equal"], twin
+        assert twin["card_vs_cpu_max_abs_err"] <= TWIN_ATOL and \
+            twin["decode_vs_prefill_max_abs_err"] <= TWIN_ATOL, twin
+        del card, cpu
+    torch.cuda.empty_cache()
+    return {**line, **prof, "twin": twin}
+
+
+def kept_shares(routes, layers, steps):
+    """The share of routed tokens kept, per wave, in prefill and in
+    decode: ``routes`` in call order, each wave a prefill call a layer and
+    then ``steps`` decode steps of a call a layer."""
+    per_wave = layers * (1 + steps)
+    out = []
+    for w in range(len(routes) // per_wave):
+        wave = routes[w * per_wave:(w + 1) * per_wave]
+        share = [float(sum(int(r.keep.sum()) for r in part))
+                 / sum(r.keep.numel() for r in part)
+                 for part in (wave[:layers], wave[layers:])]
+        out.append({"prefill": share[0], "decode": share[1]})
+    return out
+
+
+def caps_vs_plain(r, capacity):
+    """The caps a served call's router solved on the card against the
+    plain version's solve of the same demand on the CPU: the largest
+    |difference| (0.0 when bit-equal)."""
+    from repro_torch.core import expert_capacity_lp
+    N = r.keep.numel()
+    want = expert_capacity_lp(r.demand.cpu(), total_slots=float(N),
+                              c_max=float(capacity))[0]
+    return float((r.caps.cpu() - want).abs().max())
+
+
+def routing_margins(kept):
+    """Over the calls ``routes_kept(inputs=True)`` kept: the smallest gap
+    between a token's top-1 and top-2 router probabilities, and the
+    smallest |cap - slot| of a (token, choice) pair with lp_capacity."""
+    import torch
+    gap, margin = float("inf"), float("inf")
+    for r, (x, router, _) in kept:
+        probs = torch.softmax((x @ router).float(), dim=-1)
+        top2 = torch.sort(probs, dim=-1, descending=True).values[:, :2]
+        gap = min(gap, float((top2[:, 0] - top2[:, 1]).min()))
+        if r.caps is not None:
+            margin = min(margin, float((r.caps[r.expert] - r.slot)
+                                       .abs().min()))
+    return gap, None if margin == float("inf") else margin
+
+
+def moe_twin_run(card, cpu, prompt, steps):
+    """card_vs_cpu with the routing of every MoE call kept: expert, slot
+    and keep compared call for call, card against CPU."""
+    import torch
+    with routes_kept(inputs=True) as kept:
+        run = card_vs_cpu(card, cpu, prompt, steps)
+    n = cpu.cfg.n_layers * (1 + steps)
+    assert len(kept) == 2 * n                  # the card's calls, the CPU's
+    on_card, on_cpu = kept[:n], kept[n:]
+    same = all(torch.equal(getattr(a, f).cpu(), getattr(b, f))
+               for (a, _), (b, _) in zip(on_card, on_cpu)
+               for f in ("expert", "slot", "keep"))
+    gap, margin = routing_margins(on_card)
+    return {**run, "card_vs_cpu_routing_equal": same, "routing_calls": n,
+            "min_top1_top2_prob_gap": gap, "min_abs_cap_minus_slot": margin,
+            "kept_share_card": float(sum(int(r.keep.sum())
+                                         for r, _ in on_card))
+            / sum(r.keep.numel() for r, _ in on_card)}
+
+
+def serving_moe():
+    """llama4-scout-17b-a16e at its published width, 12 of 48 layers,
+    with the LP capacity router, served through
+    repro_torch.launch.serve.serve (module docstring): every MoE layer
+    call launches the whole-solve simplex kernel once; returns the
+    launches and the router's checks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, set_matmul_policy
+    from repro_torch.models import build_model, moe
+
+    policy = set_matmul_policy()
+    published = get_config(MOE_ARCH)
+    assert (published.family, published.n_layers, published.d_model,
+            published.n_heads, published.n_heads_padded,
+            published.n_kv_heads, published.d_head, published.n_experts,
+            published.d_ff_expert, published.top_k,
+            published.n_shared_experts, published.vocab,
+            published.rope_theta, published.q_chunk, published.kv_chunk,
+            published.param_dtype, published.lp_capacity) == \
+        ("moe", 48, 5120, 40, 48, 8, 128, 16, 8192, 1, 1, 202048, 5e5,
+         2048, 2048, "bfloat16", False)
+    cfg = dataclasses.replace(published, n_layers=MOE_LAYERS,
+                              lp_capacity=True)
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED)     # drawn on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    load = GQA_SERVE
+    steps = load["gen"] - 1
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with phase("serving_moe.serve"), routes_kept() as routes:
+        res = serve(cfg, model, seed=SERVE_SEED, **load)
+    launches = only("simplex_tile")
+    want = cfg.n_layers * (1 + steps) * load["requests"]
+    assert launches == want == 768, (launches, want)
+    peak = torch.cuda.max_memory_allocated()
+    assert len(routes) == launches
+    tokens = res["tokens"]
+    assert tokens.shape == (load["requests"], load["batch"], load["gen"])
+    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+
+    # the router's caps in layer 0's first prefill and layer 11's last
+    # decode step, solved again by the plain version on the CPU
+    E, K = cfg.n_experts, cfg.top_k
+    cap_of = {n: moe._capacity(n, K, E, cfg.capacity_factor)
+              for n in (load["batch"] * load["prompt_len"], load["batch"])}
+    first, last = routes[0], routes[-1]
+    caps_err = {"layer0_prefill": caps_vs_plain(
+                    first, cap_of[first.keep.numel() // K]),
+                "layer11_last_decode": caps_vs_plain(
+                    last, cap_of[last.keep.numel() // K])}
+    assert max(caps_err.values()) == 0.0, caps_err
+    shares = kept_shares(routes, cfg.n_layers, steps)
+    del routes, first, last
+    line = serve_line(MOE_ARCH, cfg, model, res, policy, init_s, peak,
+                      published_layers=published.n_layers,
+                      simplex_launches=launches,
+                      router_caps_vs_plain_max_abs_err=caps_err,
+                      kept_share_by_wave=shares)
+
+    # one decode-shaped layer call with host synchronization forbidden
+    with phase("serving_moe.sync_free"), torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+        x = torch.randn((load["batch"], 1, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        mlp = model.blocks[0].mlp
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = moe.moe_apply(mlp, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        del x, out
+
+    with phase("serving_moe.profiles"), torch.inference_mode():
+        prof = serve_profiles(model, res, match="simplex")
+    emit({"serve_profile": MOE_ARCH, **prof})
+
+    with phase("serving_moe.twin"), torch.inference_mode():
+        spec = MOE_TWIN
+        cpu = float32_cut(model, "cpu", spec["layers"], spec["vocab"])
+        del model, mlp
+        torch.cuda.empty_cache()
+        card = float32_cut(cpu, "cuda", spec["layers"])
+        prompt = twin_prompt(card.cfg, spec["prompt_len"])
+        twin = {"twin_layers": spec["layers"], "vocab": spec["vocab"],
+                "prompt_len": spec["prompt_len"],
+                "greedy_steps": spec["gen"], "tolerance": TWIN_ATOL}
+        for lp in (True, False):
+            for lm in (card, cpu):
+                reconfigure(lm, lp_capacity=lp)
+            twin[f"lp_capacity_{lp}"] = run = moe_twin_run(
+                card, cpu, prompt, spec["gen"])
+            assert run["card_vs_cpu_routing_equal"], run
+            assert run["card_vs_cpu_tokens_equal"], run
+            assert run["card_vs_cpu_max_abs_err"] <= TWIN_ATOL, run
+        # capacity drops make routing depend on the batch: decode against
+        # prefill with none, as the reference's test_decode_matches_prefill
+        reconfigure(card, lp_capacity=False, capacity_factor=100.0)
+        twin.update(decode_vs_prefill(card, prompt, spec["prefix"]))
+        emit({"moe_float32_twin": twin})
+        assert twin["decode_vs_prefill_max_abs_err"] <= TWIN_ATOL, twin
+        del card, cpu
+    torch.cuda.empty_cache()
+    return {**line, **prof, "twin": twin, "launches": launches}
 
 
 # ---- falcon-mamba-7b training (launch/train.py, csrc/ssm_scan.cu) --------
@@ -4961,7 +5377,7 @@ def smoke() -> int:
             _, n = revised_main("lp_100d_50k", lp100, head, rule, res_100)
             path_launches("revised_segment", f"revised_main {rule}", n)
         path_launches("revised_segment", "revised_warm",
-                      revised_warm(afiro, g, g64, traj_lps=100_000))
+                      revised_warm(afiro, g, g64, traj_lps=TRAJ_LPS))
         rev_rows = []
         for rule in REVISED_RULES:
             row, whole = done("revised", "lp_100d_50k", rule)
@@ -5038,6 +5454,16 @@ def smoke() -> int:
         hymba = serving_hymba()
         path_launches("ssm_scan", f"serve {HYMBA_ARCH}", hymba["launches"])
 
+    # ---- qwen3-32b serving: the dense block, no custom kernel -------------
+    with phase("serving_dense"):
+        serving_dense()
+
+    # ---- llama4-scout serving: the MoE layer and its LP capacity router ---
+    with phase("serving_moe"):
+        scout = serving_moe()
+        path_launches("simplex_tile", f"serve {MOE_ARCH} (lp_capacity)",
+                      scout["launches"])
+
     # ---- falcon-mamba-7b training: the scan's backward kernel -------------
     with phase("training"):
         bwd = training()
@@ -5061,8 +5487,12 @@ def smoke() -> int:
         "variant": main_row["variant"],
         "full_batch_ms": full_100["ms"],
         "full_batch_bound_ms": full_100["bound_ms"],
+        "moe_router_caps_vs_plain_max_abs_err":
+            scout["router_caps_vs_plain_max_abs_err"],
         "parity": "status, iterations and work counts equal; x, objective, "
-                  "y, z within rel 1e-5; every rule and batch"}, {
+                  "y, z within rel 1e-5; every rule and batch; the MoE "
+                  "router's caps in the served llama4-scout equal to the "
+                  "plain version's"}, {
         "name": "simplex_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/simplex_tile.cu",
         "replaces": "src/repro/kernels/simplex_tile.py:494",

@@ -2,9 +2,13 @@
 constructors of the architectures ported so far.
 
 ``ARCH_IDS`` and ``CANONICAL`` are the reference's (``repro/configs``).
-Only falcon-mamba-7b and hymba-1.5b run in the port yet; ``get_config`` of
-any other id raises ``NotImplementedError`` (ROADMAP: the rest of the LM scaffold lists
-the model modules and configs still to port).  ``paper_lp`` holds the
+The port runs the ssm family (falcon-mamba-7b), the hybrid family
+(hymba-1.5b), the dense family (qwen3-32b, granite-20b, nemotron-4-340b,
+llama3-405b) and the GQA MoE family (llama4-scout-17b-a16e); each
+constructor is a copy of the reference's.  ``get_config`` of
+deepseek-v2-236b (MLA), whisper-small (encdec) and phi-3-vision-4.2b
+(VLM) raises ``NotImplementedError`` (ROADMAP: the rest of the LM
+scaffold lists the model modules still to port).  ``paper_lp`` holds the
 paper's LP workloads (``WORKLOADS``, ``build_batch``); it is not an
 architecture.
 """
@@ -39,7 +43,8 @@ CANONICAL = {
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
-PORTED = ("falcon_mamba_7b", "hymba_1_5b")
+PORTED = ("falcon_mamba_7b", "hymba_1_5b", "qwen3_32b", "granite_20b",
+          "nemotron_4_340b", "llama3_405b", "llama4_scout_17b_a16e")
 
 
 def get_config(arch: str):

@@ -65,9 +65,9 @@ def make_train_step(model, optimizer, microbatches: int = 1):
 def make_prefill_step(model):
     """``prefill_step(tokens, extra=None) -> (logits, caches)``, the
     model's prefill.  ``extra`` carries the reference's "patches" or
-    "frames" inputs, which only the vlm and encdec families take; they
-    are not ported yet (ROADMAP: the rest of the LM scaffold), so any
-    such input raises."""
+    "frames" inputs, which only the vlm and encdec families take; the
+    port runs the ssm, hybrid, dense and MoE families, not those two yet
+    (ROADMAP: the rest of the LM scaffold), so any such input raises."""
 
     def prefill_step(tokens, extra=None):
         inputs = sorted(k for k in (extra or {}) if k in ("patches",
@@ -75,7 +75,8 @@ def make_prefill_step(model):
         if inputs:
             raise NotImplementedError(
                 f"{', '.join(inputs)} inputs: the vlm and encdec families "
-                "are not ported yet (ROADMAP: the rest of the LM scaffold)")
+                "are not ported yet (ROADMAP: the rest of the LM scaffold); "
+                "the port runs the ssm, hybrid, dense and MoE families")
         return model.prefill(tokens)
 
     return prefill_step

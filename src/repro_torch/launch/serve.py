@@ -5,10 +5,17 @@
         --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
 
 Without ``--device`` it runs on the card; ``--arch`` defaults to
-hymba-1.5b, as the reference's does.  ``serve`` is the loop as a
+hymba-1.5b, as the reference's does.  It serves every family the port
+runs: ssm (falcon-mamba-7b), hybrid (hymba-1.5b), dense (qwen3-32b,
+granite-20b, nemotron-4-340b, llama3-405b) and MoE (llama4-scout-17b-a16e).
+The MoE layer's LP capacity router is off in the shipped configs, as in
+the reference; a script turns it on with
+``dataclasses.replace(cfg, lp_capacity=True)`` before ``build_model``,
+and ``serve`` then solves one LP on the card in every MoE layer call.  ``serve`` is the loop as a
 function, for scripts that drive it and read its tokens and timings.
 After prefill, only the KV leaves' sequence axis is padded from the
-prompt length P to P + G rows (``pad_kv``).  The reference pads every
+prompt length P to P + G rows (``pad_kv``; the dense and MoE families'
+caches are all KV leaves).  The reference pads every
 cache leaf whose axis 2 equals P, and the SSM leaves (h, conv) have no
 sequence axis: at P = conv_dim - 1 it pads the conv window, at P =
 d_inner the state (ROADMAP queue 3).

@@ -1,8 +1,10 @@
 """Training entry point (the reference's ``launch/train.py``): AdamW steps of
 the port's LM on the synthetic LM data, with gradient-accumulation
 microbatching, a straggler watchdog and an optional loss-curve CSV.  It
-trains the ssm family; the hybrid family (hymba) is served, not trained
-yet (ROADMAP: the rest of the LM scaffold, hybrid training).
+trains the ssm family only; the hybrid, dense and MoE families are
+served, not trained yet, and ``train`` refuses them and every other
+family (ROADMAP: the rest of the LM scaffold, training of the hybrid,
+dense and MoE families).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
         --reduced --steps 3 --batch 2 --seq 32 --device cpu
@@ -49,11 +51,11 @@ def train(cfg, model: LM, *, batch: int, seq: int, steps: int,
     in ``step_s``), ``tokens_per_s`` (batch x seq / step_s) and
     ``stragglers`` (steps slower than ``straggler_factor`` x the running
     median)."""
-    if cfg.family == "hybrid":
+    if cfg.family != "ssm":
         raise NotImplementedError(
-            f"{cfg.name}: training the hybrid family is not ported yet "
-            "(ROADMAP: the rest of the LM scaffold, hybrid training); the "
-            "port serves it")
+            f"{cfg.name}: training the {cfg.family} family is not ported "
+            f"yet (ROADMAP: the rest of the LM scaffold, {cfg.family} "
+            "training); the port trains the ssm family only")
     if min(batch, seq, steps, microbatches) < 1:
         raise ValueError("batch, seq, steps and microbatches must be >= 1")
     dev = resolve_device(device)

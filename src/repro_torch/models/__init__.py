@@ -1,6 +1,9 @@
-"""The port's model zoo: so far the ssm family (falcon-mamba-7b) and the
-hybrid family (hymba-1.5b), whose prefill runs the CUDA selective-scan
-kernel on the card."""
+"""The port's model zoo: the ssm family (falcon-mamba-7b) and the hybrid
+family (hymba-1.5b), whose prefill runs the CUDA selective-scan kernel on
+the card; the dense family (qwen3-32b, granite-20b, nemotron-4-340b,
+llama3-405b), which runs no custom kernel; and the MoE family with GQA
+(llama4-scout-17b-a16e), whose LP capacity router (``lp_capacity``)
+solves its allocation with the whole-solve simplex kernel on the card."""
 import torch
 
 from ..device import resolve_device

@@ -1,18 +1,22 @@
 """Decoder-only LM assembly (the reference's ``models/transformer.py``),
-for the ssm family (falcon-mamba) and the hybrid family (hymba: GQA with
-a sliding window and Mamba on the same input, mean-fused).
+for the ssm family (falcon-mamba), the hybrid family (hymba: GQA with a
+sliding window and Mamba on the same input, mean-fused), the dense family
+(qwen3, granite, nemotron, llama3: GQA, then a SwiGLU, GELU or squared
+ReLU MLP) and the MoE family with GQA (llama4-scout: GQA, then the routed
+and shared experts of ``models/moe.py``, with the LP capacity router
+where the config asks for it).
 
 ``LM`` is an ``nn.Module`` with a ``ModuleList`` of blocks; the reference's
 ``lax.scan`` over stacked layers becomes a Python loop, and the caches it
 returns are stacked on a leading layer axis as the reference's are
-(``HymbaCache`` leaves included).  Parameters keep the reference's names
-and (in, out) layouts and are trainable; serving runs under
-``torch.inference_mode()``.  ``loss_fn`` is the reference's
+(``KVCache`` and ``HymbaCache`` leaves included).  Parameters keep the
+reference's names and (in, out) layouts and are trainable; serving runs
+under ``torch.inference_mode()``.  ``loss_fn`` is the reference's
 sequence-chunked cross entropy, and ``remat="block"`` checkpoints each
 block in train mode (``torch.utils.checkpoint``, the counterpart of
 ``jax.checkpoint``), so the backward recomputes a block's forward, scan
-kernel included.  The dense, MoE, MLA, encdec and VLM families wait for
-their slices (ROADMAP: the rest of the LM scaffold).
+kernel included.  MLA (deepseek-v2), encdec and VLM wait for their slices
+(ROADMAP: the rest of the LM scaffold).
 """
 from __future__ import annotations
 
@@ -28,6 +32,11 @@ from .layers import (TensorSpec, apply_norm, embed_init, embed_lookup,
                      head_init, logits_apply, mlp_apply, mlp_init, norm_init,
                      token_nll, torch_dtype)
 from .mamba import MambaCache, mamba_apply, mamba_cache_shape, mamba_init
+from .moe import moe_apply, moe_init
+
+# the families whose every module the port has (MLA attention excepted)
+PORTED_FAMILIES = ("ssm", "hybrid", "dense", "moe")
+
 
 class HymbaCache(NamedTuple):
     kv: KVCache
@@ -50,20 +59,21 @@ def _params(tensors: dict) -> nn.ParameterDict:
 
 def check_ported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` unless ``cfg`` runs only modules the
-    port has: the ssm and hybrid families, with a dense MLP or none."""
-    if cfg.family not in ("ssm", "hybrid") or cfg.attn_kind == "mla" \
-            or cfg.mlp_kind == "moe":
+    port has: the ssm, hybrid, dense and MoE families, without MLA."""
+    if cfg.family not in PORTED_FAMILIES or cfg.attn_kind == "mla":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family (attention "
             f"{cfg.attn_kind}, MLP {cfg.mlp_kind}) is not ported yet "
-            "(ROADMAP: the rest of the LM scaffold); the port runs the ssm "
-            "and hybrid families with dense MLPs")
+            "(ROADMAP: the rest of the LM scaffold); the port runs the "
+            f"{', '.join(PORTED_FAMILIES)} families with GQA attention")
 
 
 class Block(nn.Module):
     """One pre-norm residual block: x + mixer(norm1(x)), then, where the
-    config has an MLP, x + mlp(norm2(x)).  The ssm family's mixer is
-    Mamba; the hybrid's is 0.5 * (gqa(h) + mamba(h)) on the same h."""
+    config has an MLP (``d_ff`` set, or MoE), x + mlp(norm2(x)).  The ssm
+    family's mixer is Mamba; the hybrid's is 0.5 * (gqa(h) + mamba(h)) on
+    the same h; the dense and MoE families' is GQA.  The MLP is the
+    config's kind, MoE included."""
 
     def __init__(self, cfg: ModelConfig, gen, device):
         super().__init__()
@@ -71,14 +81,16 @@ class Block(nn.Module):
         dtype = torch_dtype(cfg.param_dtype)
         self.norm1 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                        device))
-        if cfg.family == "hybrid":
+        if cfg.family != "ssm":
             self.attn = _params(gqa_init(gen, cfg, device))
-        self.ssm = _params(mamba_init(gen, cfg, device))
-        self.has_mlp = bool(cfg.d_ff)
+        if cfg.family in ("ssm", "hybrid"):
+            self.ssm = _params(mamba_init(gen, cfg, device))
+        self.has_mlp = bool(cfg.d_ff) or cfg.mlp_kind == "moe"
         if self.has_mlp:
             self.norm2 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                            device))
-            self.mlp = _params(mlp_init(gen, cfg, device))
+            init = moe_init if cfg.mlp_kind == "moe" else mlp_init
+            self.mlp = _params(init(gen, cfg, device))
 
     def forward(self, x, *, mode: str, positions=None, cache=None, pos=None):
         cfg = self.cfg
@@ -93,18 +105,22 @@ class Block(nn.Module):
             a = 0.5 * (a1 + a2)
             new_cache = None if mode == "train" else HymbaCache(kv_new,
                                                                 ssm_new)
-        else:
+        elif cfg.family == "ssm":
             a, new_cache = mamba_apply(self.ssm, h, cfg, mode=mode,
                                        cache=cache)
+        else:
+            a, new_cache = gqa_apply(self.attn, h, cfg, positions=positions,
+                                     mode=mode, cache=cache, pos=pos)
         x = x + a
         if self.has_mlp:
-            x = x + mlp_apply(self.mlp, apply_norm(self.norm2, x,
-                                                   cfg.norm_kind), cfg)
+            h2 = apply_norm(self.norm2, x, cfg.norm_kind)
+            apply = moe_apply if cfg.mlp_kind == "moe" else mlp_apply
+            x = x + apply(self.mlp, h2, cfg)
         return x, new_cache
 
 
 class LM(nn.Module):
-    """Decoder LM of the ssm or hybrid family.  ``generator`` draws the
+    """Decoder LM of the ssm, hybrid, dense or MoE family.  ``generator`` draws the
     parameters (embedding, blocks, head, in that order); ``None`` leaves
     them uninitialized for ``interop.lm_from_reference`` to fill."""
 
@@ -192,8 +208,8 @@ class LM(nn.Module):
 
     def prefill(self, tokens):
         """tokens: (B, S) integer.  Returns (last-position logits
-        (B, vocab_padded) float32, caches stacked on a layer axis; the
-        hybrid's KV leaves hold the S prompt rows)."""
+        (B, vocab_padded) float32, caches stacked on a layer axis; KV
+        leaves hold the S prompt rows)."""
         x = self._embed_inputs(tokens)
         x, caches = self._run_layers(x, mode="prefill",
                                      positions=self._positions(x))
@@ -213,16 +229,19 @@ class LM(nn.Module):
     # -- cache shapes ---------------------------------------------------------
     def cache_shape(self, batch: int, seq: int):
         """Shapes of the stacked caches, the reference's: the ssm family's
-        do not grow with ``seq``; the hybrid's KV leaves are
-        ``gqa_cache_shape``'s (window-sized, see there)."""
-        L = self.cfg.n_layers
+        do not grow with ``seq``; KV leaves (the hybrid's, the dense and
+        MoE families') are ``gqa_cache_shape``'s (window-sized where the
+        config has a window, see there)."""
+        cfg = self.cfg
+        L = cfg.n_layers
 
         def stack(tree):
             return map_cache(lambda s: TensorSpec((L,) + s.shape, s.dtype),
                              tree)
 
-        ssm = mamba_cache_shape(self.cfg, batch)
-        if self.cfg.family == "hybrid":
-            return stack(HymbaCache(
-                kv=gqa_cache_shape(self.cfg, batch, seq), ssm=ssm))
-        return stack(ssm)
+        if cfg.family == "ssm":
+            return stack(mamba_cache_shape(cfg, batch))
+        if cfg.family == "hybrid":
+            return stack(HymbaCache(kv=gqa_cache_shape(cfg, batch, seq),
+                                    ssm=mamba_cache_shape(cfg, batch)))
+        return stack(gqa_cache_shape(cfg, batch, seq))

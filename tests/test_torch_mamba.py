@@ -91,7 +91,9 @@ def test_config_registry_is_the_reference_one():
         assert cfg.n_params() == ref.n_params()
         assert dataclasses.asdict(cfg.reduced()) == \
             dataclasses.asdict(ref.reduced())
-    assert PORTED == ("falcon_mamba_7b", "hymba_1_5b")
+    assert PORTED == ("falcon_mamba_7b", "hymba_1_5b", "qwen3_32b",
+                      "granite_20b", "nemotron_4_340b", "llama3_405b",
+                      "llama4_scout_17b_a16e")
     for arch, key in CANONICAL.items():
         if key not in PORTED:
             with pytest.raises(NotImplementedError, match=UNPORTED):
@@ -175,10 +177,10 @@ def test_cache_shapes_are_the_reference_ones():
         assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-32b", "llama4-scout-17b-a16e",
+@pytest.mark.parametrize("arch", ["whisper-small", "phi-3-vision-4.2b",
                                   "deepseek-v2-236b"])
 def test_unported_families_raise(arch):
-    """The dense, MoE and MLA families stay unported."""
+    """The encdec and VLM families and MLA stay unported."""
     with pytest.raises(NotImplementedError, match=UNPORTED):
         LM(ref_get_config(arch).reduced(), device="cpu")
 

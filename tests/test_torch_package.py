@@ -82,7 +82,12 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.distributed, repro_torch.data, repro_torch.obs, "
             "repro_torch.obs.work, repro_torch.core.branch_bound, "
             "repro_torch.analysis.lp_perf, repro_torch.configs.paper_lp, "
-            "repro_torch.core.distributed, repro_torch.core.lp_router\n"
+            "repro_torch.core.distributed, repro_torch.core.lp_router, "
+            "repro_torch.models.moe, repro_torch.configs.qwen3_32b, "
+            "repro_torch.configs.granite_20b, "
+            "repro_torch.configs.nemotron_4_340b, "
+            "repro_torch.configs.llama3_405b, "
+            "repro_torch.configs.llama4_scout_17b_a16e\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -1330,6 +1335,58 @@ def test_expert_capacity_lp_on_the_card_equals_the_cpu(G, E):
         torch.cuda.set_sync_debug_mode("default")
     assert got.is_cuda and simplex_tile.launches == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_reduced_moe_layer_with_the_lp_router_on_the_card_equals_the_cpu(
+        top_k):
+    """The reduced llama4-scout MoE layer with lp_capacity on a card
+    tensor: one whole-solve launch a call, no host synchronization
+    (sync-debug mode "error"), the CPU port's experts, slots and keep
+    mask (tokens dropped), its demand within 1e-5 (another summation
+    order), caps bit-equal to the plain version's solve of the card's
+    demand, and the output within atol 1e-5."""
+    from repro_torch.core import expert_capacity_lp
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.launch.serve import set_matmul_policy
+    from repro_torch.models import moe
+    set_matmul_policy()
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e").reduced(),
+                              lp_capacity=True, top_k=top_k)
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = moe.moe_init(gen, cfg, torch.device("cpu"))
+    p_card = {k: v.cuda() for k, v in p_cpu.items()}
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(4, 32, cfg.d_model)).astype(np.float32)
+    x = torch.from_numpy(x + 1.5 * rng.normal(size=cfg.d_model)
+                         .astype(np.float32))
+    C = moe._capacity(128, top_k, cfg.n_experts, cfg.capacity_factor)
+    want = moe.moe_apply(p_cpu, x, cfg)
+    want_r = moe.route(x.reshape(128, -1), p_cpu["router"], cfg, C)
+    x_card = x.cuda()
+    torch.cuda.synchronize()
+    before = simplex_tile.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe.moe_apply(p_card, x_card, cfg)
+        got_r = moe.route(x_card.reshape(128, -1), p_card["router"], cfg, C)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert simplex_tile.launches == before + 2
+    for f in ("expert", "slot", "keep"):
+        torch.testing.assert_close(getattr(got_r, f).cpu(),
+                                   getattr(want_r, f), rtol=0, atol=0)
+    torch.testing.assert_close(got_r.demand.cpu(), want_r.demand, rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(
+        got_r.caps.cpu(),
+        expert_capacity_lp(got_r.demand.cpu(), 128.0 * top_k, float(C))[0],
+        rtol=0, atol=0)
+    assert not want_r.keep.all()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.gpu
