@@ -219,6 +219,39 @@ printed.  Decode against prefill is checked with ``lp_capacity`` off at
 capacity factor 100 (capacity drops make routing depend on the batch, as
 in the reference's test_decode_matches_prefill).
 
+MLA serving (after scout's, once that model is freed): deepseek-v2-236b
+at its published width (d_model 5120, 128 heads of MLA with a 512-wide
+KV latent, q_lora 1,536, nope 128 + rope 64, v 128; 160 experts of
+1,536, top-6, two shared experts, vocab 102,400, bf16 from a seeded
+generator), cut to 6 of its 60 layers (49.8 GB; all 60 are 479 GB), with
+``lp_capacity=True``, serves the same load through ``serve``: exactly
+6 x (1 + 31) x 2 = 384 whole-solve launches at E = 160 and no other
+custom kernel, the caps of layer 0's first prefill and layer 5's last
+decode step bit-equal to the plain version on the CPU, one decode-shaped
+``moe_apply`` with host synchronization forbidden, the router's share of
+a decode step's kernels and wall printed.  Its float32 twin (1 layer, a
+32,000-token vocabulary) runs as scout's, routing equal; decode (MLA's
+absorbed form, against the latent cache) against prefill (its
+materialized per-head K/V) within ``TWIN_ATOL`` is the MLA-specific
+check.
+
+Encoder-decoder serving: whisper-small whole (12 encoder and 12 decoder
+layers, d_model 768, 12 heads padded to 16, LayerNorm, GELU, a tied
+head) serves 2 waves of 4 requests of 1,500 precomputed frames (the
+conv frontend is a stub, as in the reference; the frames are drawn after
+the prompts from serve's generator) with a 64-token prompt and 32
+generated tokens; no port kernel may launch.  Its float32 twin is the
+whole model, one 64-token prompt over 1,500 frames, card against CPU,
+and decode from prefill(32) against prefill(64).
+
+VLM serving: phi-3-vision-4.2b whole (32 layers, d_model 3072, 32 heads
+of 96, SwiGLU 8,192, vocab 32,064) serves 2 waves of 4 requests of 256
+precomputed patch embeddings (the CLIP frontend is a stub) before 1,792
+text tokens, 32 generated (decode positions start at 2,048); no port
+kernel may launch.  Its float32 twin is cut to 2 layers, 256 patches
+before a 1,024-token prompt.  Each of the three prints what the other
+serving phases print.
+
 Training (after the serving phases, once their models and kept tensors
 are freed):
 falcon-mamba-7b at its full published width in bf16 (d_model 4096,
@@ -3841,15 +3874,24 @@ TWIN = {"layers": 2, "prompt_len": 1536, "gen": 8, "prefix": 1024}
 TWIN_ATOL = 1e-3
 
 
-def greedy(model, prompts, steps):
-    """prefill, the KV leaves padded, then ``steps`` greedy decode steps:
+def rows_before(prompts, extra=None):
+    """The cache rows a prefill of ``prompts`` fills: a VLM's patches
+    come first."""
+    patches = (extra or {}).get("patches")
+    return prompts.shape[1] + (0 if patches is None else patches.shape[1])
+
+
+def greedy(model, prompts, steps, extra=None):
+    """prefill (with the stub inputs ``extra`` on the prompts' device),
+    the leaves decode writes padded, then ``steps`` greedy decode steps:
     the tokens (B, steps + 1) and the real-vocab logits of each
     (steps + 1, B, V) as float32 on the host."""
     import torch
     from repro_torch.launch.serve import pad_kv
     V = model.cfg.vocab
-    B, P = prompts.shape
-    logits, caches = model.prefill(prompts)
+    B = prompts.shape[0]
+    P = rows_before(prompts, extra)
+    logits, caches = model.prefill(prompts, **(extra or {}))
     caches = pad_kv(caches, P + steps)
     seen = [logits[:, :V].float().cpu()]
     for g in range(steps):
@@ -3867,12 +3909,12 @@ def float32_cut(model, device, layers, vocab=None, **changes):
     by ``changes``; with ``vocab``, the embedding's first ``vocab`` rows
     and the head's first ``vocab`` columns."""
     import torch
-    from repro_torch.models import LM
     cfg = dataclasses.replace(model.cfg, n_layers=layers,
                               vocab=vocab or model.cfg.vocab,
                               dtype="float32", param_dtype="float32",
                               **changes)
-    twin = LM(cfg, device=torch.device(device))   # uninitialized, then copied
+    # an LM or an EncDecLM, uninitialized, then copied
+    twin = type(model)(cfg, device=torch.device(device))
     src = dict(model.named_parameters())
     with torch.no_grad():
         for name, dst in twin.named_parameters():
@@ -3894,16 +3936,18 @@ def reconfigure(lm, **changes):
         block.cfg = cfg
 
 
-def card_vs_cpu(card, cpu, prompt, steps):
-    """One prompt and ``steps`` greedy decode steps through the twin on
-    the card and on the CPU: equal tokens, and the largest logit
-    difference."""
+def card_vs_cpu(card, cpu, prompt, steps, extra=None):
+    """One prompt (with the stub inputs ``extra``, on the host) and
+    ``steps`` greedy decode steps through the twin on the card and on the
+    CPU: equal tokens, and the largest logit difference."""
     import torch
+    extra = extra or {}
     t0 = time.perf_counter()
-    tok_card, logit_card = greedy(card, prompt.cuda(), steps)
+    tok_card, logit_card = greedy(card, prompt.cuda(), steps,
+                                  {k: v.cuda() for k, v in extra.items()})
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tok_cpu, logit_cpu = greedy(cpu, prompt, steps)
+    tok_cpu, logit_cpu = greedy(cpu, prompt, steps, extra)
     cpu_s = time.perf_counter() - t0
     return {"card_tokens": tok_card[0].tolist(),
             "card_vs_cpu_tokens_equal": bool(torch.equal(tok_card, tok_cpu)),
@@ -3912,22 +3956,25 @@ def card_vs_cpu(card, cpu, prompt, steps):
             "card_greedy_s": card_s, "cpu_greedy_s": cpu_s}
 
 
-def decode_vs_prefill(card, prompt, prefix):
-    """On the card: prefill(prompt[:prefix]), then decode steps to the
-    prompt's end, against one prefill of the whole prompt."""
+def decode_vs_prefill(card, prompt, prefix, extra=None):
+    """On the card: prefill(prompt[:prefix]) (with the stub inputs
+    ``extra``), then decode steps to the prompt's end, against one
+    prefill of the whole prompt."""
     import torch
     from repro_torch.launch.serve import pad_kv
     ids = prompt.cuda()
+    extra = {k: v.cuda() for k, v in (extra or {}).items()}
     P = ids.shape[1]
+    shift = rows_before(ids, extra) - P    # a VLM's patches
     t0 = time.perf_counter()
-    _, caches = card.prefill(ids[:, :prefix])
-    caches = pad_kv(caches, P)
+    _, caches = card.prefill(ids[:, :prefix], **extra)
+    caches = pad_kv(caches, P + shift)
     for p in range(prefix, P):
         stepped, caches = card.decode_step(
-            caches, ids[:, p], torch.full((1,), p, device="cuda"))
+            caches, ids[:, p], torch.full((1,), p + shift, device="cuda"))
     torch.cuda.synchronize()
     steps_s = time.perf_counter() - t0
-    whole, _ = card.prefill(ids)
+    whole, _ = card.prefill(ids, **extra)
     V = card.cfg.vocab
     return {"decode_steps": P - prefix, "prefix": prefix,
             "decode_vs_prefill_max_abs_err": float(
@@ -4149,13 +4196,13 @@ def routes_kept(inputs=False):
         moe.route = real
 
 
-def serve_line(arch, cfg, model, res, policy, init_s, peak, **extra):
+def serve_line(arch, cfg, model, res, policy, init_s, peak, load=GQA_SERVE,
+               keys=SERVE_CONFIG_KEYS, **extra):
     """Print and return the serving line of ``res`` (``serve``'s result
-    on GQA_SERVE)."""
-    load = GQA_SERVE
+    on ``load``), with the config's fields ``keys``."""
     wave_tokens = load["batch"] * load["gen"]
     line = {"serve": arch,
-            "config": {k: getattr(cfg, k) for k in SERVE_CONFIG_KEYS},
+            "config": {k: getattr(cfg, k) for k in keys},
             "params": sum(p.numel() for p in model.parameters()),
             "param_bytes": sum(p.numel() * p.element_size()
                                for p in model.parameters()),
@@ -4175,24 +4222,45 @@ def serve_line(arch, cfg, model, res, policy, init_s, peak, **extra):
     return line
 
 
-def serve_profiles(model, res, match=None):
+def draw_on_card(cfg):
+    """build_model(cfg) from the serving seed on the card, and the
+    seconds it took."""
+    import torch
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def check_served(res, cfg, load):
+    tokens = res["tokens"]
+    assert tokens.shape == (load["requests"], load["batch"], load["gen"])
+    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+
+
+def serve_profiles(model, res, match=None, load=GQA_SERVE):
     """The kernels' device time in one prefill of the served run's first
-    wave (again: it should give that wave's first tokens) and in one
-    decode step at the served length, with the busy shares against the
-    served run's last wave; with ``match``, the time of the kernels whose
-    name holds it too."""
+    wave (again, its stub inputs included: it should give that wave's
+    first tokens) and in one decode step at the served length, with the
+    busy shares against the served run's last wave; with ``match``, the
+    time of the kernels whose name holds it too."""
     import numpy as np
     import torch
-    from repro_torch.launch.serve import pad_kv
-    cfg, load = model.cfg, GQA_SERVE
+    from repro_torch.launch.serve import pad_kv, stub_inputs
+    cfg = model.cfg
     B, P = load["batch"], load["prompt_len"]
     rng = np.random.default_rng(SERVE_SEED)   # serve's first wave
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
                               dtype=torch.long, device="cuda")
+    extra = {k: v.cuda() for k, v in stub_inputs(
+        cfg, rng, B, load.get("n_frames", P)).items()}
+    P = rows_before(prompts, extra)
     again = []
     t0 = time.perf_counter()
-    prefill = kernel_profile(lambda: again.append(model.prefill(prompts)),
-                             top=8, match=match)
+    prefill = kernel_profile(
+        lambda: again.append(model.prefill(prompts, **extra)), top=8,
+        match=match)
     profile_s = time.perf_counter() - t0
     logits, caches = again.pop()
     first_tok = logits[:, :cfg.vocab].argmax(-1).cpu().numpy()
@@ -4227,7 +4295,6 @@ def serving_dense():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve, set_matmul_policy
-    from repro_torch.models import build_model
 
     policy = set_matmul_policy()
     cfg = get_config(DENSE_ARCH)
@@ -4236,10 +4303,7 @@ def serving_dense():
             cfg.vocab, cfg.rope_theta, cfg.param_dtype) == \
         ("dense", 64, 5120, 64, 8, 128, True, "swiglu", 25600, 151936, 1e6,
          "bfloat16")
-    t0 = time.perf_counter()
-    model = build_model(cfg, seed=SERVE_SEED)     # drawn on the card
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    model, init_s = draw_on_card(cfg)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     with phase("serving_dense.serve"):
@@ -4247,10 +4311,7 @@ def serving_dense():
     launched = counts()
     assert not any(launched.values()), launched   # no custom kernel
     peak = torch.cuda.max_memory_allocated()
-    tokens = res["tokens"]
-    assert tokens.shape == (GQA_SERVE["requests"], GQA_SERVE["batch"],
-                            GQA_SERVE["gen"])
-    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    check_served(res, cfg, GQA_SERVE)
     line = serve_line(DENSE_ARCH, cfg, model, res, policy, init_s, peak,
                       custom_kernel_launches=launched)
     with phase("serving_dense.profiles"), torch.inference_mode():
@@ -4349,7 +4410,7 @@ def serving_moe():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve, set_matmul_policy
-    from repro_torch.models import build_model, moe
+    from repro_torch.models import moe
 
     policy = set_matmul_policy()
     published = get_config(MOE_ARCH)
@@ -4364,10 +4425,7 @@ def serving_moe():
          2048, 2048, "bfloat16", False)
     cfg = dataclasses.replace(published, n_layers=MOE_LAYERS,
                               lp_capacity=True)
-    t0 = time.perf_counter()
-    model = build_model(cfg, seed=SERVE_SEED)     # drawn on the card
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    model, init_s = draw_on_card(cfg)
     load = GQA_SERVE
     steps = load["gen"] - 1
     torch.cuda.reset_peak_memory_stats()
@@ -4379,9 +4437,7 @@ def serving_moe():
     assert launches == want == 768, (launches, want)
     peak = torch.cuda.max_memory_allocated()
     assert len(routes) == launches
-    tokens = res["tokens"]
-    assert tokens.shape == (load["requests"], load["batch"], load["gen"])
-    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    check_served(res, cfg, load)
 
     # the router's caps in layer 0's first prefill and layer 11's last
     # decode step, solved again by the plain version on the CPU
@@ -4448,6 +4504,244 @@ def serving_moe():
         del card, cpu
     torch.cuda.empty_cache()
     return {**line, **prof, "twin": twin, "launches": launches}
+
+
+# ---- deepseek-v2-236b (MLA), whisper-small (encdec), phi-3-vision (VLM) --
+
+MLA_ARCH = "deepseek-v2-236b"
+ENCDEC_ARCH = "whisper-small"
+VLM_ARCH = "phi-3-vision-4.2b"
+# deepseek-v2's depth: 6 of 60 layers (7.94 GB each, 49.8 GB with the
+# embedding and head): one stage of a ten-stage pipeline; all 60 are 479 GB
+MLA_LAYERS = 6
+# Whisper's 30 s window (1,500 frames) under a 64-token prompt, within its
+# 448-token decoder context
+ENCDEC_SERVE = {"batch": 4, "prompt_len": 64, "gen": 32, "requests": 2,
+                "n_frames": 1500}
+# 256 patches before 1,792 text tokens: 2,048 rows, as the GQA cells
+VLM_SERVE = {"batch": 4, "prompt_len": 1792, "gen": 32, "requests": 2}
+# the twins: whisper whole, on one 1,500-frame window; phi-3 2 layers,
+# its 256 patches before the prompt
+ENCDEC_TWIN = {"prompt_len": 64, "gen": 8, "prefix": 32, "n_frames": 1500}
+VLM_TWIN = {"layers": 2, "prompt_len": 1024, "gen": 8, "prefix": 1016}
+SERVE_CONFIG_KEYS_MLA = SERVE_CONFIG_KEYS + (
+    "attn_kind", "kv_lora", "q_lora", "qk_nope_dim", "qk_rope_dim",
+    "v_head_dim")
+SERVE_CONFIG_KEYS_ENCDEC = SERVE_CONFIG_KEYS + (
+    "n_encoder_layers", "n_kv_heads_padded", "norm_kind", "use_rope",
+    "tie_embeddings")
+
+
+def twin_inputs(cfg, n_frames=1):
+    """The twin's stub inputs (batch 1; ``n_frames`` frames for the
+    encdec family), on the host: serve's draw from the serving seed."""
+    import numpy as np
+    from repro_torch.launch.serve import stub_inputs
+    return stub_inputs(cfg, np.random.default_rng(SERVE_SEED), 1, n_frames)
+
+
+def serving_mla():
+    """deepseek-v2-236b at its published width, 6 of 60 layers, with the
+    LP capacity router at E = 160, served through
+    repro_torch.launch.serve.serve (module docstring): every MoE layer
+    call launches the whole-solve simplex kernel once; returns the
+    launches and the router's checks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, set_matmul_policy
+    from repro_torch.models import moe
+
+    policy = set_matmul_policy()
+    published = get_config(MLA_ARCH)
+    assert (published.family, published.attn_kind, published.n_layers,
+            published.d_model, published.n_heads, published.kv_lora,
+            published.q_lora, published.qk_nope_dim, published.qk_rope_dim,
+            published.v_head_dim, published.n_experts, published.top_k,
+            published.n_shared_experts, published.d_ff_expert,
+            published.vocab, published.param_dtype,
+            published.lp_capacity) == \
+        ("moe", "mla", 60, 5120, 128, 512, 1536, 128, 64, 128, 160, 6, 2,
+         1536, 102400, "bfloat16", False)
+    cfg = dataclasses.replace(published, n_layers=MLA_LAYERS,
+                              lp_capacity=True)
+    model, init_s = draw_on_card(cfg)
+    load = GQA_SERVE
+    steps = load["gen"] - 1
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with phase("serving_mla.serve"), routes_kept() as routes:
+        res = serve(cfg, model, seed=SERVE_SEED, **load)
+    launches = only("simplex_tile")
+    want = cfg.n_layers * (1 + steps) * load["requests"]
+    assert launches == want == 384, (launches, want)
+    peak = torch.cuda.max_memory_allocated()
+    assert len(routes) == launches
+    check_served(res, cfg, load)
+
+    # the router's caps in layer 0's first prefill and layer 5's last
+    # decode step, solved again by the plain version on the CPU
+    E, K = cfg.n_experts, cfg.top_k
+    cap_of = {n: moe._capacity(n, K, E, cfg.capacity_factor)
+              for n in (load["batch"] * load["prompt_len"], load["batch"])}
+    first, last = routes[0], routes[-1]
+    caps_err = {"layer0_prefill": caps_vs_plain(
+                    first, cap_of[first.keep.numel() // K]),
+                "layer5_last_decode": caps_vs_plain(
+                    last, cap_of[last.keep.numel() // K])}
+    assert max(caps_err.values()) == 0.0, caps_err
+    shares = kept_shares(routes, cfg.n_layers, steps)
+    del routes, first, last
+    line = serve_line(MLA_ARCH, cfg, model, res, policy, init_s, peak,
+                      keys=SERVE_CONFIG_KEYS_MLA,
+                      published_layers=published.n_layers,
+                      simplex_launches=launches,
+                      router_caps_vs_plain_max_abs_err=caps_err,
+                      kept_share_by_wave=shares)
+
+    # one decode-shaped layer call with host synchronization forbidden
+    with phase("serving_mla.sync_free"), torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+        x = torch.randn((load["batch"], 1, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        mlp = model.blocks[0].mlp
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = moe.moe_apply(mlp, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        del x, out, mlp
+
+    with phase("serving_mla.profiles"), torch.inference_mode():
+        prof = serve_profiles(model, res, match="simplex")
+    prof["decode_step_simplex_share_of_kernels"] = \
+        prof["decode_step_simplex_ms"] / prof["decode_step_kernel_ms"]
+    emit({"serve_profile": MLA_ARCH, **prof})
+
+    with phase("serving_mla.twin"), torch.inference_mode():
+        spec = MOE_TWIN
+        cpu = float32_cut(model, "cpu", spec["layers"], spec["vocab"])
+        del model
+        torch.cuda.empty_cache()
+        card = float32_cut(cpu, "cuda", spec["layers"])
+        prompt = twin_prompt(card.cfg, spec["prompt_len"])
+        twin = {"twin_layers": spec["layers"], "vocab": spec["vocab"],
+                "prompt_len": spec["prompt_len"],
+                "greedy_steps": spec["gen"], "tolerance": TWIN_ATOL}
+        for lp in (True, False):
+            for lm in (card, cpu):
+                reconfigure(lm, lp_capacity=lp)
+            twin[f"lp_capacity_{lp}"] = run = moe_twin_run(
+                card, cpu, prompt, spec["gen"])
+            assert run["card_vs_cpu_routing_equal"], run
+            assert run["card_vs_cpu_tokens_equal"], run
+            assert run["card_vs_cpu_max_abs_err"] <= TWIN_ATOL, run
+        # decode is MLA's absorbed form, prefill its materialized one:
+        # the one MLA-specific check, with routing out of it (no drops)
+        reconfigure(card, lp_capacity=False, capacity_factor=100.0)
+        twin.update(decode_vs_prefill(card, prompt, spec["prefix"]))
+        emit({"mla_float32_twin": twin})
+        assert twin["decode_vs_prefill_max_abs_err"] <= TWIN_ATOL, twin
+        del card, cpu
+    torch.cuda.empty_cache()
+    return {**line, **prof, "twin": twin, "launches": launches}
+
+
+def no_kernel_serving(name, arch, cfg, load, twin_fn,
+                      keys=SERVE_CONFIG_KEYS):
+    """Serve ``cfg`` (drawn on the card) on ``load`` through ``serve``
+    with every launch counter zeroed first: no port kernel may launch.
+    Prints the serving line and the profiles, then runs ``twin_fn(model)``
+    for the float32 twin's line; ``name`` names the phases."""
+    import torch
+    from repro_torch.launch.serve import serve, set_matmul_policy
+    policy = set_matmul_policy()
+    model, init_s = draw_on_card(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with phase(f"{name}.serve"):
+        res = serve(cfg, model, seed=SERVE_SEED, **load)
+    launched = counts()
+    assert not any(launched.values()), launched   # no port kernel
+    peak = torch.cuda.max_memory_allocated()
+    check_served(res, cfg, load)
+    line = serve_line(arch, cfg, model, res, policy, init_s, peak, load=load,
+                      keys=keys, custom_kernel_launches=launched)
+    with phase(f"{name}.profiles"), torch.inference_mode():
+        prof = serve_profiles(model, res, load=load)
+    emit({"serve_profile": arch, **prof})
+    with phase(f"{name}.twin"), torch.inference_mode():
+        twin = twin_fn(model)
+    del model
+    torch.cuda.empty_cache()
+    return {**line, **prof, "twin": twin}
+
+
+def twin_checks(name, card, cpu, spec, extra):
+    """The float32 twin on the card against the CPU (greedy tokens
+    equal, logits within TWIN_ATOL) and, on the card, decode steps after
+    a shorter prefill against one prefill (within TWIN_ATOL)."""
+    prompt = twin_prompt(card.cfg, spec["prompt_len"])
+    twin = {"twin_layers": card.cfg.n_layers,
+            "prompt_len": spec["prompt_len"],
+            "greedy_steps": spec["gen"], "tolerance": TWIN_ATOL,
+            "stub_inputs": {k: list(v.shape) for k, v in extra.items()},
+            **card_vs_cpu(card, cpu, prompt, spec["gen"], extra),
+            **decode_vs_prefill(card, prompt, spec["prefix"], extra)}
+    emit({f"{name}_float32_twin": twin})
+    assert twin["card_vs_cpu_tokens_equal"], twin
+    assert twin["card_vs_cpu_max_abs_err"] <= TWIN_ATOL and \
+        twin["decode_vs_prefill_max_abs_err"] <= TWIN_ATOL, twin
+    return twin
+
+
+def serving_encdec():
+    """whisper-small whole (12 encoder and 12 decoder layers) served
+    through repro_torch.launch.serve.serve on 1,500-frame windows: no
+    port kernel launches; its float32 twin (the whole model) on the card
+    against the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    assert (cfg.family, cfg.n_layers, cfg.n_encoder_layers, cfg.d_model,
+            cfg.n_heads, cfg.n_heads_padded, cfg.d_head, cfg.d_ff,
+            cfg.vocab, cfg.norm_kind, cfg.use_rope, cfg.tie_embeddings,
+            cfg.param_dtype) == \
+        ("encdec", 12, 12, 768, 12, 16, 64, 3072, 51865, "layernorm",
+         False, True, "bfloat16")
+
+    def twin(model):
+        spec = ENCDEC_TWIN
+        cpu = float32_cut(model, "cpu", cfg.n_layers)
+        card = float32_cut(cpu, "cuda", cfg.n_layers)
+        return twin_checks("encdec", card, cpu, spec,
+                           twin_inputs(cfg, spec["n_frames"]))
+
+    return no_kernel_serving("serving_encdec", ENCDEC_ARCH, cfg,
+                             ENCDEC_SERVE, twin,
+                             SERVE_CONFIG_KEYS_ENCDEC)
+
+
+def serving_vlm():
+    """phi-3-vision-4.2b whole (32 layers) served through
+    repro_torch.launch.serve.serve, 256 patches before each prompt: no
+    port kernel launches; its float32 twin (2 layers) on the card against
+    the CPU."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab, cfg.n_patches,
+            cfg.param_dtype) == \
+        ("vlm", 32, 3072, 32, 32, 96, 8192, 32064, 256, "bfloat16")
+
+    def twin(model):
+        spec = VLM_TWIN
+        cpu = float32_cut(model, "cpu", spec["layers"])
+        card = float32_cut(cpu, "cuda", spec["layers"])
+        return twin_checks("vlm", card, cpu, spec, twin_inputs(cfg))
+
+    return no_kernel_serving("serving_vlm", VLM_ARCH, cfg, VLM_SERVE, twin)
 
 
 # ---- falcon-mamba-7b training (launch/train.py, csrc/ssm_scan.cu) --------
@@ -5464,6 +5758,18 @@ def smoke() -> int:
         path_launches("simplex_tile", f"serve {MOE_ARCH} (lp_capacity)",
                       scout["launches"])
 
+    # ---- deepseek-v2 serving: MLA and the LP router at E = 160 ------------
+    with phase("serving_mla"):
+        deepseek = serving_mla()
+        path_launches("simplex_tile", f"serve {MLA_ARCH} (lp_capacity)",
+                      deepseek["launches"])
+
+    # ---- whisper-small and phi-3-vision serving: no custom kernel -------
+    with phase("serving_encdec"):
+        serving_encdec()
+    with phase("serving_vlm"):
+        serving_vlm()
+
     # ---- falcon-mamba-7b training: the scan's backward kernel -------------
     with phase("training"):
         bwd = training()
@@ -5489,10 +5795,12 @@ def smoke() -> int:
         "full_batch_bound_ms": full_100["bound_ms"],
         "moe_router_caps_vs_plain_max_abs_err":
             scout["router_caps_vs_plain_max_abs_err"],
+        "mla_router_caps_vs_plain_max_abs_err":
+            deepseek["router_caps_vs_plain_max_abs_err"],
         "parity": "status, iterations and work counts equal; x, objective, "
                   "y, z within rel 1e-5; every rule and batch; the MoE "
-                  "router's caps in the served llama4-scout equal to the "
-                  "plain version's"}, {
+                  "router's caps in the served llama4-scout and "
+                  "deepseek-v2 equal to the plain version's"}, {
         "name": "simplex_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/simplex_tile.cu",
         "replaces": "src/repro/kernels/simplex_tile.py:494",

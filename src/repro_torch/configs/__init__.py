@@ -2,13 +2,12 @@
 constructors of the architectures ported so far.
 
 ``ARCH_IDS`` and ``CANONICAL`` are the reference's (``repro/configs``).
-The port runs the ssm family (falcon-mamba-7b), the hybrid family
-(hymba-1.5b), the dense family (qwen3-32b, granite-20b, nemotron-4-340b,
-llama3-405b) and the GQA MoE family (llama4-scout-17b-a16e); each
-constructor is a copy of the reference's.  ``get_config`` of
-deepseek-v2-236b (MLA), whisper-small (encdec) and phi-3-vision-4.2b
-(VLM) raises ``NotImplementedError`` (ROADMAP: the rest of the LM
-scaffold lists the model modules still to port).  ``paper_lp`` holds the
+The port runs all ten: the ssm family (falcon-mamba-7b), the hybrid
+family (hymba-1.5b), the dense family (qwen3-32b, granite-20b,
+nemotron-4-340b, llama3-405b), the MoE family with GQA
+(llama4-scout-17b-a16e) and with MLA (deepseek-v2-236b), the encdec
+family (whisper-small) and the VLM family (phi-3-vision-4.2b); each
+constructor is a copy of the reference's.  ``paper_lp`` holds the
 paper's LP workloads (``WORKLOADS``, ``build_batch``); it is not an
 architecture.
 """
@@ -44,15 +43,12 @@ CANONICAL = {
 }
 
 PORTED = ("falcon_mamba_7b", "hymba_1_5b", "qwen3_32b", "granite_20b",
-          "nemotron_4_340b", "llama3_405b", "llama4_scout_17b_a16e")
+          "nemotron_4_340b", "llama3_405b", "llama4_scout_17b_a16e",
+          "deepseek_v2_236b", "whisper_small", "phi_3_vision_4_2b")
 
 
 def get_config(arch: str):
     key = CANONICAL.get(arch, arch).replace("-", "_").replace(".", "_")
     if key not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch!r}")
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP: the rest of the LM "
-            f"scaffold); the port runs {', '.join(PORTED)}")
     return import_module(f"repro_torch.configs.{key}").config()

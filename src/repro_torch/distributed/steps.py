@@ -64,20 +64,17 @@ def make_train_step(model, optimizer, microbatches: int = 1):
 
 def make_prefill_step(model):
     """``prefill_step(tokens, extra=None) -> (logits, caches)``, the
-    model's prefill.  ``extra`` carries the reference's "patches" or
-    "frames" inputs, which only the vlm and encdec families take; the
-    port runs the ssm, hybrid, dense and MoE families, not those two yet
-    (ROADMAP: the rest of the LM scaffold), so any such input raises."""
+    model's prefill, as the reference's: ``extra``'s "patches" go to
+    ``LM.prefill`` (a VLM's patch embeddings, for any family, as the
+    reference passes them) and its "frames" to ``EncDecLM.prefill``;
+    other keys are ignored.  Frames on an ``LM`` or patches on an
+    ``EncDecLM`` raise ``TypeError``, as the reference's prefills, which
+    do not take them, do."""
 
     def prefill_step(tokens, extra=None):
-        inputs = sorted(k for k in (extra or {}) if k in ("patches",
-                                                          "frames"))
-        if inputs:
-            raise NotImplementedError(
-                f"{', '.join(inputs)} inputs: the vlm and encdec families "
-                "are not ported yet (ROADMAP: the rest of the LM scaffold); "
-                "the port runs the ssm, hybrid, dense and MoE families")
-        return model.prefill(tokens)
+        kw = {k: extra[k] for k in ("patches", "frames")
+              if k in (extra or {})}
+        return model.prefill(tokens, **kw)
 
     return prefill_step
 

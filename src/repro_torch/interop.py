@@ -19,10 +19,11 @@ reference's mid-solve counters.  ``warm_from_reference`` and ``warm_to_reference
 one parent basis can seed both packages.  ``pdhg_state_from_reference``
 turns the reference's PDHG state (engine or tile layout) into the port's
 ``PdhgState``, so one round or one segment launch runs from the same
-state in both packages.  ``lm_from_reference`` turns the reference LM's
-parameter tree (every layer group: ``norm1``, ``attn``, ``ssm``, ``norm2``,
-``mlp``) into the port's ``LM``, so both compute the same function;
-``lm_to_reference`` is its inverse, for parameters and for gradients.
+state in both packages.  ``lm_from_reference`` turns the reference model's
+parameter tree (an LM's, MLA blocks included, or the encoder-decoder's)
+into the port's ``LM`` or ``EncDecLM``, so both compute the same
+function; ``lm_to_reference`` is its inverse, for parameters and for
+gradients.
 All of them read attributes only; nothing here imports the reference
 package.
 """
@@ -244,51 +245,78 @@ def pdhg_state_from_reference(ref, *, m: int, n: int, batch=None,
                                device=device))
 
 
-def lm_from_reference(cfg, params_np, device="cpu") -> LM:
-    """The port's ``LM`` of ``cfg`` on ``device`` with the reference LM's
+# the port's layer lists and the reference's stacked groups they hold
+STACKS = {"blocks": "layers", "enc_layers": "enc_layers",
+          "dec_layers": "dec_layers"}
+
+
+def _port_model(cfg, device):
+    from .models.encdec import EncDecLM
+    cls = EncDecLM if cfg.family == "encdec" else LM
+    return cls(cfg, device=torch.device(device))
+
+
+def _flat_reference(tree, model) -> dict:
+    """``{port parameter name: array}`` of a reference parameter tree:
+    nested dicts joined with dots, and each stacked group's leaves split
+    along axis 0 into the port's layer list (``layers`` to
+    ``blocks.<i>``, ``enc_layers`` and ``dec_layers`` to themselves)."""
+    def walk(node, prefix):
+        if not isinstance(node, dict):
+            yield prefix[:-1], node
+            return
+        for k, v in node.items():
+            yield from walk(v, f"{prefix}{k}.")
+
+    ref_to_port = {ref: port for port, ref in STACKS.items()
+                   if hasattr(model, port)}
+    out = {}
+    for top, node in tree.items():
+        if top not in ref_to_port:
+            out.update(walk(node, f"{top}."))
+            continue
+        for rest, a in walk(node, ""):
+            a = np.asarray(a)
+            for i in range(a.shape[0]):
+                out[f"{ref_to_port[top]}.{i}.{rest}"] = a[i]
+    return out
+
+
+def lm_from_reference(cfg, params_np, device="cpu"):
+    """The port's model of ``cfg`` on ``device`` (``EncDecLM`` for the
+    encdec family, ``LM`` for every other) with the reference model's
     parameters: ``params_np`` is ``jax.tree.map(np.asarray, params)`` of
-    ``repro.models.LM(cfg).init(key)[0]``, layers stacked on axis 0.  Both
-    keep weights as (in, out), so each leaf is a copy (through float32,
-    which holds bfloat16 exactly)."""
-    model = LM(cfg, device=torch.device(device))
-
-    def put(dst, src):
-        src = torch.from_numpy(np.array(src, dtype=np.float32))
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"reference leaf has shape {tuple(src.shape)}, "
-                             f"the port's {tuple(dst.shape)}")
-        dst.copy_(src)
-
-    def put_group(dst, src, layer=None):
-        if set(src) != set(dst.keys()):
-            raise ValueError(f"reference leaves {sorted(src)} differ from "
-                             f"the port's {sorted(dst.keys())}")
-        for name, value in src.items():
-            put(dst[name],
-                value if layer is None else np.asarray(value)[layer])
-
+    the reference's ``build_model(cfg).init(key)[0]``, layers stacked on
+    axis 0; every layer group (``norm1``, ``attn``, ``ssm``, ``norm2``,
+    ``mlp``, the decoder's ``norm_x`` and ``xattn``, MLA's nested norms)
+    and the encdec tree's ``pos_table`` included.  Both keep weights as
+    (in, out), so each leaf is a copy (through float32, which holds
+    bfloat16 exactly), its shape checked."""
+    model = _port_model(cfg, device)
+    src = _flat_reference(params_np, model)
+    dst = dict(model.named_parameters())
+    if set(src) != set(dst):
+        raise ValueError(f"reference leaves {sorted(set(src) - set(dst))} "
+                         f"differ from the port's "
+                         f"{sorted(set(dst) - set(src))}")
     with torch.no_grad():
-        put_group(model.embed, params_np["embed"])
-        groups = dict(model.blocks[0].named_children()) if model.blocks \
-            else {}
-        if set(params_np["layers"]) != set(groups):
-            raise ValueError(f"reference layer groups "
-                             f"{sorted(params_np['layers'])} differ from "
-                             f"the port's {sorted(groups)}")
-        for i, block in enumerate(model.blocks):
-            for g in groups:
-                put_group(getattr(block, g), params_np["layers"][g], i)
-        put_group(model.final_norm, params_np["final_norm"])
-        put_group(model.head, params_np.get("head") or {})
+        for name, p in dst.items():
+            a = torch.from_numpy(np.array(src[name], dtype=np.float32))
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"reference leaf {name} has shape "
+                                 f"{tuple(a.shape)}, the port's "
+                                 f"{tuple(p.shape)}")
+            p.copy_(a)
     return model
 
 
-def lm_to_reference(model: LM, tensors=None) -> dict:
-    """The reference LM's NumPy parameter tree (layers stacked on axis 0)
-    with the port's ``model`` parameters, or with ``tensors``, a list that
-    matches ``model.parameters()`` (the gradients of a step, say): the
-    inverse of ``lm_from_reference``.  bfloat16 leaves come back as
-    float32, which holds them exactly."""
+def lm_to_reference(model, tensors=None) -> dict:
+    """The reference model's NumPy parameter tree (layers stacked on axis
+    0) with the port's ``model`` parameters (an ``LM`` or an
+    ``EncDecLM``), or with ``tensors``, a list that matches
+    ``model.parameters()`` (the gradients of a step, say): the inverse of
+    ``lm_from_reference``.  bfloat16 leaves come back as float32, which
+    holds them exactly."""
     names = [name for name, _ in model.named_parameters()]
     values = list(model.parameters()) if tensors is None else list(tensors)
     if len(values) != len(names):
@@ -299,16 +327,25 @@ def lm_to_reference(model: LM, tensors=None) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    leaf = {name: numpy(t) for name, t in zip(names, values)}
-
-    def group(prefix):
-        return {name[len(prefix):]: a for name, a in leaf.items()
-                if name.startswith(prefix)}
-
-    layers = {g: {k: np.stack([leaf[f"blocks.{i}.{g}.{k}"]
-                               for i in range(len(model.blocks))])
-                  for k in group_params.keys()}
-              for g, group_params in model.blocks[0].named_children()} \
-        if len(model.blocks) else {}
-    return {"embed": group("embed."), "layers": layers,
-            "final_norm": group("final_norm."), "head": group("head.")}
+    # every top-level group, the empty ones (a tied head, no layers) too
+    tree = {STACKS.get(name, name): {} for name, _ in model.named_children()}
+    stacked = {}
+    for name, t in zip(names, values):
+        top, *rest = name.split(".")
+        if top in STACKS:
+            i, *rest = rest
+            stacked.setdefault((STACKS[top], *rest), {})[int(i)] = numpy(t)
+            continue
+        if not rest:
+            tree[top] = numpy(t)
+            continue
+        node = tree[top]
+        for k in rest[:-1]:
+            node = node.setdefault(k, {})
+        node[rest[-1]] = numpy(t)
+    for (top, *rest), layers in stacked.items():
+        node = tree[top]
+        for k in rest[:-1]:
+            node = node.setdefault(k, {})
+        node[rest[-1]] = np.stack([layers[i] for i in sorted(layers)])
+    return tree

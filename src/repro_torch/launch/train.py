@@ -1,10 +1,10 @@
 """Training entry point (the reference's ``launch/train.py``): AdamW steps of
 the port's LM on the synthetic LM data, with gradient-accumulation
 microbatching, a straggler watchdog and an optional loss-curve CSV.  It
-trains the ssm family only; the hybrid, dense and MoE families are
-served, not trained yet, and ``train`` refuses them and every other
-family (ROADMAP: the rest of the LM scaffold, training of the hybrid,
-dense and MoE families).
+trains the ssm family only; the hybrid, dense, MoE (GQA and MLA), encdec
+and VLM families are served, not trained yet, and ``train`` refuses them
+(ROADMAP: the rest of the LM scaffold, training of the hybrid, dense,
+MoE, MLA, encdec and VLM families).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
         --reduced --steps 3 --batch 2 --seq 32 --device cpu
@@ -55,7 +55,10 @@ def train(cfg, model: LM, *, batch: int, seq: int, steps: int,
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported "
             f"yet (ROADMAP: the rest of the LM scaffold, {cfg.family} "
-            "training); the port trains the ssm family only")
+            "training: the hybrid, dense, MoE, MLA (deepseek-v2-236b), "
+            "encdec (whisper-small) and VLM (phi-3-vision-4.2b) families "
+            "are served, not trained); the port trains the ssm family "
+            "only")
     if min(batch, seq, steps, microbatches) < 1:
         raise ValueError("batch, seq, steps and microbatches must be >= 1")
     dev = resolve_device(device)

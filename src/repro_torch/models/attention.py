@@ -1,5 +1,6 @@
 """Attention (the reference's ``models/attention.py``): blockwise-causal GQA
-with a sliding window, KV-cache decode and qk-norm, in PyTorch.
+with a sliding window, KV-cache decode and qk-norm, and the encoder-decoder's
+cross-attention, in PyTorch.
 
 Train and prefill attention is blockwise: a Python loop over query chunks,
 and inside it a loop over only the kv chunks that chunk can see (the
@@ -181,6 +182,16 @@ def _check_rows(pos: torch.Tensor, rows: int):
                          f"cache's {rows} rows")
 
 
+def _zero_padding_heads(out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """out (B, S, H, dh) with the heads past ``n_heads`` zeroed (the
+    TP-padding heads, function-preserving)."""
+    H = out.shape[2]
+    if H == cfg.n_heads:
+        return out
+    live = torch.arange(H, device=out.device) < cfg.n_heads
+    return out * live[None, None, :, None].to(out.dtype)
+
+
 def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, mode: str,
               cache: Optional[KVCache] = None,
@@ -229,10 +240,7 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache = KVCache(k, v)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    if H != cfg.n_heads:  # zero the TP-padding heads (function-preserving)
-        live = torch.arange(H, device=x.device) < cfg.n_heads
-        out = out * live[None, None, :, None].to(out.dtype)
-    out = out.reshape(B, S, H * dh)
+    out = _zero_padding_heads(out, cfg).reshape(B, S, H * dh)
     return out @ p["wo"], new_cache
 
 
@@ -247,3 +255,52 @@ def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> KVCache:
     KV = cfg.n_kv_heads_padded or cfg.n_kv_heads
     return KVCache(k=TensorSpec((batch, S, KV, cfg.d_head), dt),
                    v=TensorSpec((batch, S, KV, cfg.d_head), dt))
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen, cfg: ModelConfig, device) -> dict:
+    """wq, wk, wv (D, H dh) and wo (H dh, D), H the padded head count
+    where set: the encoder's K/V have as many heads as the queries."""
+    D, dh = cfg.d_model, cfg.d_head
+    H = cfg.n_heads_padded or cfg.n_heads
+    dtype = torch_dtype(cfg.param_dtype)
+    return {"wq": dense_init(gen, D, H * dh, dtype, device),
+            "wk": dense_init(gen, D, H * dh, dtype, device),
+            "wv": dense_init(gen, D, H * dh, dtype, device),
+            "wo": dense_init(gen, H * dh, D, dtype, device)}
+
+
+def cross_attn_apply(p, x: torch.Tensor, enc_kv, cfg: ModelConfig
+                     ) -> torch.Tensor:
+    """x: (B, S, D) decoder stream; enc_kv: (k, v) each (B, Senc, H, dh).
+    A decode step (S == 1) attends through ``decode_attention`` at
+    position Senc - 1, which sees every encoder row; prefill runs
+    non-causal ``blockwise_attention``."""
+    B, S, D = x.shape
+    dh = cfg.d_head
+    H = cfg.n_heads_padded or cfg.n_heads
+    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    k, v = enc_kv
+    if S == 1:
+        pos = torch.full((B,), k.shape[1] - 1, dtype=torch.long,
+                         device=x.device)
+        out = decode_attention(q, k, v, pos)
+    else:
+        out = blockwise_attention(q, k, v, causal=False,
+                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    out = _zero_padding_heads(out, cfg)
+    return out.reshape(B, S, H * dh) @ p["wo"]
+
+
+def cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The encoder output's cross-attention K and V, each
+    (B, Senc, H, dh)."""
+    B, Senc, D = enc_out.shape
+    dh = cfg.d_head
+    H = cfg.n_heads_padded or cfg.n_heads
+    k = (enc_out @ p["wk"]).reshape(B, Senc, H, dh)
+    v = (enc_out @ p["wv"]).reshape(B, Senc, H, dh)
+    return k, v

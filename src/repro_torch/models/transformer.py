@@ -2,9 +2,12 @@
 for the ssm family (falcon-mamba), the hybrid family (hymba: GQA with a
 sliding window and Mamba on the same input, mean-fused), the dense family
 (qwen3, granite, nemotron, llama3: GQA, then a SwiGLU, GELU or squared
-ReLU MLP) and the MoE family with GQA (llama4-scout: GQA, then the routed
-and shared experts of ``models/moe.py``, with the LP capacity router
-where the config asks for it).
+ReLU MLP), the MoE family (llama4-scout with GQA, deepseek-v2 with the
+MLA of ``models/mla.py``: attention, then the routed and shared experts
+of ``models/moe.py``, with the LP capacity router where the config asks
+for it) and the VLM family (phi-3-vision: a dense GQA backbone whose
+prefill takes precomputed patch embeddings before the text).  The
+encdec family (whisper) is ``models/encdec.py``'s ``EncDecLM``.
 
 ``LM`` is an ``nn.Module`` with a ``ModuleList`` of blocks; the reference's
 ``lax.scan`` over stacked layers becomes a Python loop, and the caches it
@@ -15,8 +18,7 @@ under ``torch.inference_mode()``.  ``loss_fn`` is the reference's
 sequence-chunked cross entropy, and ``remat="block"`` checkpoints each
 block in train mode (``torch.utils.checkpoint``, the counterpart of
 ``jax.checkpoint``), so the backward recomputes a block's forward, scan
-kernel included.  MLA (deepseek-v2), encdec and VLM wait for their slices
-(ROADMAP: the rest of the LM scaffold).
+kernel included.
 """
 from __future__ import annotations
 
@@ -32,10 +34,11 @@ from .layers import (TensorSpec, apply_norm, embed_init, embed_lookup,
                      head_init, logits_apply, mlp_apply, mlp_init, norm_init,
                      token_nll, torch_dtype)
 from .mamba import MambaCache, mamba_apply, mamba_cache_shape, mamba_init
+from .mla import mla_apply, mla_cache_shape, mla_init
 from .moe import moe_apply, moe_init
 
-# the families whose every module the port has (MLA attention excepted)
-PORTED_FAMILIES = ("ssm", "hybrid", "dense", "moe")
+# the families LM runs (encdec is EncDecLM's)
+PORTED_FAMILIES = ("ssm", "hybrid", "dense", "moe", "vlm")
 
 
 class HymbaCache(NamedTuple):
@@ -54,26 +57,49 @@ def map_cache(fn, *caches):
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
+    """The tensors as parameters under their names; a nested dict (a
+    norm inside an attention group) becomes a nested ``ParameterDict``."""
+    return nn.ParameterDict({
+        k: _params(v) if isinstance(v, dict) else nn.Parameter(v)
+        for k, v in tensors.items()})
+
+
+def chunked_ce(head, x, labels, cfg: ModelConfig, chunk: int = 1024):
+    """Sequence-chunked mean cross entropy of ``x`` (B, S, D) through
+    ``head`` against ``labels`` (B, S), labels < 0 masked, so that the
+    (S, vocab) logits never materialize at once."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = x.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S, chunk):
+        ls = labels[:, c0:c0 + chunk]
+        logits = logits_apply(head, x[:, c0:c0 + chunk], cfg)
+        mask = ls >= 0
+        tot = tot + (token_nll(logits, ls.clamp(min=0)) * mask).sum()
+        cnt = cnt + mask.sum()
+    return tot / cnt.clamp(min=1.0)
 
 
 def check_ported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` unless ``cfg`` runs only modules the
-    port has: the ssm, hybrid, dense and MoE families, without MLA."""
-    if cfg.family not in PORTED_FAMILIES or cfg.attn_kind == "mla":
+    """Raise ``NotImplementedError`` unless ``LM`` runs ``cfg``: the ssm,
+    hybrid, dense, MoE (GQA or MLA) and VLM families.  The encdec family
+    is ``EncDecLM``'s, which ``build_model`` returns for it."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (attention "
-            f"{cfg.attn_kind}, MLP {cfg.mlp_kind}) is not ported yet "
-            "(ROADMAP: the rest of the LM scaffold); the port runs the "
-            f"{', '.join(PORTED_FAMILIES)} families with GQA attention")
+            f"{cfg.name}: LM does not run the {cfg.family} family "
+            f"(attention {cfg.attn_kind}, MLP {cfg.mlp_kind}); it runs the "
+            f"{', '.join(PORTED_FAMILIES)} families, and build_model "
+            "returns models.encdec.EncDecLM for the encdec family")
 
 
 class Block(nn.Module):
     """One pre-norm residual block: x + mixer(norm1(x)), then, where the
-    config has an MLP (``d_ff`` set, or MoE), x + mlp(norm2(x)).  The ssm
-    family's mixer is Mamba; the hybrid's is 0.5 * (gqa(h) + mamba(h)) on
-    the same h; the dense and MoE families' is GQA.  The MLP is the
-    config's kind, MoE included."""
+    config has an MLP (``d_ff`` set, or MoE), x + mlp(norm2(x)).  The
+    mixer is MLA where the config's attention is MLA; otherwise the ssm
+    family's is Mamba, the hybrid's 0.5 * (gqa(h) + mamba(h)) on the same
+    h, and every other family's GQA.  The MLP is the config's kind, MoE
+    included."""
 
     def __init__(self, cfg: ModelConfig, gen, device):
         super().__init__()
@@ -81,7 +107,9 @@ class Block(nn.Module):
         dtype = torch_dtype(cfg.param_dtype)
         self.norm1 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                        device))
-        if cfg.family != "ssm":
+        if cfg.attn_kind == "mla":
+            self.attn = _params(mla_init(gen, cfg, device))
+        elif cfg.family != "ssm":
             self.attn = _params(gqa_init(gen, cfg, device))
         if cfg.family in ("ssm", "hybrid"):
             self.ssm = _params(mamba_init(gen, cfg, device))
@@ -95,7 +123,10 @@ class Block(nn.Module):
     def forward(self, x, *, mode: str, positions=None, cache=None, pos=None):
         cfg = self.cfg
         h = apply_norm(self.norm1, x, cfg.norm_kind)
-        if cfg.family == "hybrid":
+        if cfg.attn_kind == "mla":
+            a, new_cache = mla_apply(self.attn, h, cfg, positions=positions,
+                                     mode=mode, cache=cache, pos=pos)
+        elif cfg.family == "hybrid":
             a1, kv_new = gqa_apply(
                 self.attn, h, cfg, positions=positions, mode=mode,
                 cache=None if cache is None else cache.kv, pos=pos)
@@ -120,8 +151,8 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder LM of the ssm, hybrid, dense or MoE family.  ``generator`` draws the
-    parameters (embedding, blocks, head, in that order); ``None`` leaves
+    """Decoder LM of the ssm, hybrid, dense, MoE or VLM family.
+    ``generator`` draws the parameters (embedding, blocks, head, in that order); ``None`` leaves
     them uninitialized for ``interop.lm_from_reference`` to fill."""
 
     def __init__(self, cfg: ModelConfig, *, device, generator=None):
@@ -142,9 +173,14 @@ class LM(nn.Module):
         return self.embed["table"].device
 
     # -- embedding frontend ---------------------------------------------------
-    def _embed_inputs(self, tokens):
-        x = embed_lookup(self.embed, tokens)
-        return x.to(torch_dtype(self.cfg.dtype))
+    def _embed_inputs(self, tokens, patches=None):
+        """The tokens' embeddings in the config's dtype, after the
+        precomputed patch embeddings (B, n_patches, D) where given (the
+        VLM stub)."""
+        x = embed_lookup(self.embed, tokens).to(torch_dtype(self.cfg.dtype))
+        if patches is not None:
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        return x
 
     def _run_layers(self, x, *, mode, positions=None, caches=None,
                     pos=None):
@@ -175,30 +211,20 @@ class LM(nn.Module):
 
     # -- training loss --------------------------------------------------------
     def loss_fn(self, batch):
-        """batch: {"tokens": (B, S) integer, "labels": (B, S) integer},
-        tensors on the model's device.  Labels < 0 are masked.  Returns
-        the mean next-token cross entropy (a float32 scalar)."""
-        x = self._embed_inputs(batch["tokens"])
+        """batch: {"tokens": (B, S) integer, "labels": (B, S) integer,
+        optional "patches": (B, n_patches, D)}, tensors on the model's
+        device.  Labels < 0 are masked; with patches the loss is taken on
+        the text positions only.  Returns the mean next-token cross
+        entropy (a float32 scalar)."""
+        patches = batch.get("patches")
+        x = self._embed_inputs(batch["tokens"], patches)
         x, _ = self._run_layers(x, mode="train",
                                 positions=self._positions(x))
         x = apply_norm(self.final_norm, x, self.cfg.norm_kind)
-        return self._chunked_ce(x, batch["labels"])
-
-    def _chunked_ce(self, x, labels, chunk: int = 1024):
-        """Sequence-chunked cross entropy, so that the (S, vocab) logits
-        never materialize at once."""
-        S = x.shape[1]
-        chunk = min(chunk, S)
-        tot = x.new_zeros((), dtype=torch.float32)
-        cnt = x.new_zeros((), dtype=torch.float32)
-        for c0 in range(0, S, chunk):
-            ls = labels[:, c0:c0 + chunk]
-            logits = logits_apply(self._head(), x[:, c0:c0 + chunk],
-                                  self.cfg)
-            mask = ls >= 0
-            tot = tot + (token_nll(logits, ls.clamp(min=0)) * mask).sum()
-            cnt = cnt + mask.sum()
-        return tot / cnt.clamp(min=1.0)
+        labels = batch["labels"]
+        if patches is not None:
+            x = x[:, -labels.shape[1]:]
+        return chunked_ce(self._head(), x, labels, self.cfg)
 
     # -- serving --------------------------------------------------------------
     @staticmethod
@@ -206,11 +232,12 @@ class LM(nn.Module):
         B, S = x.shape[:2]
         return torch.arange(S, device=x.device)[None].expand(B, S)
 
-    def prefill(self, tokens):
-        """tokens: (B, S) integer.  Returns (last-position logits
-        (B, vocab_padded) float32, caches stacked on a layer axis; KV
-        leaves hold the S prompt rows)."""
-        x = self._embed_inputs(tokens)
+    def prefill(self, tokens, patches=None):
+        """tokens: (B, S) integer; patches: (B, n_patches, D) or None.
+        Returns (last-position logits (B, vocab_padded) float32, caches
+        stacked on a layer axis; KV and latent leaves hold the
+        n_patches + S prompt rows, patches first)."""
+        x = self._embed_inputs(tokens, patches)
         x, caches = self._run_layers(x, mode="prefill",
                                      positions=self._positions(x))
         return self._logits(x), caches
@@ -228,9 +255,10 @@ class LM(nn.Module):
 
     # -- cache shapes ---------------------------------------------------------
     def cache_shape(self, batch: int, seq: int):
-        """Shapes of the stacked caches, the reference's: the ssm family's
-        do not grow with ``seq``; KV leaves (the hybrid's, the dense and
-        MoE families') are ``gqa_cache_shape``'s (window-sized where the
+        """Shapes of the stacked caches, the reference's: MLA's latent
+        leaves hold ``seq`` rows; the ssm family's do not grow with
+        ``seq``; KV leaves (the hybrid's, the dense, GQA MoE and VLM
+        families') are ``gqa_cache_shape``'s (window-sized where the
         config has a window, see there)."""
         cfg = self.cfg
         L = cfg.n_layers
@@ -239,6 +267,8 @@ class LM(nn.Module):
             return map_cache(lambda s: TensorSpec((L,) + s.shape, s.dtype),
                              tree)
 
+        if cfg.attn_kind == "mla":
+            return stack(mla_cache_shape(cfg, batch, seq))
         if cfg.family == "ssm":
             return stack(mamba_cache_shape(cfg, batch))
         if cfg.family == "hybrid":

@@ -368,8 +368,26 @@ def test_prefill_and_decode_steps_are_the_models():
         got, _ = decode(caches, toks[:, 0], pos)
         want, _ = lm.decode_step(caches, toks[:, 0], pos)
         assert torch.equal(got, want)
-        with pytest.raises(NotImplementedError, match="patches inputs"):
-            prefill(toks, extra={"patches": torch.zeros(2, 8, 64)})
+
+
+def test_patches_on_hymba_go_before_the_text_as_in_the_reference():
+    """make_prefill_step hands "patches" to every LM family's prefill, as
+    the reference's does: hymba's logits and every cache leaf (KV rows of
+    the 8 patches, then the 40 tokens) are the reference's."""
+    _, _, params, prefill_ref, _, _ = _reference()
+    _, lm = _port()
+    toks = _tokens((2, 40), seed=3)
+    patches = np.random.default_rng(4).normal(size=(2, 8, 64)) \
+        .astype(np.float32)
+    want, want_c = prefill_ref(params, jnp.asarray(toks, jnp.int32),
+                               jnp.asarray(patches))
+    with torch.inference_mode():
+        got, got_c = make_prefill_step(lm)(
+            torch.from_numpy(toks), extra={"patches":
+                                           torch.from_numpy(patches)})
+    assert got_c.kv.k.shape[2] == 48
+    _close(got, want)
+    _close_cache(got_c, want_c)
 
 
 def test_serve_cli_serves_hymba_by_default(capsys):

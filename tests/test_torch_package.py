@@ -87,7 +87,11 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.configs.granite_20b, "
             "repro_torch.configs.nemotron_4_340b, "
             "repro_torch.configs.llama3_405b, "
-            "repro_torch.configs.llama4_scout_17b_a16e\n"
+            "repro_torch.configs.llama4_scout_17b_a16e, "
+            "repro_torch.models.mla, repro_torch.models.encdec, "
+            "repro_torch.configs.deepseek_v2_236b, "
+            "repro_torch.configs.whisper_small, "
+            "repro_torch.configs.phi_3_vision_4_2b\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -1088,6 +1092,69 @@ def test_reduced_hymba_serves_on_the_card_as_on_the_cpu():
         with pytest.raises(IndexError, match="outside the cache"):
             card.decode_step(got_c, toks[:, 0].cuda(),
                              torch.full((2,), 99, device="cuda"))
+
+
+def _cache_leaves(c):
+    """Every tensor of a cache (nested NamedTuples), in order."""
+    if isinstance(c, torch.Tensor):
+        return [c]
+    return [leaf for part in c for leaf in _cache_leaves(part)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "whisper-small",
+                                  "phi-3-vision-4.2b"])
+def test_reduced_mla_encdec_and_vlm_serve_on_the_card_as_on_the_cpu(arch):
+    """The reduced MLA MoE model (with the LP router: one whole-solve
+    launch a MoE layer call), encoder-decoder (48 frames) and VLM (8
+    patches) on the card: a 40-token prefill and three decode steps past
+    it match the CPU port's in logits and every cache leaf at atol 1e-5;
+    only MLA's router launches a kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.launch.serve import pad_kv, set_matmul_policy
+    set_matmul_policy()
+    cfg = get_config(arch).reduced()
+    if cfg.attn_kind == "mla":
+        cfg = dataclasses.replace(cfg, lp_capacity=True)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device="cpu", seed=0).to("cuda")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 43)))
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.from_numpy(
+            rng.standard_normal((2, 48, cfg.d_model), dtype=np.float32))
+    if cfg.family == "vlm":
+        extra["patches"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.n_patches, cfg.d_model),
+                                dtype=np.float32))
+    S = 40 + (cfg.n_patches if cfg.family == "vlm" else 0)
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+    before = (simplex_tile.launches, ssm_scan.launches)
+    with torch.inference_mode():
+        want, want_c = cpu.prefill(toks[:, :40], **extra)
+        got, got_c = card.prefill(toks[:, :40].cuda(),
+                                  **{k: v.cuda() for k, v in extra.items()})
+        want_c, got_c = pad_kv(want_c, S + 3), pad_kv(got_c, S + 3)
+        for g in range(4):
+            close(got, want)
+            for a, b in zip(_cache_leaves(got_c), _cache_leaves(want_c)):
+                close(a, b)
+            if g == 3:
+                break
+            pos = torch.full((2,), S + g)
+            want, want_c = cpu.decode_step(want_c, toks[:, 40 + g], pos)
+            got, got_c = card.decode_step(got_c, toks[:, 40 + g].cuda(),
+                                          pos.cuda())
+    torch.cuda.synchronize()
+    routed = cfg.n_layers * 4 if cfg.lp_capacity else 0
+    assert (simplex_tile.launches, ssm_scan.launches) == \
+        (before[0] + routed, before[1])
 
 
 # ---- the scan's backward (csrc/ssm_scan.cu) and the training path ----------
