@@ -33,12 +33,9 @@ The segment kernel is held against its plain version on 2,048-LP slices of
 lp_100d_50k and lp_afiro_100k and on sc205_like (plain version on the first
 128) for every rule: one launch of each stage, leaf by leaf, and the whole
 scheduled solve (status, iterations and work equal; x, objective, y, z
-within rel 1e-5).  Then the simplex kernels' cycles are counted by phase,
-phase-1 and phase-2 steps apart (a build with -DSIMPLEX_TRACE, made beside
-the others), on the 2,048-LP slices of lp_100d_50k (every rule, the whole
-solve and the compaction schedule) and lp_afiro_100k, and the registers,
-spills and stack of every instantiation are printed (``simplex_ptxas``;
-any spill or stack fails the run); each kernel line names its variant
+within rel 1e-5).  The registers, spills and stack of every
+instantiation are printed (``simplex_ptxas``; any spill or stack fails
+the run); each kernel line names its variant
 (``shared``: the live columns in shared memory; ``device``).  Last, the box
 LP: the Table-7 flow-pipe (n = 5, T = 500,
 K = 40, so 20,000 box LPs) through ``solve_hyperbox`` on the card, against
@@ -47,7 +44,7 @@ same LPs through ``solve_batched`` (rel 1e-4); the kernel is timed there
 and at T = 50,000 (2,000,000 boxes), and one box through
 ``solve_hyperbox`` gives the launch floor.
 
-Branch-and-bound (after the simplex kernels' trace): the segment kernel's
+Branch-and-bound (after the compaction path): the segment kernel's
 combined stage (``segment_tile(stage="full")``, the counterpart of the
 reference's ``segment_combined``) is held against its plain version at
 atol 0, leaf by leaf, in one 8-step launch from mid-solve full-layout
@@ -76,8 +73,8 @@ gap, launches and the seconds spent building the kernel states.
 The revised path (before the box LP): ``solve_batched(lp_100d_50k,
 backend="revised")`` on all 50,000 LPs through the revised kernel, with
 Dantzig and with partial pricing, each held against the oracle and against
-the tableau run's statuses.  Warm starts: ``lp_afiro_100k`` solved cold
-through the revised kernel (member 0 at the published optimum), re-solved
+the tableau run's statuses.  Warm starts: the first 20,000 members of
+``lp_afiro_100k`` solved cold through the revised kernel (member 0 at the published optimum), re-solved
 from its own ``warm_start()`` (every OPTIMAL member at 0 iterations), and
 step 1 of a 10,000-member perturbed AFIRO trajectory solved warm from
 step 0 against its cold solve (equal statuses, objectives within rel
@@ -88,19 +85,17 @@ equal) and on sc205_like's device-memory variant (plain version on the
 first 128, max_iters 600); ``compaction=True`` on the slices through the
 kernel equals the plain-backed schedule bit for bit and the whole solve in
 statuses (objectives within rel 1e-3).  Last, the kernel is timed on all
-50,000 LPs of lp_100d_50k beside its bound, and its cycles are counted by
-phase (a build with -DREVISED_TRACE, made beside the others) on 2,048-LP
-slices of lp_100d_50k (both rules) and lp_afiro_100k; the registers,
-spills and stack of every instantiation are printed (``revised_ptxas``;
-any spill or stack fails the run).
+50,000 LPs of lp_100d_50k beside its bound; the registers, spills and
+stack of every instantiation are printed (``revised_ptxas``; any spill
+or stack fails the run).
 
 Restarted PDHG (after the revised path): ``solve_batched(lp_100d_50k,
 backend="pdhg")`` on all 50,000 LPs through the whole-solve PDHG kernel
 only (the first 64 against the oracle, statuses compared with the tableau
 run); ``compaction=True`` on all 50,000 through the segment kernel only,
 equal to the whole solve bit for bit, its 65 launches timed by CUDA events
-and summed beside the bound; ``lp_afiro_100k`` cold (member 0 at the
-published optimum) and re-solved from its own ``warm_start()`` (equal
+and summed beside the bound; the first 20,000 members of
+``lp_afiro_100k`` cold (member 0 at the published optimum) and re-solved from its own ``warm_start()`` (equal
 statuses, objectives within rel 2e-3, at most a quarter of the cold mean
 iterations).  Each kernel is held against its plain version in each of
 its three variants, every output equal, and each line names the variant
@@ -121,10 +116,10 @@ SparseLPBatch.from_dense of sc205_like on the card against the dense
 kernel at ``max_iters`` 20,000 (equal statuses, objectives within rel
 1e-3; its sums follow the dense kernel's order, so every output is
 equal).  Then the whole-solve kernel is timed on all 50,000 LPs beside
-its bound and a torch.bmm yardstick, and its cycles are counted by phase
-(a build with -DPDHG_TRACE, made beside the others) on the lp_100d_50k
-slice in the shared variant and in the registers variant, whose outputs
-must be equal.
+its bound and a torch.bmm yardstick.  The three kernels' cycle counts by
+phase (the -DSIMPLEX_TRACE, -DREVISED_TRACE and -DPDHG_TRACE builds) are
+diagnostics that check no result: the ``--*-parent`` modes below run
+them, the default run does not.
 
 The telemetry plane (after PDHG): ``solve_batched(lp_100d_50k,
 telemetry=True, tracer=SpanTracer())`` on all 50,000 LPs through the
@@ -274,8 +269,39 @@ multiple of the unroll, L not a multiple of the block; ``max_abs_err``
 4(5BTL + 3BL), its plain version and a two-call yardstick that moves the
 same bytes.  Step seconds, tokens/s and peak device memory are printed.
 
+Training of every other family (after falcon-mamba's), each at its full
+published width in bf16 from seed 2018 through
+``repro_torch.launch.train.train``, 3 steps in 2 microbatches with the
+config's optimizer at lr 1.0 (bf16 parameters with no float32 master
+copy move only by more than half their spacing; step 0 is left out of
+tokens/s): hymba-1.5b whole (2 x 2,048 tokens: the 1,024 window masks
+keys), qwen3-32b cut to 4 of 64 layers, llama4-scout-17b-a16e cut to 1 of
+48 with ``lp_capacity=True``, llama3-405b cut to 1 of 126 with its
+config's Adafactor (4 x 1,024 each), whisper-small whole (4 x (1,500
+frames + 448 tokens)) and phi-3-vision-4.2b whole (4 x (256 patches +
+1,792 tokens); it must peak under 75 GB).  Each line gives the depth
+against the published one, the memory reckoning (bf16 parameters and
+gradients, float32 accumulators, the optimizer's state), losses, grad
+norms, step seconds, tokens/s, peak memory and a microbatch's kernel time
+(``kernel_profile``); every loss, grad norm and parameter is finite and
+every bf16 parameter moved.  hymba: the scan's backward launches exactly
+layers x chunks x microbatches x steps = 768 times and its forward twice
+that, and one captured backward launch at (1, 512, 3200, 16) is
+bit-equal to its plain version and timed.  scout: the router launches
+once a MoE layer call, forward and recompute (12), the recompute's
+demand, caps, experts, slots and keep mask equal the forward's, and the
+caps equal the plain version's.  deepseek-v2-236b does not fit one card
+for training at full width (one layer is 3.97 B parameters, 80 GB with
+AdamW), so its reduced config (MLA, the LP router, remat per block)
+trains 2 steps on the card and on the CPU, within ``TWIN_ATOL``.  Last,
+``repro_torch.data.optimal_mixture`` on 4,096 utility rows over 8
+sources launches the simplex kernel once; its statuses and weights equal
+the CPU port's.
+
 ``python3 chip_smoke.py --simplex-parent SRC`` runs only the simplex
-kernels' trace and then times them against the simplex_tile.cu at SRC
+kernels' cycle counts by phase, phase-1 and phase-2 steps apart, on the
+2,048-LP slices of lp_100d_50k (every rule, the whole solve and the
+compaction schedule) and lp_afiro_100k, and then times them against the simplex_tile.cu at SRC
 (another commit's, built beside this one) in turns (SRC, this, this, SRC),
 Dantzig: the whole-solve kernel on all 50,000 LPs of lp_100d_50k and on the
 2,048-LP slices of lp_afiro_100k and sc205_like (at a 600-step cap),
@@ -286,7 +312,8 @@ by both builds from one state and every state leaf compared; then
 ``solve_batched`` wall time with and without compaction.
 
 ``python3 chip_smoke.py --revised-parent SRC`` runs only the revised
-kernel's trace and then times the kernel against the revised_tile.cu at SRC
+kernel's cycle counts by phase on 2,048-LP slices of lp_100d_50k (both
+rules) and lp_afiro_100k, and then times the kernel against the revised_tile.cu at SRC
 (another commit's, built beside this one) in turns (SRC, this, this, SRC),
 both rules: one whole-solve launch from the cold state over all 50,000 LPs
 of lp_100d_50k and over the 2,048-LP slices of lp_afiro_100k and
@@ -296,7 +323,8 @@ around the wrapper and around the launch alone; then
 result equal.
 
 ``python3 chip_smoke.py --pdhg-parent SRC`` runs only the PDHG kernel's
-trace and then times the kernel against the pdhg_tile.cu at SRC (another
+cycle counts by phase on the lp_100d_50k slice in the shared and the
+registers variants (outputs equal), and then times the kernel against the pdhg_tile.cu at SRC (another
 commit's, built beside this one) on the same inputs, in turns (SRC, this,
 this, SRC): the whole-solve kernel on the lp_100d_50k slice and on all
 50,000, and ``solve_batched(backend="pdhg")`` with and without
@@ -2035,6 +2063,10 @@ REVISED_RULES = ("dantzig", "partial")
 # 100,000 general-form AFIRO copies costs 20-25 s of host
 # canonicalization, which the run's 1,200 s cannot spare three times
 TRAJ_LPS = 10_000
+# the revised and PDHG warm phases' cold and warm solves of lp_afiro_100k
+# take its first AFIRO_WARM_LPS members (about 80 s of host
+# canonicalization on all 100,000; the tableau main path keeps them all)
+AFIRO_WARM_LPS = 20_000
 
 
 def revised_main(name, batch, oracle_batch, pricing, tableau_res=None):
@@ -2118,7 +2150,8 @@ def revised_warm(afiro, g, g64, traj_lps):
     cold_it = int(cold.iterations.astype(np.int64).sum())
     warm_it = int(warm.iterations.astype(np.int64).sum())
     assert warm_it <= cold_it, (warm_it, cold_it)
-    emit({"revised_warm": "lp_afiro_100k", "member0_objective":
+    emit({"revised_warm": "lp_afiro_100k", "members": g.A.shape[0],
+          "member0_objective":
           float(res.objective[0]), "published": AFIRO_OPT,
           "resolve_wall_s": wall, "resolve_optimal_lps": int(opt.sum()),
           "resolve_max_iterations": int(again.iterations[opt].max()),
@@ -2730,7 +2763,7 @@ def pdhg_warm(g, g64, shape):
     cold_mean = float(np.mean(cold.iterations))
     warm_mean = float(np.mean(warm.iterations))
     assert warm_mean <= 0.25 * cold_mean, (warm_mean, cold_mean)
-    emit({"pdhg_warm": "lp_afiro_100k",
+    emit({"pdhg_warm": "lp_afiro_100k", "members": g.A.shape[0],
           "member0_objective": float(cold.objective[0]),
           "published": AFIRO_OPT, "cold_wall_s": wall_cold,
           "warm_wall_s": wall, "cold_mean_iterations": cold_mean,
@@ -4746,6 +4779,97 @@ def serving_vlm():
 
 # ---- falcon-mamba-7b training (launch/train.py, csrc/ssm_scan.cu) --------
 
+# ---- the training runs' data, made ahead -----------------------------------
+# DataPipeline.batch_at samples its Markov tokens on the host, a (1, 64) x
+# (64, vocab) float64 product a token (about 2.8 ms a token at
+# llama4-scout's 202,048-token vocabulary): 8-12 s a step of 4 x 1,024
+# tokens at the large vocabularies.  So every training run's batches are
+# made ahead, by the same class with the same arguments in DATA_WORKERS
+# processes (no CUDA; one BLAS thread each, at the lowest priority, so
+# that they take only cores no phase uses) started with the run, and
+# ``train`` reads them (``prefetched_data``); each run's line gives the
+# seconds the workers took for its batches.
+DATA_WORKERS = 3
+_DATA = {}                   # (vocab, batch, seq, seed, step) -> future
+_DATA_POOL = []
+
+
+def _pipeline_batch(vocab, batch, seq, seed, step):
+    """DataPipeline(vocab, batch, seq, seed=seed).batch_at(step) and the
+    seconds it took."""
+    from repro_torch.data import DataPipeline
+    t0 = time.perf_counter()
+    out = DataPipeline(vocab=vocab, batch=batch, seq=seq,
+                       seed=seed).batch_at(step)
+    return out, time.perf_counter() - t0
+
+
+def _data_worker():
+    # before NumPy loads: one BLAS thread (a (1, 64) x (64, vocab) product
+    # gains nothing from more), and the lowest CPU priority
+    for name in ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS",
+                 "MKL_NUM_THREADS"):
+        os.environ[name] = "1"
+    os.nice(19)
+
+
+def start_training_data():
+    """Hand every training run's batches to the data workers."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import get_config
+    pool = ProcessPoolExecutor(
+        DATA_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_data_worker)
+    _DATA_POOL.append(pool)
+    runs = [(get_config(SERVE_ARCH).vocab, TRAIN["batch"], TRAIN["seq"],
+             TRAIN["steps"])]
+    runs += [(get_config(arch).vocab, batch, seq, TRAIN_FAMILY_STEPS)
+             for arch, _, batch, seq, _, _ in TRAIN_FAMILIES]
+    for vocab, batch, seq, steps in runs:
+        for step in range(steps):
+            key = (vocab, batch, seq, SERVE_SEED, step)
+            _DATA[key] = pool.submit(_pipeline_batch, *key)
+
+
+def stop_training_data():
+    while _DATA_POOL:
+        _DATA_POOL.pop().shutdown(wait=True, cancel_futures=True)
+
+
+@contextlib.contextmanager
+def prefetched_data(made):
+    """repro_torch.launch.train's DataPipeline answering ``batch_at`` with
+    the batch the data workers made for the same arguments and step (and
+    making any other itself); the workers' seconds are added to
+    ``made["s"]``."""
+    import repro_torch.launch.train as train_mod
+    real = train_mod.DataPipeline
+
+    class Prefetched:
+        def __init__(self, vocab, batch, seq, *, seed=0):
+            self.args, self.local_batch = (vocab, batch, seq, seed), batch
+            self.seq, self._real = seq, None
+
+        def batch_at(self, step):
+            future = _DATA.get(self.args + (step,))
+            if future is not None:
+                out, took = future.result()
+                made["s"] = made.get("s", 0.0) + took
+                return out
+            if self._real is None:
+                vocab, batch, seq, seed = self.args
+                self._real = real(vocab=vocab, batch=batch, seq=seq,
+                                  seed=seed)
+            return self._real.batch_at(step)
+
+    train_mod.DataPipeline = Prefetched
+    try:
+        yield
+    finally:
+        train_mod.DataPipeline = real
+
+
 TRAIN_LAYERS = 24            # full width, depth cut to fit AdamW in 80 GB
 TRAIN = {"batch": 4, "seq": 1024, "steps": 4, "lr": 3e-3}
 ODD_BWD = ((1, 1, 8, 2), (2, 13, 24, 4), (2, 33, 130, 16), (3, 7, 256, 16))
@@ -4826,7 +4950,8 @@ def training():
     call = cfg.n_layers * chunks - 1
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    with bwd_inputs_kept(call) as kept:
+    made = {}
+    with bwd_inputs_kept(call) as kept, prefetched_data(made):
         res = train(cfg, model, microbatches=mb, seed=SERVE_SEED,
                     log_every=1, **TRAIN)
     got = counts()
@@ -4869,7 +4994,8 @@ def training():
           "bwd_launches": got["ssm_scan_bwd"],
           "fwd_launches": got["ssm_scan"], "losses": res["losses"],
           "grad_norms": res["grad_norms"], "step_s": res["step_s"],
-          "data_s": res["data_s"], "tokens_per_step": tokens,
+          "data_s": res["data_s"], "data_made_ahead_s": made.get("s"),
+          "tokens_per_step": tokens,
           "tokens_per_s": res["tokens_per_s"],
           "peak_device_bytes": peak,
           "peak_includes_kept_bwd_input_bytes": kept_bytes,
@@ -4925,6 +5051,380 @@ def training():
     del dA, hs, h0, g_hs, g_hT, out, kept
     torch.cuda.empty_cache()
     return info
+
+
+# ---- training of every LM family at full width -------------------------------
+
+TRAIN_FAMILY_STEPS = 3        # step 0 warms up and is left out of tokens/s
+# the learning rate of the families' runs: every parameter is bf16 with no
+# float32 master copy (as in the reference), so a step moves an entry only
+# when it passes half its bf16 spacing: 0.0039 for a norm scale at 1.0,
+# 0.0156 for hymba's dt_bias at -4.6.  With the optimizers' warmup of 100
+# steps lr_t is 0.01, 0.02 and 0.03 at steps 0, 1 and 2
+TRAIN_FAMILY_LR = 1.0
+# (arch, layers or None for the published depth, batch, seq, config
+# changes, n_frames); two microbatches each
+TRAIN_FAMILIES = (
+    (HYMBA_ARCH, None, 2, 2048, {}, None),
+    (DENSE_ARCH, 4, 4, 1024, {}, None),
+    (MOE_ARCH, 1, 4, 1024, {"lp_capacity": True}, None),
+    ("llama3-405b", 1, 4, 1024, {}, None),
+    (ENCDEC_ARCH, None, 4, 448, {}, 1500),
+    (VLM_ARCH, None, 4, 1792, {}, None),
+)
+TRAIN_FAMILY_MB = 2
+PEAK_LIMIT = 75e9             # phi-3-vision trains whole below this peak
+MLA_TWIN_STEPS = 2
+
+
+def optimizer_state_bytes(model, name):
+    """The bytes of optimizer ``name``'s state for ``model``, from its
+    init on meta copies of the parameters."""
+    import torch
+    from repro_torch.optim import get_optimizer
+    meta = [(n, torch.empty(p.shape, dtype=p.dtype, device="meta"))
+            for n, p in model.named_parameters()]
+    state = get_optimizer(name).init(meta)
+    tensors = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            tensors.append(x)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+    walk(state)
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fingerprint(p, block=1 << 26):
+    """(sum, sum of squares) of ``p``'s values in float64, taken in flat
+    blocks: equal before and after a step only if the step changed no
+    entry (bar an exact cancellation in both), with no copy of the
+    tensor."""
+    import torch
+    flat = p.detach().reshape(-1)
+    out = torch.zeros(2, dtype=torch.float64, device=p.device)
+    for i in range(0, flat.numel(), block):
+        x = flat[i:i + block].double()
+        out[0] += x.sum()
+        out[1] += x.square().sum()
+    return out
+
+
+def train_family(arch, layers, batch, seq, changes, n_frames):
+    """``arch`` at its published width (cut to ``layers`` layers where
+    given), bf16 from SERVE_SEED on the card, trained through
+    repro_torch.launch.train.train for TRAIN_FAMILY_STEPS steps of
+    ``batch`` x ``seq`` tokens in two microbatches with the config's
+    optimizer.  Returns (the emitted line, the config, the launches by
+    kernel, what the hooks kept: hymba's backward inputs, scout's
+    routings)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import set_matmul_policy
+    import repro_torch.launch.train as train_mod
+    from repro_torch.launch.train import step_batch, train
+
+    policy = set_matmul_policy()
+    published = get_config(arch)
+    cfg = dataclasses.replace(published, **changes)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    assert cfg.param_dtype == "bfloat16" and cfg.remat == "block", cfg
+    model, init_s = draw_on_card(cfg)
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    n_params = sum(p.numel() for p in params)
+    opt_bytes = optimizer_state_bytes(model, cfg.optimizer)
+    reckoning = {"param_bytes": 2 * n_params,
+                 "float32_accumulator_bytes": 4 * n_params,
+                 "bf16_gradient_bytes": 2 * n_params,
+                 "optimizer_state_bytes": opt_bytes}
+    reckoning["total_before_activations"] = sum(reckoning.values())
+    before = [fingerprint(p) for p in params]
+    hooks, made = {}, {}
+    chunks = seq // SCAN_CHUNK if cfg.family == "hybrid" else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(prefetched_data(made))
+        if cfg.family == "hybrid":
+            # layer 0's backward of chunk 0 in the first microbatch: the
+            # layers run backward from the last, a layer's chunks from its
+            # last
+            hooks["bwd"] = stack.enter_context(bwd_inputs_kept(
+                cfg.n_layers * chunks - 1))
+        if cfg.lp_capacity:
+            hooks["routes"] = stack.enter_context(routes_kept())
+        t0 = time.perf_counter()
+        res = train(cfg, model, batch=batch, seq=seq,
+                    steps=TRAIN_FAMILY_STEPS, lr=TRAIN_FAMILY_LR,
+                    microbatches=TRAIN_FAMILY_MB, seed=SERVE_SEED,
+                    log_every=1, n_frames=n_frames)
+        wall = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(res["losses"]).all(), res["losses"]
+    assert np.isfinite(res["grad_norms"]).all(), res["grad_norms"]
+    assert all(torch.isfinite(p).all() for p in params)
+    # every bf16 parameter moved: some entry of it passed half its bf16
+    # spacing in a step (TRAIN_FAMILY_LR)
+    changed = [not torch.equal(b, fingerprint(p))
+               for b, p in zip(before, params)]
+    unmoved = [n for n, c, p in zip(names, changed, params)
+               if not c and p.dtype == torch.bfloat16]
+    assert not unmoved, unmoved
+    # step 0's first microbatch, its loss and gradients under the
+    # profiler: the card's busy share of a step
+    with prefetched_data({}):
+        data = train_mod.DataPipeline(vocab=cfg.vocab, batch=batch,
+                                      seq=seq, seed=SERVE_SEED)
+        mb = {k: v[:batch // TRAIN_FAMILY_MB] for k, v in step_batch(
+            cfg, data, 0, seed=SERVE_SEED, n_frames=n_frames or seq,
+            device=model.device).items()}
+    grad_ms, grad_top = kernel_profile(lambda: torch.autograd.grad(
+        model.loss_fn(mb), params), top=8)
+    warm = res["step_s"][1:]
+    tokens = batch * seq
+    line = {"train": arch, "family": cfg.family, "config": {
+                "n_layers": cfg.n_layers,
+                "published_n_layers": published.n_layers,
+                "n_encoder_layers": cfg.n_encoder_layers or None,
+                "d_model": cfg.d_model, "vocab": cfg.vocab,
+                "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+                "lp_capacity": cfg.lp_capacity, "optimizer": cfg.optimizer,
+                "n_patches": cfg.n_patches if cfg.family == "vlm" else None,
+                "n_frames": n_frames},
+            "batch": batch, "seq": seq, "microbatches": TRAIN_FAMILY_MB,
+            "steps": TRAIN_FAMILY_STEPS, "lr": TRAIN_FAMILY_LR,
+            "seed": SERVE_SEED, "params": n_params,
+            "memory_reckoning_bytes": reckoning,
+            "init_on_card_s": init_s, "matmul_policy": policy,
+            "losses": res["losses"], "grad_norms": res["grad_norms"],
+            "step_s": res["step_s"], "data_s": res["data_s"],
+            "data_made_ahead_s": made.get("s"),
+            "wall_s": wall, "tokens_per_step": tokens,
+            "tokens_per_s_warm": tokens * len(warm) / sum(warm),
+            "peak_device_bytes": peak,
+            "microbatch_grad_kernel_ms": grad_ms,
+            "microbatch_grad_top_kernels": grad_top,
+            "busy_share_of_a_microbatch": TRAIN_FAMILY_MB * grad_ms / (
+                1e3 * float(np.mean(warm))),
+            "params_changed": sum(changed), "params_total": len(params),
+            "launches": {k: v for k, v in got.items() if v}}
+    emit(line)
+    del model, params, before, res, mb
+    torch.cuda.empty_cache()
+    return line, cfg, got, hooks
+
+
+def hymba_bwd_row(kept, got, cfg_layers, chunks):
+    """hymba's backward launches against layers x chunks x microbatches x
+    steps (the forward twice that), and the backward kernel on layer 0's
+    chunk-0 inputs: bit-equal to its plain version, timed beside its
+    bytes bound and yardstick.  Returns row 8's hymba-shape entry."""
+    import torch
+    from repro_torch.kernels import ssm_scan_bwd, ssm_scan_bwd_plain
+    launches = cfg_layers * chunks * TRAIN_FAMILY_MB * TRAIN_FAMILY_STEPS
+    assert got["ssm_scan_bwd"] == launches, got
+    assert got["ssm_scan"] == 2 * launches, got
+    assert all(v == 0 for k, v in got.items()
+               if k not in ("ssm_scan", "ssm_scan_bwd")), got
+    dA, hs, h0, g_hs, g_hT = (t.detach() for t in kept["args"])
+    assert float(h0.abs().max()) == 0 and float(g_hT.abs().max()) > 0
+    err = scan_bwd_vs_plain(dA, hs, h0, g_hs, g_hT)
+    assert err == 0.0, err
+    out = (torch.empty_like(dA), torch.empty_like(dA))
+    ms = timed_avg(lambda: ssm_scan_bwd(dA, hs, h0, g_hs, g_hT))
+    plain_ms = timed_avg(
+        lambda: ssm_scan_bwd_plain(dA, hs, h0, g_hs, g_hT), reps=3)
+
+    def yard():
+        torch.add(dA, hs, out=out[0])
+        torch.neg(g_hs, out=out[1])
+
+    yard_ms = timed_avg(yard)
+    B, T = dA.shape[:2]
+    L = dA.shape[2] * dA.shape[3]
+    nbytes = 4 * (5 * B * T * L + 3 * B * L)
+    row = {"kernel": "ssm_scan_bwd", "train": HYMBA_ARCH,
+           "shape": list(dA.shape), "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "yardstick_ms": yard_ms, "bytes": nbytes,
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "launches": got["ssm_scan_bwd"], "fwd_launches": got["ssm_scan"]}
+    emit(row)
+    return row
+
+
+def scout_router_row(routes, got, cfg):
+    """scout's router launches (once a MoE layer call: the forward and the
+    recompute under remat, each microbatch and step), each layer's
+    recompute routing against its forward's in every microbatch (demand,
+    caps, keep mask, experts, slots, weights equal), and the first call's
+    caps against the plain version's solve of the same demand."""
+    import torch
+    from repro_torch.models import moe
+    layers = cfg.n_layers
+    calls = 2 * layers * TRAIN_FAMILY_MB * TRAIN_FAMILY_STEPS
+    assert got["simplex_tile"] == calls and len(routes) == calls, \
+        (got, len(routes))
+    assert all(v == 0 for k, v in got.items() if k != "simplex_tile"), got
+    # each microbatch: the forward's calls layer by layer, then the
+    # recompute's from the last layer
+    for m in range(0, calls, 2 * layers):
+        block = routes[m:m + 2 * layers]
+        for fwd, rec in zip(block[:layers], block[layers:][::-1]):
+            for f in ("demand", "caps", "expert", "slot", "keep", "top_w"):
+                assert torch.equal(getattr(fwd, f), getattr(rec, f)), (m, f)
+    fwd = routes[0]
+    capacity = moe._capacity(fwd.top_w.shape[0], cfg.top_k, cfg.n_experts,
+                             cfg.capacity_factor)
+    err = caps_vs_plain(fwd, capacity)
+    assert err == 0.0, err
+    row = {"router": MOE_ARCH, "launches": got["simplex_tile"],
+           "recompute_routing_equal": True, "caps_vs_plain_max_abs_err": err,
+           "kept_share": float(fwd.keep.float().mean())}
+    emit(row)
+    return row
+
+
+def training_families():
+    """Every LM family trained at full width (TRAIN_FAMILIES), then the
+    reduced deepseek-v2 (MLA, the LP router) trained on the card and on
+    the CPU.  Returns the rows the kernel table reads."""
+    import torch
+    out = {"lines": []}
+    for arch, layers, batch, seq, changes, n_frames in TRAIN_FAMILIES:
+        with phase(f"training_families.{arch}"):
+            line, cfg, got, hooks = train_family(arch, layers, batch, seq,
+                                                 changes, n_frames)
+            if arch == VLM_ARCH and line["peak_device_bytes"] > PEAK_LIMIT:
+                raise AssertionError(f"{arch} peaked at "
+                                     f"{line['peak_device_bytes']} bytes")
+            out["lines"].append(line)
+            if "bwd" in hooks:
+                out["hymba_bwd"] = hymba_bwd_row(
+                    hooks["bwd"], got, cfg.n_layers, seq // SCAN_CHUNK)
+            if "routes" in hooks:
+                out["scout_router"] = scout_router_row(hooks["routes"],
+                                                       got, cfg)
+            del hooks
+            torch.cuda.empty_cache()
+    with phase("training_families.mla_twin"):
+        out["mla_twin"] = mla_train_twin()
+    return out
+
+
+def mla_train_twin():
+    """The reduced deepseek-v2 (MLA, 8 experts, top-2, the LP router;
+    float32, remat per block) trained MLA_TWIN_STEPS steps through train
+    on the card and on the CPU from the same parameters (drawn from
+    SERVE_SEED): losses, grad norms and parameters within TWIN_ATOL; on
+    the card the router launches once a MoE layer call (the forward and
+    the recompute).  The full-width model does not fit one card for
+    training (ROADMAP: expert sharding)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(MLA_ARCH).reduced(),
+                              lp_capacity=True, remat="block")
+    cpu = build_model(cfg, device="cpu", seed=SERVE_SEED)
+    card = build_model(cfg, device="cpu", seed=SERVE_SEED).to("cuda")
+    kw = dict(batch=4, seq=64, steps=MLA_TWIN_STEPS,
+              microbatches=TRAIN_FAMILY_MB, seed=SERVE_SEED, log_every=1)
+    zero_counts()
+    got = train(cfg, card, **kw)
+    launches = only("simplex_tile")
+    assert launches == 2 * cfg.n_layers * TRAIN_FAMILY_MB * MLA_TWIN_STEPS
+    want = train(cfg, cpu, device="cpu", **kw)
+    loss_err = max(abs(a - b) for a, b in zip(got["losses"],
+                                              want["losses"]))
+    norm_err = max(abs(a - b) for a, b in zip(got["grad_norms"],
+                                              want["grad_norms"]))
+    param_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(card.parameters(), cpu.parameters()))
+    moved = max(float((a.detach() - b.detach()).abs().max()) for a, b in
+                zip(cpu.parameters(), build_model(
+                    cfg, device="cpu", seed=SERVE_SEED).parameters()))
+    assert np.isfinite(got["losses"]).all()
+    assert max(loss_err, norm_err, param_err) < TWIN_ATOL, \
+        (loss_err, norm_err, param_err)
+    assert moved > 0
+    line = {"train_twin": MLA_ARCH, "config": "reduced, float32, "
+            "lp_capacity, remat block", "n_layers": cfg.n_layers,
+            **{k: v for k, v in kw.items() if k != "log_every"},
+            "card_losses": got["losses"], "cpu_losses": want["losses"],
+            "card_vs_cpu_loss_max_abs_err": loss_err,
+            "card_vs_cpu_grad_norm_max_abs_err": norm_err,
+            "card_vs_cpu_param_max_abs_err": param_err,
+            "param_max_move": moved, "atol": TWIN_ATOL,
+            "launches": launches}
+    emit(line)
+    del card, cpu
+    torch.cuda.empty_cache()
+    return line
+
+
+# ---- the data mixture: the paper's batched LP in the data layer -----------
+
+MIXTURE_ROWS = 4096
+MIXTURE_SOURCES = 8
+
+
+def optimal_mixture_phase():
+    """repro_torch.data.optimal_mixture on MIXTURE_ROWS utility rows over
+    MIXTURE_SOURCES sources (positive floors: every LP starts infeasible;
+    every 97th row's floors sum past 1: infeasible, uniform): one
+    whole-solve launch on the card; statuses and weights equal to the
+    CPU port's."""
+    import numpy as np
+    from repro_torch.data import mixture
+
+    rng = np.random.default_rng(SERVE_SEED)
+    u = rng.normal(size=(MIXTURE_ROWS, MIXTURE_SOURCES))
+    caps = np.full(MIXTURE_SOURCES, 0.3)
+    floors = np.full((MIXTURE_ROWS, MIXTURE_SOURCES), 0.05)
+    floors[::97] = 0.2
+    real, results = mixture.solve_batched, []
+
+    def keep(*args, **kw):
+        results.append(real(*args, **kw))
+        return results[-1]
+
+    mixture.solve_batched = keep
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        w = mixture.optimal_mixture(u, caps, floors)
+        wall = time.perf_counter() - t0
+        launches = only("simplex_tile")
+        t0 = time.perf_counter()
+        w_cpu = mixture.optimal_mixture(u, caps, floors, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+    finally:
+        mixture.solve_batched = real
+    assert launches == 1, launches
+    card, cpu = results
+    np.testing.assert_array_equal(card.status, cpu.status)
+    np.testing.assert_array_equal(w, w_cpu)
+    assert (card.status[::97] != 0).all()
+    np.testing.assert_array_equal(w[::97], np.full_like(w[::97],
+                                                        1 / MIXTURE_SOURCES))
+    line = {"optimal_mixture": MIXTURE_ROWS, "sources": MIXTURE_SOURCES,
+            "launches": launches, "wall_s": wall, "cpu_wall_s": cpu_wall,
+            "status_counts": np.bincount(card.status.astype(int),
+                                         minlength=4).tolist(),
+            "max_abs_err": float(np.abs(w - w_cpu).max())}
+    emit(line)
+    return line
 
 
 # ---- the paper's workloads, multi-rank solving, the LP router -------------
@@ -5427,6 +5927,13 @@ def main(argv=None) -> int:
         return smoke()
     finally:
         stop_plain_pool()
+        stop_training_data()
+
+
+def first_members(g, k):
+    """The general-form batch ``g`` cut to its first ``k`` members."""
+    return dataclasses.replace(g, A=g.A[:k], rhs=g.rhs[:k], lb=g.lb[:k],
+                               ub=g.ub[:k], c=g.c[:k], c0=g.c0[:k])
 
 
 def smoke() -> int:
@@ -5438,13 +5945,8 @@ def smoke() -> int:
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
-    # the PDHG, revised and simplex kernels with cycle counters build
-    # beside the others
-    trace_builds = [threading.Thread(target=f)
-                    for f in (pdhg_trace_build, revised_trace_build,
-                              simplex_trace_build)]
-    for t in trace_builds:
-        t.start()
+    # the kernels' cycle-counter builds and traces (pdhg_trace,
+    # revised_trace, simplex_trace) run in the --*-parent modes only
     took, failed = {}, []
 
     def build_all():
@@ -5459,6 +5961,8 @@ def smoke() -> int:
     # them), build the workloads no phase solves and run the plain
     # versions the checks hand over below
     plain_pool()
+    # and the training runs' batches, on idle cores
+    start_training_data()
     lp100, g, lp300, digests = main_batches()
     behind = {name: Behind(built_workload, name)
               for name in ("lp_100d_50k", "lp_300d_2k", "lp_afiro_100k")}
@@ -5589,9 +6093,7 @@ def smoke() -> int:
         res_100, n, wall_100 = solve_main("lp_100d_50k", lp100, head)
         path_launches("simplex_tile", "main_path lp_100d_50k", n)
         afiro = read_mps(fixture_path("afiro"))
-        g64 = dataclasses.replace(g, A=g.A[:64], rhs=g.rhs[:64],
-                                  lb=g.lb[:64], ub=g.ub[:64], c=g.c[:64],
-                                  c0=g.c0[:64])
+        g64 = first_members(g, 64)
         res_af, n, _ = solve_main("lp_afiro_100k", g, g64)
         path_launches("simplex_tile", "main_path lp_afiro_100k", n)
         assert res_af.status[0] == 0
@@ -5627,8 +6129,6 @@ def smoke() -> int:
             done("schedule", "afiro", rule)
         for rule in RULES:
             done("schedule", "sc205", rule)
-        trace_builds[2].join()
-        simplex_trace(lp100, lp_af)
 
     # ---- the paper's workloads, multi-rank solving, the LP router --------
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
@@ -5670,8 +6170,9 @@ def smoke() -> int:
         for rule in REVISED_RULES:
             _, n = revised_main("lp_100d_50k", lp100, head, rule, res_100)
             path_launches("revised_segment", f"revised_main {rule}", n)
+        g_warm = first_members(g, AFIRO_WARM_LPS)
         path_launches("revised_segment", "revised_warm",
-                      revised_warm(afiro, g, g64, traj_lps=TRAJ_LPS))
+                      revised_warm(afiro, g_warm, g64, traj_lps=TRAJ_LPS))
         rev_rows = []
         for rule in REVISED_RULES:
             row, whole = done("revised", "lp_100d_50k", rule)
@@ -5683,8 +6184,6 @@ def smoke() -> int:
         for rule in REVISED_RULES:
             done("revised", "sc205", rule)
         rev_full = revised_at_full_batch("lp_100d_50k", lp100)
-        trace_builds[1].join()
-        revised_trace(lp100, lp_af)
 
     # ---- restarted PDHG: the whole-solve and segment kernels --------------
     with phase("pdhg"):
@@ -5694,7 +6193,7 @@ def smoke() -> int:
         n, pdhg_comp = pdhg_compaction_main(lp100, res_pdhg, wall_pdhg)
         path_launches("pdhg_segment", "pdhg_compaction_main", n)
         path_launches("pdhg", "pdhg_warm",
-                      pdhg_warm(g, g64, (lp_af.m, lp_af.n)))
+                      pdhg_warm(g_warm, g64, (lp_af.m, lp_af.n)))
         pdhg_rows = [done("pdhg", "lp100", "fixed")[0]]
         pdhg_seg_row = done("pdhg_schedule")
         seg_launch_rows = [compare_pdhg_segment("lp_100d_50k", lp100)]
@@ -5715,8 +6214,6 @@ def smoke() -> int:
               "workers": PLAIN_WORKERS})
         pdhg_sparse("sc205_like_2k", sc205, max_iters=20_000)
         pdhg_full = pdhg_full_batch(lp100)
-        trace_builds[0].join()
-        pdhg_trace(lp100)
 
     # ---- the telemetry plane: counters through the segment kernels -------
     with phase("telemetry"):
@@ -5731,7 +6228,7 @@ def smoke() -> int:
                       telemetry_kernels("lp_300d_2k", lp300, B=64,
                                         kernels=("pdhg",))]
         tel_over = telemetry_overhead(lp100)
-    del lp100, res_100, g, lp_af, sc205, lp300
+    del lp100, res_100, g, g_warm, lp_af, sc205, lp300
     torch.cuda.empty_cache()
 
     # ---- box LP: the hyperbox kernel --------------------------------------
@@ -5776,6 +6273,26 @@ def smoke() -> int:
         path_launches("ssm_scan", f"train {SERVE_ARCH} (forward and "
                       "recompute)", bwd["fwd_launches"])
         path_launches("ssm_scan_bwd", f"train {SERVE_ARCH}", bwd["launches"])
+
+    # ---- every other LM family trained at full width ----------------------
+    with phase("training_families"):
+        fam = training_families()
+        path_launches("ssm_scan", f"train {HYMBA_ARCH} (forward and "
+                      "recompute)", fam["hymba_bwd"]["fwd_launches"])
+        path_launches("ssm_scan_bwd", f"train {HYMBA_ARCH}",
+                      fam["hymba_bwd"]["launches"])
+        path_launches("simplex_tile", f"train {MOE_ARCH} (lp_capacity, "
+                      "forward and recompute)",
+                      fam["scout_router"]["launches"])
+        path_launches("simplex_tile", f"train {MLA_ARCH} reduced twin "
+                      "(lp_capacity, forward and recompute)",
+                      fam["mla_twin"]["launches"])
+    stop_training_data()
+
+    # ---- the data mixture: one simplex launch -----------------------------
+    with phase("optimal_mixture"):
+        mix = optimal_mixture_phase()
+        path_launches("simplex_tile", "optimal_mixture", mix["launches"])
     emit({"total_s": time.perf_counter() - t_start})
 
     main_row = rows[0]   # lp_100d_50k slice, dantzig: the paper's rule
@@ -5797,10 +6314,16 @@ def smoke() -> int:
             scout["router_caps_vs_plain_max_abs_err"],
         "mla_router_caps_vs_plain_max_abs_err":
             deepseek["router_caps_vs_plain_max_abs_err"],
+        "train_moe_router_caps_vs_plain_max_abs_err":
+            fam["scout_router"]["caps_vs_plain_max_abs_err"],
+        "optimal_mixture_vs_cpu_max_abs_err": mix["max_abs_err"],
         "parity": "status, iterations and work counts equal; x, objective, "
                   "y, z within rel 1e-5; every rule and batch; the MoE "
                   "router's caps in the served llama4-scout and "
-                  "deepseek-v2 equal to the plain version's"}, {
+                  "deepseek-v2 and in llama4-scout's training equal to "
+                  "the plain version's, its recompute's routing equal to "
+                  "its forward's; optimal_mixture's statuses and weights "
+                  "equal to the CPU port's"}, {
         "name": "simplex_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/simplex_tile.cu",
         "replaces": "src/repro/kernels/simplex_tile.py:494",
@@ -5935,14 +6458,19 @@ def smoke() -> int:
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:57",
-        **launch_keys("ssm_scan_bwd"), "max_abs_err": bwd["max_abs_err"],
+        **launch_keys("ssm_scan_bwd"), "max_abs_err": max(
+            bwd["max_abs_err"], fam["hymba_bwd"]["max_abs_err"]),
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": None, "yardstick_ms": bwd["yardstick_ms"],
         "yardstick": bwd["yardstick"], "shape": bwd["shape"],
+        "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                      "yardstick_ms", "max_abs_err")}
+                   for r in (bwd, fam["hymba_bwd"])],
         "parity": "ddA, ddBx and dh0 equal to the plain version on layer "
-                  "0's chunk-0 inputs of the first microbatch and at four "
-                  "odd shapes"}]})
+                  "0's chunk-0 inputs of the first microbatch of "
+                  "falcon-mamba-7b's and of hymba-1.5b's training, and at "
+                  "four odd shapes"}]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

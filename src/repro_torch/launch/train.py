@@ -1,20 +1,34 @@
-"""Training entry point (the reference's ``launch/train.py``): AdamW steps of
-the port's LM on the synthetic LM data, with gradient-accumulation
-microbatching, a straggler watchdog and an optional loss-curve CSV.  It
-trains the ssm family only; the hybrid, dense, MoE (GQA and MLA), encdec
-and VLM families are served, not trained yet, and ``train`` refuses them
-(ROADMAP: the rest of the LM scaffold, training of the hybrid, dense,
-MoE, MLA, encdec and VLM families).
+"""Training entry point (the reference's ``launch/train.py``): optimizer
+steps of the port's model on the synthetic LM data, with
+gradient-accumulation microbatching, a straggler watchdog and an optional
+loss-curve CSV.  It trains every family: ssm (falcon-mamba-7b), hybrid
+(hymba-1.5b), dense (qwen3-32b, granite-20b, nemotron-4-340b,
+llama3-405b), MoE with GQA (llama4-scout-17b-a16e) and with MLA
+(deepseek-v2-236b), encdec (whisper-small) and VLM (phi-3-vision-4.2b),
+with the config's optimizer (AdamW, or Adafactor for llama3-405b and
+nemotron-4-340b); ``--reduced`` trains the CPU-sized config with AdamW,
+as the reference's CLI does.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \\
         --reduced --steps 3 --batch 2 --seq 32 --device cpu
 
 Without ``--device`` it runs on the card.  ``train`` is the loop as a
-function, for scripts that drive it and read its losses and timings.  The
-reference's ``--mesh`` waits for the port of its ``distributed/`` sharding
-(ROADMAP: the rest of the LM scaffold), and ``--checkpoint-dir`` and
-``--save-every`` for ``checkpoint/manager.py`` (ROADMAP: checkpointing and
-the HLO readers).
+function, for scripts that drive it and read its losses and timings.
+
+Each step's tokens and labels are ``DataPipeline.batch_at(step)``.  The
+encdec and VLM families take stub inputs beside them, as ``serve`` does
+(``launch/serve.py`` ``stub_inputs``): whisper's frame embeddings
+(batch, n_frames, D), n_frames the sequence length unless ``--frames``
+says otherwise (whisper's window is 1,500), and phi-3-vision's patch
+embeddings (batch, n_patches, D), drawn from a generator seeded by
+(seed, step) in the config's dtype.  The reference's CLI feeds neither,
+so it cannot train whisper (ROADMAP queue 3); its ``loss_fn`` and train
+step, given the same inputs, are what the port is held to.
+
+The reference's ``--mesh`` waits for the port of its ``distributed/``
+sharding (ROADMAP: the rest of the LM scaffold), and ``--checkpoint-dir``
+and ``--save-every`` for ``checkpoint/manager.py`` (ROADMAP:
+checkpointing and the HLO readers).
 """
 from __future__ import annotations
 
@@ -31,54 +45,65 @@ from ..device import resolve_device
 from ..distributed import make_train_step
 from ..models import LM, build_model
 from ..optim import get_optimizer
-from .serve import set_matmul_policy
+from .serve import set_matmul_policy, stub_inputs
+
+
+def step_batch(cfg, data: DataPipeline, step: int, *, seed: int,
+               n_frames: int, device) -> dict:
+    """Step ``step``'s batch on ``device``: ``data.batch_at(step)``'s
+    tokens and labels as int64, and for the encdec and VLM families
+    ``stub_inputs`` drawn from ``np.random.default_rng((seed, step))``
+    in the config's dtype."""
+    host = data.batch_at(step)
+    out = {k: torch.as_tensor(v, dtype=torch.long, device=device)
+           for k, v in host.items()}
+    rng = np.random.default_rng((seed, step))
+    for k, v in stub_inputs(cfg, rng, data.local_batch, n_frames).items():
+        out[k] = v.to(device)
+    return out
 
 
 def train(cfg, model: LM, *, batch: int, seq: int, steps: int,
           lr: float = 3e-3, microbatches: int = 1, seed: int = 0,
           device=None, log_every: int = 10,
-          straggler_factor: float = 3.0) -> dict:
-    """Train ``model``, the port's ``LM`` of ``cfg``, for ``steps`` steps
-    of ``batch`` sequences of ``seq`` tokens from ``DataPipeline(seed=
-    seed).batch_at(step)``, with the config's optimizer at learning rate
-    ``lr`` and ``microbatches`` gradient-accumulation chunks a step.  Runs on
-    ``device`` (the card unless ``"cpu"``), where the model must lie; the
-    parameters are updated in place.
+          straggler_factor: float = 3.0, optimizer: str | None = None,
+          n_frames: int | None = None) -> dict:
+    """Train ``model``, the port's ``LM`` or ``EncDecLM`` of ``cfg``, for
+    ``steps`` steps of ``batch`` sequences of ``seq`` tokens from
+    ``DataPipeline(seed=seed).batch_at(step)`` (with the encdec and VLM
+    families' stub inputs, ``step_batch``: ``n_frames`` frames, default
+    ``seq``), with the optimizer ``optimizer`` (default the config's) at
+    learning rate ``lr`` and ``microbatches`` gradient-accumulation
+    chunks a step.  Runs on ``device`` (the card unless ``"cpu"``), where
+    the model must lie; the parameters are updated in place.
 
     Returns the per-step ``losses`` and ``grad_norms`` (floats),
-    ``step_s`` (a step's device work, from its batch on the host to its
-    loss back on the host), ``data_s`` (the host's batch generation, not
-    in ``step_s``), ``tokens_per_s`` (batch x seq / step_s) and
-    ``stragglers`` (steps slower than ``straggler_factor`` x the running
-    median)."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported "
-            f"yet (ROADMAP: the rest of the LM scaffold, {cfg.family} "
-            "training: the hybrid, dense, MoE, MLA (deepseek-v2-236b), "
-            "encdec (whisper-small) and VLM (phi-3-vision-4.2b) families "
-            "are served, not trained); the port trains the ssm family "
-            "only")
-    if min(batch, seq, steps, microbatches) < 1:
-        raise ValueError("batch, seq, steps and microbatches must be >= 1")
+    ``step_s`` (a step's device work, from its batch on the device to its
+    loss back on the host), ``data_s`` (the host's batch generation and
+    its copy to the device, not in ``step_s``), ``tokens_per_s`` (batch x
+    seq / step_s: the text tokens) and ``stragglers`` (steps slower than
+    ``straggler_factor`` x the running median)."""
+    n_frames = seq if n_frames is None else n_frames
+    if min(batch, seq, steps, microbatches, n_frames) < 1:
+        raise ValueError("batch, seq, steps, microbatches and n_frames "
+                         "must be >= 1")
     dev = resolve_device(device)
     if model.device.type != dev.type or \
             dev.index not in (None, model.device.index):
         raise ValueError(f"the model is on {model.device}, training on {dev}")
     dev = model.device
-    opt = get_optimizer(cfg.optimizer, lr=lr)
-    params = list(model.parameters())
-    opt_state = opt.init(params)
+    opt = get_optimizer(optimizer or cfg.optimizer, lr=lr)
+    # named: Adafactor groups the layers of one stacked reference leaf
+    opt_state = opt.init(list(model.named_parameters()))
     step_fn = make_train_step(model, opt, microbatches=microbatches)
     data = DataPipeline(vocab=cfg.vocab, batch=batch, seq=seq, seed=seed)
     out = {"losses": [], "grad_norms": [], "step_s": [], "data_s": [],
            "tokens_per_s": [], "stragglers": []}
     for s in range(steps):
         t0 = time.perf_counter()
-        host = data.batch_at(s)
+        tensors = step_batch(cfg, data, s, seed=seed, n_frames=n_frames,
+                             device=dev)
         t1 = time.perf_counter()
-        tensors = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
-                   for k, v in host.items()}
         metrics = step_fn(opt_state, tensors)
         loss = float(metrics["loss"])             # waits for the card
         gnorm = float(metrics["grad_norm"])
@@ -101,12 +126,16 @@ def train(cfg, model: LM, *, batch: int, seq: int, steps: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        epilog="Not ported yet: the reference's --mesh (ROADMAP: the rest "
-               "of the LM scaffold, distributed/) and --checkpoint-dir and "
-               "--save-every (ROADMAP: checkpoint/manager.py).")
+        epilog="Trains every family with the config's optimizer (AdamW "
+               "under --reduced); the encdec and VLM families get stub "
+               "frames or patches each step.  Not ported yet: the "
+               "reference's --mesh (ROADMAP: the rest of the LM scaffold, "
+               "distributed/) and --checkpoint-dir and --save-every "
+               "(ROADMAP: checkpoint/manager.py).")
     ap.add_argument("--arch", default="falcon-mamba-7b")
     ap.add_argument("--reduced", action="store_true",
-                    help="use the CPU-sized config of the same family")
+                    help="use the CPU-sized config of the same family, "
+                         "trained with AdamW")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -121,6 +150,8 @@ def main(argv=None):
     ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--d-ff", type=int, default=None)
     ap.add_argument("--vocab", type=int, default=None)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="encdec: stub frames a sequence (default --seq)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
@@ -138,13 +169,15 @@ def main(argv=None):
     print(f"[train] matmul policy {set_matmul_policy()}")
     model = build_model(cfg, device=args.device)
     n_params = sum(p.numel() for p in model.parameters())
+    optimizer = "adamw" if args.reduced else cfg.optimizer
     print(f"[train] arch={cfg.name} params={n_params / 1e6:.1f}M "
-          f"device={model.device}")
+          f"optimizer={optimizer} device={model.device}")
     res = train(cfg, model, batch=args.batch, seq=args.seq,
                 steps=args.steps, lr=args.lr,
                 microbatches=args.microbatches, device=model.device,
                 log_every=args.log_every,
-                straggler_factor=args.straggler_factor)
+                straggler_factor=args.straggler_factor,
+                optimizer=optimizer, n_frames=args.frames)
     if args.curve_out:
         os.makedirs(os.path.dirname(args.curve_out) or ".", exist_ok=True)
         with open(args.curve_out, "w") as f:

@@ -1,14 +1,14 @@
-"""Optimizers of the port (the reference's ``optim/``): AdamW so far."""
+"""Optimizers of the port (the reference's ``optim/``): AdamW and
+Adafactor."""
+from .adafactor import adafactor  # noqa: F401
 from .adamw import Optimizer, adamw  # noqa: F401
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:
-    """The optimizer ``name`` built with ``kw``: "adamw"; "adafactor" is
-    not ported yet."""
+    """The optimizer ``name`` ("adamw" or "adafactor") built with
+    ``kw``."""
     if name == "adamw":
         return adamw(**kw)
     if name == "adafactor":
-        raise NotImplementedError(
-            "adafactor is not ported yet (ROADMAP: the rest of the LM "
-            "scaffold, optim/adafactor.py)")
+        return adafactor(**kw)
     raise KeyError(name)

@@ -405,6 +405,9 @@ def test_serve_cli_serves_hymba_by_default(capsys):
 
 
 def test_training_the_hybrid_family_is_refused():
+    """Named for the refusal ``train`` made before the hybrid family was
+    trained: it now trains it (tests/test_torch_train_hybrid.py holds the
+    steps to the reference)."""
     cfg, lm = _port()
-    with pytest.raises(NotImplementedError, match="hybrid training"):
-        train(cfg, lm, batch=2, seq=32, steps=1, device="cpu")
+    res = train(cfg, lm, batch=2, seq=32, steps=1, device="cpu")
+    assert np.isfinite(res["losses"]).all()

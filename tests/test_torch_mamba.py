@@ -39,7 +39,6 @@ from repro_torch.models.mamba import MambaCache, mamba_apply
 
 ATOL = 1e-5
 ARCH = "falcon-mamba-7b"
-NOT_TRAINED = "ROADMAP: the rest of the LM scaffold"
 
 
 def _cfgs(impl):
@@ -178,13 +177,14 @@ def test_cache_shapes_are_the_reference_ones():
 @pytest.mark.parametrize("arch", ["whisper-small", "phi-3-vision-4.2b",
                                   "deepseek-v2-236b"])
 def test_train_still_refuses_the_encdec_vlm_and_mla_families(arch):
-    """The three served last are not trained yet: train names them."""
+    """Named for the refusal ``train`` made before the three served last
+    were trained: it now trains each, whisper with its stub frames and
+    phi-3-vision with its patches, and the losses are finite."""
     cfg = get_config(arch).reduced()
     lm = build_model(cfg, device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match=NOT_TRAINED) as err:
-        train(cfg, lm, batch=2, seq=32, steps=1, device="cpu")
-    for name in ("deepseek-v2-236b", "whisper-small", "phi-3-vision-4.2b"):
-        assert name in str(err.value)
+    res = train(cfg, lm, batch=2, seq=32, steps=2, device="cpu")
+    assert np.isfinite(res["losses"]).all()
+    assert np.isfinite(res["grad_norms"]).all()
 
 
 def test_an_ssm_block_with_an_mlp_matches_the_reference():

@@ -1180,48 +1180,113 @@ def test_ssm_scan_bwd_kernel_matches_plain_version_on_the_card(B, T, d, s):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+# the reduced model of each family trained on the card against the CPU
+# port: (arch, config changes, optimizer)
+TRAIN_CASES = (
+    ("falcon-mamba-7b", {}, "adamw"),
+    ("hymba-1.5b", {}, "adamw"),
+    ("qwen3-32b", {}, "adamw"),
+    ("llama3-405b", {}, "adafactor"),
+    ("llama4-scout-17b-a16e", {"lp_capacity": True}, "adamw"),
+    ("deepseek-v2-236b", {"lp_capacity": True}, "adamw"),
+    ("whisper-small", {}, "adamw"),
+    ("phi-3-vision-4.2b", {}, "adamw"),
+)
+
+
 @pytest.mark.gpu
-def test_reduced_model_train_step_on_the_card_matches_the_cpu_port():
-    """One microbatched train step of the reduced model (float32, remat
+@pytest.mark.parametrize("arch,changes,optimizer", TRAIN_CASES,
+                         ids=[c[0] for c in TRAIN_CASES])
+def test_reduced_model_train_step_on_the_card_matches_the_cpu_port(
+        arch, changes, optimizer):
+    """One loss and its gradients of the reduced model (float32, remat
     per block) on the card against the CPU port: loss within 1e-5,
-    gradients within 1e-4 (float32 products in another summation order),
-    and the scan kernels launched once a chunk and microbatch (backward)
-    and twice (forward and the recompute)."""
+    gradients within 1e-4 (float32 products in another summation order);
+    then a step with two microbatches and the config's optimizer
+    (Adafactor for llama3-405b), its loss equal to the CPU port's step
+    within 1e-5.  The scan kernels launch once a layer, chunk and
+    microbatch (backward) and twice (forward and the recompute); the
+    router's simplex kernel twice a MoE layer and microbatch (forward and
+    the recompute)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
     from repro_torch.distributed import make_train_step
     from repro_torch.launch.serve import set_matmul_policy
-    from repro_torch.optim import adamw
+    from repro_torch.optim import get_optimizer
     set_matmul_policy()
-    cfg = dataclasses.replace(get_config("falcon-mamba-7b").reduced(),
-                              remat="block")
-    cpu = build_model(dataclasses.replace(cfg, ssm_impl="kernel"),
-                      device="cpu", seed=0)
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat="block",
+                              **changes)
+    S = 1024 if cfg.family == "ssm" else 256
+    cpu_cfg = dataclasses.replace(cfg, ssm_impl="kernel") \
+        if cfg.family in ("ssm", "hybrid") else cfg
+    cpu = build_model(cpu_cfg, device="cpu", seed=0)
     card = build_model(cfg, device="cpu", seed=0).to("cuda")
-    toks = torch.from_numpy(
-        np.random.default_rng(0).integers(0, cfg.vocab, (2, 1024)))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S)))
     batch = {"tokens": toks, "labels": toks}
+    extra = {"encdec": ("frames", 96), "vlm": ("patches", cfg.n_patches)}
+    if cfg.family in extra:
+        name, rows = extra[cfg.family]
+        batch[name] = torch.from_numpy(rng.standard_normal(
+            (2, rows, cfg.d_model), dtype=np.float32))
 
     def grads(model, dev):
         loss = model.loss_fn({k: v.to(dev) for k, v in batch.items()})
         return loss, torch.autograd.grad(loss, list(model.parameters()))
 
     want_loss, want = grads(cpu, "cpu")
+    launches = (ssm_scan.launches, ssm_scan_bwd.launches,
+                simplex_tile.launches)
     got_loss, got = grads(card, "cuda")
     assert abs(float(got_loss.detach()) - float(want_loss.detach())) < 1e-5
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4)
-    microbatches, chunks = 2, 1024 // 512
-    opt = adamw()
-    step = make_train_step(card, opt, microbatches=microbatches)
-    fwd, bwd = ssm_scan.launches, ssm_scan_bwd.launches
-    m = step(opt.init(list(card.parameters())),
-             {k: v.cuda() for k, v in batch.items()})
-    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
-    launches = cfg.n_layers * chunks * microbatches
-    assert ssm_scan_bwd.launches - bwd == launches
-    assert ssm_scan.launches - fwd == 2 * launches
+    microbatches = 2
+    # mamba_apply scans chunks of min(512, S) tokens
+    chunks = S // min(512, S) if cfg.family in ("ssm", "hybrid") else 0
+    scans = cfg.n_layers * chunks
+    routed = cfg.n_layers if cfg.lp_capacity else 0
+    assert (ssm_scan.launches - launches[0], ssm_scan_bwd.launches -
+            launches[1], simplex_tile.launches - launches[2]) == \
+        (2 * scans, scans, 2 * routed)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        opt = get_optimizer(optimizer)
+        step = make_train_step(model, opt, microbatches=microbatches)
+        before = (ssm_scan.launches, ssm_scan_bwd.launches,
+                  simplex_tile.launches)
+        m = step(opt.init(list(model.named_parameters())),
+                 {k: v.to(dev) for k, v in batch.items()})
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+        losses.append(float(m["loss"]))
+    assert abs(losses[0] - losses[1]) < 1e-5
+    assert (ssm_scan.launches - before[0], ssm_scan_bwd.launches -
+            before[1], simplex_tile.launches - before[2]) == \
+        (2 * microbatches * scans, microbatches * scans,
+         2 * microbatches * routed)
+    assert all(torch.isfinite(p).all() for p in card.parameters())
+
+
+@pytest.mark.gpu
+def test_optimal_mixture_on_the_card_equals_the_cpu():
+    """4,096 utility rows over 8 sources: one whole-solve simplex launch,
+    the weights equal to the CPU port's (the kernel equals its plain
+    version bit for bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.data import optimal_mixture
+    rng = np.random.default_rng(7)
+    u = rng.normal(size=(4096, 8))
+    caps, floors = np.full(8, 0.3), np.full(8, 0.05)
+    floors_rows = np.broadcast_to(floors, (4096, 8)).copy()
+    floors_rows[::97] = 0.2                 # infeasible rows: uniform
+    before = simplex_tile.launches
+    got = optimal_mixture(u, caps, floors_rows)
+    assert simplex_tile.launches == before + 1
+    want = optimal_mixture(u, caps, floors_rows, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[::97], np.full_like(got[::97], 1 / 8))
 
 
 # ---- the combined stage, the warm tableau path and branch-and-bound ------
