@@ -113,7 +113,7 @@ the plain-backed one (plain on 512) and to the whole solve at
 stays within the chunk plan's bytes per LP
 (``core.pdhg.pdhg_bytes_per_lp``).  The sparse engine runs
 SparseLPBatch.from_dense of sc205_like on the card against the dense
-kernel at ``max_iters`` 20,000 (equal statuses, objectives within rel
+kernel at ``max_iters`` SPARSE_CAP (equal statuses, objectives within rel
 1e-3; its sums follow the dense kernel's order, so every output is
 equal).  Then the whole-solve kernel is timed on all 50,000 LPs beside
 its bound and a torch.bmm yardstick.  The three kernels' cycle counts by
@@ -174,9 +174,10 @@ peak device memory and the kernels' device time in one prefill and one
 decode step are printed.
 
 Dense serving (after hymba's, once that model is freed): qwen3-32b at
-its published config (64 layers, d_model 5120, 64 heads over 8 KV heads
-of 128, qk-norm, SwiGLU d_ff 25,600, vocab 151,936, rope theta 1e6, bf16
-parameters drawn on the card from a seeded generator, 65.5 GB) serves 2
+its published width cut to 16 of its 64 layers (d_model 5120, 64 heads
+over 8 KV heads of 128, qk-norm, SwiGLU d_ff 25,600, vocab 151,936, rope
+theta 1e6, bf16 parameters drawn on the card from a seeded generator;
+the smoke's time budget cut it from all 64, 65.5 GB) serves 2
 waves of 4 prompts of 2,048 tokens and 32 generated tokens through
 ``serve``; no custom kernel may launch (every launch counter stays 0).
 Tokens/s, time to first token, prefill and decode seconds a wave, decode
@@ -206,7 +207,7 @@ host synchronization forbidden (``torch.cuda.set_sync_debug_mode
 with the simplex kernel's device time in a decode step.  A float32 twin
 at full width cut to 1 layer and a 32,000-token vocabulary (the
 embedding's first rows and the head's first columns) runs one
-1,024-token prompt and 8 greedy steps on the card and on the CPU, with
+512-token prompt and 8 greedy steps on the card and on the CPU, with
 ``lp_capacity`` on and off: the routing (expert, slot and keep of every
 token in every call) and the tokens equal, the logits within
 ``TWIN_ATOL``, the smallest top-1/top-2 probability gap and |cap - slot|
@@ -274,8 +275,8 @@ published width in bf16 from seed 2018 through
 ``repro_torch.launch.train.train``, 3 steps in 2 microbatches with the
 config's optimizer at lr 1.0 (bf16 parameters with no float32 master
 copy move only by more than half their spacing; step 0 is left out of
-tokens/s): hymba-1.5b whole (2 x 2,048 tokens: the 1,024 window masks
-keys), qwen3-32b cut to 4 of 64 layers, llama4-scout-17b-a16e cut to 1 of
+tokens/s): hymba-1.5b cut to 16 of 32 layers for the time budget (2 x
+2,048 tokens: the 1,024 window masks keys), qwen3-32b cut to 4 of 64 layers, llama4-scout-17b-a16e cut to 1 of
 48 with ``lp_capacity=True``, llama3-405b cut to 1 of 126 with its
 config's Adafactor (4 x 1,024 each), whisper-small whole (4 x (1,500
 frames + 448 tokens)) and phi-3-vision-4.2b whole (4 x (256 patches +
@@ -285,7 +286,7 @@ gradients, float32 accumulators, the optimizer's state), losses, grad
 norms, step seconds, tokens/s, peak memory and a microbatch's kernel time
 (``kernel_profile``); every loss, grad norm and parameter is finite and
 every bf16 parameter moved.  hymba: the scan's backward launches exactly
-layers x chunks x microbatches x steps = 768 times and its forward twice
+layers x chunks x microbatches x steps = 384 times and its forward twice
 that, and one captured backward launch at (1, 512, 3200, 16) is
 bit-equal to its plain version and timed.  scout: the router launches
 once a MoE layer call, forward and recompute (12), the recompute's
@@ -352,6 +353,32 @@ host synchronization forbidden (``torch.cuda.set_sync_debug_mode
 ``examples/torch_reachability.py`` runs on the card as a subprocess and
 must exit 0.  Each phase prints its seconds.
 
+Training on a mesh (``training_sharded``, last): (a) deepseek-v2-236b at
+its published width, 1 of 60 layers, bf16 from seed 2018, ``lp_capacity``
+and ``seq_shard`` as shipped, over a 1 x 4 mesh of four processes that
+share the card over gloo, each holding 40 of the 160 expert slabs: the
+loss and gradients of 2 x 1,024 tokens under ``remat="block"`` with no
+optimizer step (the four ranks hold one card's memory); exactly 8 router
+launches (4 ranks x forward and recompute), each rank's routing
+bit-equal to one process's ``route`` of its tokens and its caps to the
+plain version on the CPU, its MoE output within 2^-7 of one process's
+``_moe_local`` over all 160 experts, the replicated gradients bit-equal
+across ranks (the mesh turns on the deterministic algorithms that keep
+them so; this script does not), every gradient finite; the peak a rank,
+the step's wall and the exchanges' host seconds printed.  (b) the
+reduced llama4-scout (float32, ``lp_capacity``, top-2) through ``train
+--mesh 2x2 --checkpoint-dir`` in four processes with torchrun's
+environment, every run resuming from one step-0 checkpoint drawn on the
+card, three worlds side by side: 4 steps on the card and on the CPU
+within ``TWIN_ATOL``, the replicated
+parameters bit-equal on every rank after them; the card run's step-2
+save, written from its writer thread, resumed in new processes for 2
+more, bit-equal to the 4 straight; the checkpoint restored on a 1 x 4
+mesh and on one rank equal to the saved whole arrays.  (c) whisper-small whole,
+two ``make_compressed_train_step`` steps: every leaf's dequantization
+error within half its scale (float32 rounding aside), the error-feedback
+residual bit for bit, the losses finite.
+
 The plain versions of the long parity checks run first, in 4 worker
 processes (``Behind``; their own CUDA contexts, the same functions on the
 same device and inputs), while the kernels build: every such check hands
@@ -374,6 +401,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -2978,6 +3006,13 @@ def compare_pdhg_schedule(name, lp, n_lp=SLICE, n_plain=512,
     return out
 
 
+# the sparse engine's cap on sc205_like: its iterations are host-bound
+# (44.7 s at 20,000 on a slow host); cut to keep the run under 1,200 s
+# with training on a mesh added, every output still equal to the dense
+# kernel's
+SPARSE_CAP = 5_000
+
+
 def pdhg_sparse(name, lp, max_iters):
     """SparseLPBatch.from_dense of a canonical batch through the sparse
     engine on the card, against the dense kernel on the same LPs at the
@@ -4190,6 +4225,10 @@ def serving_hymba():
 DENSE_ARCH = "qwen3-32b"
 MOE_ARCH = "llama4-scout-17b-a16e"
 GQA_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32, "requests": 2}
+# qwen3-32b's depth: 16 of 64 layers (0.81 GB each): the whole model
+# served in 21 s of a 1,145 s run on a slow host, and the run must stay
+# under 1,200 s with training on a mesh added
+DENSE_LAYERS = 16
 # llama4-scout's depth: 12 of 48 layers (4.43 GB each, 57.2 GB with the
 # embedding and head): the layers one card holds as one stage of a
 # four-stage pipeline; all 48 are 217 GB
@@ -4199,8 +4238,10 @@ MOE_LAYERS = 12
 # the card and the CPU, and the prefix that decode steps extend
 DENSE_TWIN = {"layers": 2, "vocab": None, "prompt_len": 1024, "gen": 8,
               "prefix": 1016}
-MOE_TWIN = {"layers": 1, "vocab": 32_000, "prompt_len": 1024, "gen": 8,
-            "prefix": 1016}
+# (the MoE and MLA twins' prompt was 1,024 tokens until the smoke's time
+# budget halved it: their CPU runs took 21-38 s)
+MOE_TWIN = {"layers": 1, "vocab": 32_000, "prompt_len": 512, "gen": 8,
+            "prefix": 504}
 SERVE_CONFIG_KEYS = ("family", "n_layers", "d_model", "n_heads",
                      "n_heads_padded", "n_kv_heads", "d_head", "d_ff",
                      "mlp_kind", "qk_norm", "n_experts", "top_k",
@@ -4322,20 +4363,24 @@ def serve_profiles(model, res, match=None, load=GQA_SERVE):
 
 
 def serving_dense():
-    """qwen3-32b at its published config served through
-    repro_torch.launch.serve.serve (module docstring): no custom kernel
-    launches; its float32 twin on the card against the CPU."""
+    """qwen3-32b at its published width, DENSE_LAYERS of 64 layers,
+    served through repro_torch.launch.serve.serve (module docstring): no
+    custom kernel launches; its float32 twin on the card against the
+    CPU."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve, set_matmul_policy
 
     policy = set_matmul_policy()
-    cfg = get_config(DENSE_ARCH)
-    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
-            cfg.n_kv_heads, cfg.d_head, cfg.qk_norm, cfg.mlp_kind, cfg.d_ff,
-            cfg.vocab, cfg.rope_theta, cfg.param_dtype) == \
+    published = get_config(DENSE_ARCH)
+    assert (published.family, published.n_layers, published.d_model,
+            published.n_heads, published.n_kv_heads, published.d_head,
+            published.qk_norm, published.mlp_kind, published.d_ff,
+            published.vocab, published.rope_theta,
+            published.param_dtype) == \
         ("dense", 64, 5120, 64, 8, 128, True, "swiglu", 25600, 151936, 1e6,
          "bfloat16")
+    cfg = dataclasses.replace(published, n_layers=DENSE_LAYERS)
     model, init_s = draw_on_card(cfg)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -4346,7 +4391,8 @@ def serving_dense():
     peak = torch.cuda.max_memory_allocated()
     check_served(res, cfg, GQA_SERVE)
     line = serve_line(DENSE_ARCH, cfg, model, res, policy, init_s, peak,
-                      custom_kernel_launches=launched)
+                      custom_kernel_launches=launched,
+                      published_n_layers=published.n_layers)
     with phase("serving_dense.profiles"), torch.inference_mode():
         prof = serve_profiles(model, res)
     emit({"serve_profile": DENSE_ARCH, **prof})
@@ -5065,7 +5111,7 @@ TRAIN_FAMILY_LR = 1.0
 # (arch, layers or None for the published depth, batch, seq, config
 # changes, n_frames); two microbatches each
 TRAIN_FAMILIES = (
-    (HYMBA_ARCH, None, 2, 2048, {}, None),
+    (HYMBA_ARCH, 16, 2, 2048, {}, None),   # 16 of 32: the time budget
     (DENSE_ARCH, 4, 4, 1024, {}, None),
     (MOE_ARCH, 1, 4, 1024, {"lp_capacity": True}, None),
     ("llama3-405b", 1, 4, 1024, {}, None),
@@ -5806,6 +5852,578 @@ def reachability():
           "output": proc.stdout.strip().splitlines()})
 
 
+
+# ---- training on a mesh: the Sharder, expert parallelism, checkpoints -----
+
+SHARDED_WORLD = 4             # ranks sharing the one card over gloo
+SHARDED = {"mesh": (1, 4), "layers": 1, "batch": 2, "seq": 1024}
+MOE_REL = 2.0 ** -7           # a rank's MoE output against one process's
+MESH_TWIN = {"mesh": "2x2", "steps": 4, "batch": 4, "seq": 32, "lr": 1e-3}
+COMPRESSED = {"batch": 4, "seq": 64, "n_frames": 1500, "steps": 2,
+              "lr": 1e-3}
+# |dequantized - corrected| <= scale / 2 up to the float32 rounding of the
+# quotient and the product: scale x (1/2 + 254 x 2^-24)
+DEQUANT_SLACK = 1 + 2.0 ** -14
+
+SHARDED_RANK = """
+import time
+marks = {"start": time.time()}   # the rank's timeline, wall clock
+import hashlib, os, pickle, sys
+import torch, torch.distributed as dist
+rank, world, store, job_path, out = sys.argv[1:6]
+rank, world = int(rank), int(world)
+torch.cuda.set_device(0)
+marks["card"] = time.time()
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=world)
+marks["world"] = time.time()
+import chip_smoke as cs
+from repro_torch.distributed.sharding import (Sharder, make_mesh,
+                                              param_spec)
+marks["imported"] = time.time()
+from repro_torch.distributed.steps import loss_and_grads
+from repro_torch.models import build_model, moe
+with open(job_path, "rb") as f:
+    job = pickle.load(f)
+cfg = job["cfg"]
+mesh = make_mesh(job["mesh"], ("data", "model"))
+marks["mesh"] = time.time()
+# the mesh, not this script, turns on the deterministic algorithms that
+# keep the replicas bit-equal
+deterministic = torch.are_deterministic_algorithms_enabled()
+shd = Sharder(cfg, mesh)
+t0 = time.perf_counter()
+model = build_model(cfg, seed=job["seed"], shd=shd)
+torch.cuda.synchronize()
+init_s = time.perf_counter() - t0
+marks["built"] = time.time()
+batch = {k: torch.from_numpy(v).cuda() for k, v in job["batch"].items()}
+kept = {"route": [], "local": []}
+real_route, real_local = moe.route, moe._moe_local
+
+def route(*args):
+    kept["route"].append(real_route(*args))
+    return kept["route"][-1]
+
+def local(x, p, cfg, axis=None):
+    y = real_local(x, p, cfg, axis)
+    kept["local"].append((x.detach(), y.detach()))
+    return y
+
+moe.route, moe._moe_local = route, local
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+dist.barrier()
+marks["model"] = time.time()
+cs.zero_counts()
+t0 = time.perf_counter()
+loss, grads = loss_and_grads(model, batch, shd)
+finite = all(bool(torch.isfinite(g).all()) for g in grads)
+wall = time.perf_counter() - t0
+launches = {k: v for k, v in cs.counts().items() if v}
+peak = torch.cuda.max_memory_allocated()
+names = [n for n, _ in model.named_parameters()]
+digests = {n: hashlib.sha256(g.contiguous().view(torch.uint8).cpu()
+                             .numpy().tobytes()).hexdigest()
+           for n, g in zip(names, grads)
+           if not shd.is_sharded(param_spec(n, cfg))}
+marks["step"] = marks["model"] + wall
+marks["digests"] = time.time()
+fwd, rec = kept["route"][0], kept["route"][1]
+x, y = kept["local"][0]
+got = {"rank": rank, "loss": float(loss), "finite": finite, "wall_s": wall,
+       "deterministic_from_the_mesh": deterministic, "marks": marks,
+       "init_s": init_s, "peak_device_bytes": peak, "launches": launches,
+       "exchange_host_s": mesh.exchanges()["seconds"],
+       "exchange_calls": mesh.exchanges()["calls"],
+       "params": sum(p.numel() for p in model.parameters()),
+       "expert_slabs": model.blocks[0].mlp["w_gate"].shape[0],
+       "digests": digests, "route_calls": len(kept["route"]),
+       "recompute_routes_as_forward": all(
+           torch.equal(a, b) for a, b in zip(fwd, rec)
+           if isinstance(a, torch.Tensor)),
+       "x": x.cpu(), "y": y.cpu(),
+       "route": {f: getattr(fwd, f).cpu() for f in
+                 ("expert", "slot", "keep", "caps", "demand")}}
+if rank == 0:
+    got["router"] = model.blocks[0].mlp["router"].detach().cpu()
+with open(out + "." + str(rank), "wb") as f:
+    pickle.dump(got, f)
+del grads, model
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+MESH_RANK = """
+import time
+marks = {"start": time.time()}   # rank 0's timeline, wall clock
+import dataclasses, hashlib, json, os, pickle, shutil, sys
+import numpy as np, torch, torch.distributed as dist
+import repro_torch.configs as configs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.distributed.sharding import (Sharder, gather_params,
+                                              make_mesh, param_spec)
+from repro_torch.kernels import simplex_tile
+from repro_torch.launch import train as train_mod
+from repro_torch.launch.train import state_tree
+from repro_torch.models import build_model
+from repro_torch.optim import get_optimizer
+with open(sys.argv[1]) as f:
+    job = json.load(f)
+# the CLI has no flag for the router or top-k, as the reference's has
+# none: the config carries them
+real_config = configs.get_config
+configs.get_config = lambda arch: dataclasses.replace(real_config(arch),
+                                                      **job["changes"])
+seen = {}
+real = train_mod.train
+
+def keep(cfg, model, **kw):
+    seen.update(cfg=cfg, model=model, shd=kw["shd"], dir=kw["checkpoint_dir"])
+    return real(cfg, model, **kw)
+
+train_mod.train = keep
+marks["imported"] = time.time()
+for run in job["runs"]:   # one CLI run after another in these processes
+    if run.get("copy"):
+        # started beside the run that writes the checkpoint: wait for its
+        # (atomically renamed) step directory, then resume from a copy
+        # (no world yet: the CLI joins it) rank 0 copies and renames, the
+        # others wait for the copy
+        src, dst = run["copy"]
+        rank0 = int(os.environ["RANK"]) == 0
+        if "--device" not in run["argv"]:
+            torch.zeros(1, device="cuda")   # the context, while it waits
+        # the module torch.use_deterministic_algorithms loads (10 s on the
+        # card's host), which the CLI's mesh calls, while it waits
+        import torch._inductor.config
+        t0 = time.perf_counter()
+        while not os.path.isdir(src if rank0 else dst):
+            assert time.perf_counter() - t0 < 600, src
+            time.sleep(0.2)
+        if rank0:
+            shutil.copytree(src, dst + ".copy")
+            os.rename(dst + ".copy", dst)
+        marks["copied"] = time.time()
+    simplex_tile.launches = 0
+    marks["cli"] = time.time()
+    res = train_mod.main(run["argv"])
+    marks["trained"] = time.time()
+    launches = torch.tensor([simplex_tile.launches])
+    parts = [torch.zeros_like(launches) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, launches)
+    cfg, model, shd = seen["cfg"], seen["model"], seen["shd"]
+    whole = gather_params({n: p.detach()
+                           for n, p in model.named_parameters()}, shd)
+    # the replicated leaves, bit for bit, on every rank of the world
+    mine = {n: hashlib.sha256(p.detach().contiguous().view(torch.uint8)
+                              .cpu().numpy().tobytes()).hexdigest()
+            for n, p in model.named_parameters()
+            if not shd.is_sharded(param_spec(n, cfg))}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    got = {"losses": res["losses"], "start": res["start"],
+           "launches": [int(p) for p in parts],
+           "replicas_checked": res["replicas_checked"],
+           "step_s": res["step_s"], "marks": marks,
+           "replicated_leaves": len(mine),
+           "replicas_equal": all(d == mine for d in every),
+           "device": str(model.device),
+           "params": {n: p.float().cpu().numpy() for n, p in whole.items()}}
+    if run["restore"]:
+        # the run's last checkpoint restored on a (1, 4) mesh of this
+        # world, each rank its slice, gathered back
+        shd4 = Sharder(cfg, make_mesh((1, 4), ("data", "model"),
+                                      device=model.device))
+        other = build_model(cfg, device=model.device, shd=shd4)
+        state = get_optimizer("adamw").init(list(other.named_parameters()))
+        mgr = CheckpointManager(seen["dir"])
+        back = mgr.restore(mgr.latest_step(), state_tree(other, state),
+                           sharder=shd4, device=model.device)
+        slab = back["params"]["blocks.0.mlp.w_gate"].shape[0]
+        again = gather_params(back["params"], shd4)
+        got["restored_1x4_equal"] = all(torch.equal(again[n], whole[n])
+                                        for n in whole)
+        got["restored_1x4_slab"] = slab
+    marks["checked"] = time.time()
+    if dist.get_rank() == 0:
+        with open(run["out"], "wb") as f:
+            pickle.dump(got, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def sharded_deepseek(workdir):
+    """(a) deepseek-v2-236b at its published width, 1 of 60 layers, bf16
+    from SERVE_SEED, lp_capacity, remat per block (as shipped), seq_sp as
+    shipped, over a 1 x 4 mesh of SHARDED_WORLD processes that share the
+    card over gloo, each holding 40 of the 160 expert slabs: one
+    microbatch of 2 x 1,024 tokens through ``distributed.steps.
+    loss_and_grads`` (the loss and torch.autograd.grad, no optimizer
+    step: the four ranks hold one card's memory).  Then, in this process
+    with the whole model: each rank's routing bit-equal to one process's
+    ``route`` of the same rank's tokens (caps also against the plain
+    version on the CPU), each rank's MoE output within MOE_REL of one
+    process's ``_moe_local`` over all 160 experts."""
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import _capacity, _moe_local, route
+    cfg = dataclasses.replace(get_config(MLA_ARCH),
+                              n_layers=SHARDED["layers"], lp_capacity=True)
+    assert cfg.seq_shard and cfg.remat == "block", cfg
+    rng = np.random.default_rng(SERVE_SEED)
+    shape = (SHARDED["batch"], SHARDED["seq"])
+    job = {"cfg": cfg, "mesh": SHARDED["mesh"], "seed": SERVE_SEED,
+           "batch": {k: rng.integers(0, cfg.vocab, shape) for k in
+                     ("tokens", "labels")}}
+    with open(workdir / "sharded.job", "wb") as f:
+        pickle.dump(job, f)
+    out = workdir / "sharded.out"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    env.pop("CUBLAS_WORKSPACE_CONFIG", None)   # the mesh sets it
+    t0, wall0 = time.perf_counter(), time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARDED_RANK, str(r), str(SHARDED_WORLD),
+         str(workdir / "sharded.store"), str(workdir / "sharded.job"),
+         str(out)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(SHARDED_WORLD)]
+    for p in procs:
+        so, se = p.communicate(timeout=600)
+        assert p.returncode == 0, ("a rank failed", so[-2000:], se[-4000:])
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(SHARDED_WORLD):
+        with open(f"{out}.{r}", "rb") as f:
+            ranks.append(pickle.load(f))
+    launches = [g["launches"] for g in ranks]
+    assert all(set(n) == {"simplex_tile"} and n["simplex_tile"] == 2
+               for n in launches), launches   # the forward and recompute
+    assert all(g["finite"] and g["route_calls"] == 2 and
+               g["recompute_routes_as_forward"] and
+               g["deterministic_from_the_mesh"] for g in ranks)
+    assert len({g["loss"] for g in ranks}) == 1 and \
+        np.isfinite(ranks[0]["loss"])
+    assert all(g["digests"] == ranks[0]["digests"] for g in ranks)
+    assert all(g["expert_slabs"] == cfg.n_experts // SHARDED_WORLD
+               for g in ranks)
+    # one process, the whole model drawn from the same seed
+    whole = build_model(cfg, seed=SERVE_SEED)
+    p = whole.blocks[0].mlp
+    assert torch.equal(p["router"].detach().cpu(), ranks[0]["router"])
+    rows = []
+    with torch.no_grad():
+        for g in ranks:
+            x = g["x"].cuda()
+            N = x.shape[0]
+            C = _capacity(N, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+            one = route(x, p["router"], cfg, C)
+            same = all(torch.equal(getattr(one, f).cpu(), g["route"][f])
+                       for f in ("expert", "slot", "keep", "caps"))
+            caps_err = caps_vs_plain(one, C)
+            ref = _moe_local(x, p, cfg).float().cpu()
+            rel = float((g["y"].float() - ref).abs().max()
+                        / ref.abs().max())
+            rows.append({"rank": g["rank"], "tokens": N, "capacity": C,
+                         "routing_equal_to_one_process": same,
+                         "caps_vs_plain_max_abs_err": caps_err,
+                         "moe_output_rel_err": rel,
+                         "kept_share": float(g["route"]["keep"].float()
+                                             .mean())})
+    del whole, p
+    torch.cuda.empty_cache()
+    assert all(r["routing_equal_to_one_process"] for r in rows), rows
+    assert all(r["caps_vs_plain_max_abs_err"] == 0.0 for r in rows), rows
+    assert all(r["moe_output_rel_err"] <= MOE_REL for r in rows), rows
+    n_params = ranks[0]["params"]
+    line = {"train_sharded": MLA_ARCH, "mesh": list(SHARDED["mesh"]),
+            "ranks_on_one_card": SHARDED_WORLD, "backend": "gloo",
+            "config": {"n_layers": cfg.n_layers, "published_n_layers": 60,
+                       "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+                       "top_k": cfg.top_k, "seq_shard": cfg.seq_shard,
+                       "remat": cfg.remat, "lp_capacity": True,
+                       "param_dtype": cfg.param_dtype},
+            "batch": SHARDED["batch"], "seq": SHARDED["seq"],
+            "seed": SERVE_SEED, "params_a_rank": n_params,
+            "bf16_param_and_grad_bytes_a_rank": 4 * n_params,
+            "loss": ranks[0]["loss"],
+            "router_launches": sum(n["simplex_tile"] for n in launches),
+            "peak_device_bytes_a_rank": [g["peak_device_bytes"]
+                                         for g in ranks],
+            "loss_and_grads_wall_s": [g["wall_s"] for g in ranks],
+            "exchange_host_s": [g["exchange_host_s"] for g in ranks],
+            "exchange_calls": ranks[0]["exchange_calls"],
+            "init_on_card_s": [g["init_s"] for g in ranks],
+            "spawn_to_exit_s": spawn_s,
+            # seconds after the spawn at which each rank had started
+            # Python, reached the card, joined the world, drawn its model,
+            # taken its step, and digested its replicated gradients
+            "rank_timeline_s": [{k: round(v - wall0, 3)
+                                 for k, v in g["marks"].items()}
+                                for g in ranks],
+            "replicated_grads_equal_across_ranks": True,
+            "ranks": rows, "moe_rel_bound": MOE_REL}
+    emit(line)
+    return line
+
+
+def mesh_twin(workdir):
+    """(b) the reduced llama4-scout (float32, lp_capacity, top-2) through
+    ``python -m repro_torch.launch.train --mesh 2x2 --checkpoint-dir``
+    in four processes with the environment torchrun gives its workers
+    (the CLI's ``join_world`` reads it), each run resuming from one step-0
+    checkpoint drawn on the card: 4 steps on the card and 4 on the CPU
+    (losses and parameters
+    within TWIN_ATOL), the replicated parameters bit-equal on every rank
+    after them; on the card the straight run saves step 2 from its writer
+    thread, and a world started beside it resumes from that checkpoint in
+    new processes for 2 more, bit-equal to the 4 straight; that
+    checkpoint restored on a 1 x 4 mesh and on one rank equals the saved
+    whole arrays.  The three worlds run side by side."""
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import state_tree
+    from repro_torch.models import build_model
+    from repro_torch.optim import get_optimizer
+    script = workdir / "mesh_rank.py"
+    script.write_text(MESH_RANK)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t = MESH_TWIN
+    changes = {"lp_capacity": True, "top_k": 2}
+    base = ["--arch", MOE_ARCH, "--reduced", "--mesh", t["mesh"],
+            "--batch", str(t["batch"]), "--seq", str(t["seq"]),
+            "--lr", str(t["lr"]), "--log-every", "1"]
+
+    def world(tag, runs, device=None):
+        """One world of 4 ranks making ``runs`` (tag, steps,
+        checkpoint dir, restore, extra arguments, checkpoint to wait for
+        and copy) one after another; a waiter that returns {tag: what
+        rank 0 wrote}."""
+        job = {"changes": changes, "runs": [
+            {"argv": base + ["--steps", str(steps), "--checkpoint-dir",
+                             str(workdir / ckpt)] + extra
+             + (["--device", device] if device else []),
+             "out": str(workdir / f"{run}.out"), "restore": restore,
+             "copy": copy}
+            for run, steps, ckpt, restore, extra, copy in runs]}
+        (workdir / f"{tag}.json").write_text(json.dumps(job))
+        started[tag] = time.time()
+        # the environment torchrun --standalone --nproc-per-node 4 gives
+        # its workers, without torchrun's agent process (it took 14 s to
+        # start them beside the other worlds)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, str(script), str(workdir / f"{tag}.json")],
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="4",
+                     LOCAL_WORLD_SIZE="4", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)),
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(4)]
+
+        def wait():
+            for r, proc in enumerate(procs):
+                so, se = proc.communicate(timeout=600)
+                assert proc.returncode == 0, (tag, r, so[-2000:],
+                                              se[-4000:])
+            walls[tag] = time.perf_counter() - t0
+            got = {}
+            for run, *_ in runs:
+                with open(workdir / f"{run}.out", "rb") as f:
+                    got[run] = pickle.load(f)
+            return got
+        return wait
+
+    # the CLI draws on its device, and the card's generator is not the
+    # CPU's: every run starts from one checkpoint at step 0, drawn on the
+    # card from the CLI's seed (the model each rank would draw, whole)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), **changes).reduced()
+    t0 = time.perf_counter()
+    start = build_model(cfg)
+    state = get_optimizer("adamw").init(list(start.named_parameters()))
+    for ckpt in ("straight", "cpu"):     # "resumed" gets straight's step 2
+        CheckpointManager(str(workdir / ckpt)).save(
+            0, state_tree(start, state), extra={"data_step": 0})
+    del start, state
+    walls, started = {}, {}
+    half = t["steps"] // 2
+    mid = f"step_{half:08d}"
+    on_cpu = world("cpu_world", [("cpu", t["steps"], "cpu", False, [],
+                                  None)], device="cpu")
+    card = world("card_world", [("straight", t["steps"], "straight", False,
+                                 ["--save-every", str(half)], None)])
+    # the resume in new processes, then its checkpoint on a 1 x 4 mesh
+    resume = world("resume_world", [
+        ("second", t["steps"], "resumed", True, [],
+         (str(workdir / "straight" / mid), str(workdir / "resumed" / mid)))])
+    straight = card()["straight"]
+    second = resume()["second"]
+    cpu = on_cpu()["cpu"]
+    wall = time.perf_counter() - t0
+    assert straight["losses"][half:] == second["losses"]
+    assert (straight["start"], cpu["start"], second["start"]) == (0, 0, half)
+    replicas = {k: (r["replicas_equal"], r["replicas_checked"],
+                    r["replicated_leaves"])
+                for k, r in (("straight", straight), ("second", second),
+                             ("cpu", cpu))}
+    assert all(eq and checked > 0 and checked == n
+               for eq, checked, n in replicas.values()), replicas
+    resume_equal = all(np.array_equal(second["params"][n], v)
+                       for n, v in straight["params"].items())
+    assert resume_equal
+    assert second["restored_1x4_equal"] and \
+        second["restored_1x4_slab"] == 2
+    loss_err = max(abs(a - b) for a, b in zip(straight["losses"],
+                                              cpu["losses"]))
+    param_err = max(float(np.abs(v - cpu["params"][n]).max())
+                    for n, v in straight["params"].items())
+    assert np.isfinite(straight["losses"]).all()
+    assert max(loss_err, param_err) < TWIN_ATOL, (loss_err, param_err)
+    # one rank restores the whole arrays
+    whole = build_model(cfg, device="cpu")
+    state = get_optimizer("adamw").init(list(whole.named_parameters()))
+    mgr = CheckpointManager(str(workdir / "resumed"))
+    back = mgr.restore(mgr.latest_step(), state_tree(whole, state))
+    one_rank_equal = all(np.array_equal(back["params"][n].numpy(), v)
+                         for n, v in second["params"].items())
+    assert one_rank_equal and back["opt"]["step"] == t["steps"]
+    # one launch a MoE layer a step on each rank (remat off, one
+    # microbatch)
+    launches = {tag: r["launches"] for tag, r in
+                (("straight", straight), ("second", second))}
+    want = {"straight": t["steps"], "second": t["steps"] - half}
+    assert all(v == [cfg.n_layers * want[k]] * 4
+               for k, v in launches.items()), launches
+    line = {"train_mesh_twin": MOE_ARCH, "config": "reduced, float32, "
+            "lp_capacity, top_k 2, remat none", **t,
+            "cli": "repro_torch.launch.train.main, four processes with "
+                   "torchrun's environment (RANK, LOCAL_RANK, WORLD_SIZE, "
+                   "LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT): "
+                   + " ".join(base),
+            "card_losses": straight["losses"], "cpu_losses": cpu["losses"],
+            "card_vs_cpu_loss_max_abs_err": loss_err,
+            "card_vs_cpu_param_max_abs_err": param_err,
+            "atol": TWIN_ATOL, "resume_bit_equal": resume_equal,
+            "resumed_from": f"straight/{mid}, saved from the writer thread",
+            "replicas_equal_checked_leaves": replicas,
+            "restored_1x4_equal": True, "restored_one_rank_equal": True,
+            "router_launches_by_run_and_rank": launches,
+            "wall_s": wall, "done_after_s": walls,
+            # each world's rank 0, seconds after its processes started:
+            # Python started, imports done, (the checkpoint copied), the
+            # CLI called and returned, the checks done
+            "rank0_timeline_s": {
+                tag: {k: round(v - started[w], 3)
+                      for k, v in r["marks"].items()}
+                for tag, w, r in (("straight", "card_world", straight),
+                                  ("second", "resume_world", second),
+                                  ("cpu", "cpu_world", cpu))},
+            "step_s": {"straight": straight["step_s"],
+                       "second": second["step_s"], "cpu": cpu["step_s"]}}
+    emit(line)
+    assert straight["device"].startswith("cuda") and cpu["device"] == "cpu"
+    return line
+
+
+def compressed_whisper():
+    """(c) whisper-small whole (bf16 from SERVE_SEED) through two steps of
+    ``distributed.compression.make_compressed_train_step`` with AdamW on
+    the card: every leaf's dequantization error within scale / 2
+    (DEQUANT_SLACK), the error-feedback residual equal to ``corrected -
+    c`` bit for bit, the losses finite."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.distributed import compression
+    from repro_torch.launch.train import step_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import get_optimizer
+    cfg = get_config(ENCDEC_ARCH)
+    c = COMPRESSED
+    model = build_model(cfg, seed=SERVE_SEED)
+    params = list(model.parameters())
+    opt = get_optimizer("adamw", lr=c["lr"])
+    state, ef = opt.init(params), compression.ef_init(params)
+    real, seen = compression.ef_compress_tree, {}
+
+    def keep(grads, ef_state):
+        out, new = real(grads, ef_state)
+        seen["call"] = (grads, list(ef_state), out, new)
+        return out, new
+
+    step = compression.make_compressed_train_step(model, opt)
+    data = DataPipeline(vocab=cfg.vocab, batch=c["batch"], seq=c["seq"],
+                        seed=SERVE_SEED)
+    losses, worst, ef_equal = [], 0.0, True
+    compression.ef_compress_tree = keep
+    try:
+        for s in range(c["steps"]):
+            b = step_batch(cfg, data, s, seed=SERVE_SEED,
+                           n_frames=c["n_frames"], device=model.device)
+            t0 = time.perf_counter()
+            m = step(state, ef, b)
+            losses.append(float(m["loss"]))
+            step_s = time.perf_counter() - t0
+            grads, e_in, out, new = seen.pop("call")
+            with torch.no_grad():
+                for g, e, q, e2 in zip(grads, e_in, out, new):
+                    corrected = g.float() + e
+                    scale = torch.clamp(corrected.abs().max() / 127.0,
+                                        min=1e-12)
+                    err = (q - corrected).abs().max()
+                    worst = max(worst, float(err / (scale / 2)))
+                    ef_equal &= bool(torch.equal(e2, corrected - q))
+            del grads, e_in, out, new
+    finally:
+        compression.ef_compress_tree = real
+    assert np.isfinite(losses).all() and ef_equal, (losses, ef_equal)
+    assert worst <= DEQUANT_SLACK, worst
+    line = {"train_compressed": ENCDEC_ARCH, "batch": c["batch"],
+            "seq": c["seq"], "n_frames": c["n_frames"],
+            "steps": c["steps"], "lr": c["lr"], "leaves": len(params),
+            "params": sum(p.numel() for p in params), "losses": losses,
+            "last_step_s": step_s,
+            "max_dequant_err_over_half_scale": worst,
+            "slack": DEQUANT_SLACK, "ef_residual_bit_equal": ef_equal}
+    emit(line)
+    del model, params, state, ef
+    torch.cuda.empty_cache()
+    return line
+
+
+def training_sharded(workdir):
+    """The phase: (a) sharded_deepseek, (b) mesh_twin, (c)
+    compressed_whisper.  The router's kernel is built here, once, before
+    any rank loads it.  Returns their lines."""
+    import torch
+    from repro_torch.kernels import _build
+    _build.build(("simplex_tile",))
+    # the four ranks of (a) take about 64 GB: this process keeps nothing
+    # cached beside them
+    torch.cuda.empty_cache()
+    emit({"training_sharded_parent_reserved_bytes":
+          torch.cuda.memory_reserved()})
+    with phase("training_sharded.deepseek"):
+        a = sharded_deepseek(workdir)
+    with phase("training_sharded.mesh_twin"):
+        b = mesh_twin(workdir)
+    with phase("training_sharded.compressed"):
+        c = compressed_whisper()
+    return {"deepseek": a, "mesh_twin": b, "compressed": c}
+
+
 def pdhg_only(parent_src) -> int:
     """Build, trace the PDHG kernel on the lp_100d_50k slice and time it
     against the pdhg_tile.cu at ``parent_src`` in turns."""
@@ -6212,7 +6830,7 @@ def smoke() -> int:
         assert not checks, sorted(checks)
         emit({"plain_versions_on_workers": PLAIN,
               "workers": PLAIN_WORKERS})
-        pdhg_sparse("sc205_like_2k", sc205, max_iters=20_000)
+        pdhg_sparse("sc205_like_2k", sc205, max_iters=SPARSE_CAP)
         pdhg_full = pdhg_full_batch(lp100)
 
     # ---- the telemetry plane: counters through the segment kernels -------
@@ -6293,6 +6911,18 @@ def smoke() -> int:
     with phase("optimal_mixture"):
         mix = optimal_mixture_phase()
         path_launches("simplex_tile", "optimal_mixture", mix["launches"])
+
+    # ---- training on a mesh: expert parallelism, compression, resume ------
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        with phase("training_sharded"):
+            shard = training_sharded(Path(tmp))
+    path_launches("simplex_tile", f"train {MLA_ARCH} sharded 1x4 "
+                  "(lp_capacity, forward and recompute, 4 ranks)",
+                  shard["deepseek"]["router_launches"])
+    path_launches("simplex_tile", f"train {MOE_ARCH} reduced --mesh 2x2 "
+                  "(lp_capacity, straight and resumed runs)",
+                  sum(sum(v) for v in shard["mesh_twin"]
+                      ["router_launches_by_run_and_rank"].values()))
     emit({"total_s": time.perf_counter() - t_start})
 
     main_row = rows[0]   # lp_100d_50k slice, dantzig: the paper's rule
@@ -6317,13 +6947,18 @@ def smoke() -> int:
         "train_moe_router_caps_vs_plain_max_abs_err":
             fam["scout_router"]["caps_vs_plain_max_abs_err"],
         "optimal_mixture_vs_cpu_max_abs_err": mix["max_abs_err"],
+        "sharded_router_caps_vs_plain_max_abs_err": max(
+            r["caps_vs_plain_max_abs_err"]
+            for r in shard["deepseek"]["ranks"]),
         "parity": "status, iterations and work counts equal; x, objective, "
                   "y, z within rel 1e-5; every rule and batch; the MoE "
                   "router's caps in the served llama4-scout and "
                   "deepseek-v2 and in llama4-scout's training equal to "
                   "the plain version's, its recompute's routing equal to "
-                  "its forward's; optimal_mixture's statuses and weights "
-                  "equal to the CPU port's"}, {
+                  "its forward's; in deepseek-v2's sharded training each "
+                  "rank's caps equal to the plain version's and its "
+                  "routing to one process's; optimal_mixture's statuses "
+                  "and weights equal to the CPU port's"}, {
         "name": "simplex_segment", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/simplex_tile.cu",
         "replaces": "src/repro/kernels/simplex_tile.py:494",

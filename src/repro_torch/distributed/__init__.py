@@ -1,5 +1,5 @@
-"""The train, prefill and decode steps of the port (the one-device part
-of the reference's ``distributed/``; sharding over ``torch.distributed``
-is ROADMAP work)."""
+"""The port's distributed layer: the train, prefill and decode steps
+(one device or a mesh), the mesh and the sharding rules
+(``sharding.py``), and int8 gradient compression (``compression.py``)."""
 from .steps import (global_norm, make_decode_step,  # noqa: F401
                     make_prefill_step, make_train_step)

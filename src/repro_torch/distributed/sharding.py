@@ -1,0 +1,582 @@
+"""Logical-axis sharding rules and the mesh over a ``torch.distributed``
+world (the reference's ``distributed/sharding.py``).
+
+Parameters carry *logical* axis tuples (``param_spec``); the ``Sharder``
+resolves them against a mesh with the reference's rules, word for word:
+
+    batch     -> ('pod','data')  (pod axis is pure DP when present)
+    vocab/ff/heads/experts/d_inner -> 'model'   (tensor/expert parallel)
+    residual  -> 'data' iff FSDP (2-D sharded params for the giant archs)
+    seq_sp    -> 'model' iff sequence-parallel residual stream
+    kv_heads  -> 'model' only when the arch's KV-head projection divides tp
+    heads     -> 'model' only when H divides tp (else replicated attention)
+    kv_seq    -> 'model' when the decode cache is sequence-sharded
+
+``spec``, ``pspec``, ``opt_state_spec`` and ``act_spec`` report the
+reference's placement, as tuples of mesh axes (a PartitionSpec is a
+tuple).  What the port *executes* is a part of it:
+
+* ``batch``: data parallel, each rank its rows of the global batch, the
+  gradients summed over the data group (``distributed/steps.py``);
+* ``experts``: expert parallel, each rank its ``E / tp`` slabs of the
+  MoE weights, tokens exchanged over the model group by two all-to-alls
+  (``models/moe.py``);
+* ``seq_sp``: the MoE layer routes this rank's slice of the sequence and
+  gathers its output back.
+
+Every other leaf and activation stays replicated on every rank, so the
+arithmetic is the reference's GSPMD layout's up to reduction order
+(``param_shardings`` gives each leaf the slice this rank holds; only
+expert slabs are cut).
+
+A ``Mesh`` is the reference's ``jax.sharding.Mesh`` description
+(``.shape`` an ordered {axis: size}, ``.axis_names``) over the ranks of
+a world in row-major order, as ``np.asarray(devices).reshape(shape)``
+lays them out.  ``make_mesh`` builds one process group for each line of
+each axis, and for the data-parallel axes together; a ``Mesh`` made
+directly has no groups and serves the rules alone.  Collectives travel
+as host tensors over gloo (ranks that share one card) or as device
+tensors over NCCL (a card a rank); any other backend raises, and a mesh
+whose size is not the world's raises.
+
+Replicas agree bit for bit: the ranks of a model line compute each
+replicated leaf's gradient on their own, from the same inputs, so a mesh
+of several ranks on cards turns on PyTorch's deterministic algorithms
+(no atomics-ordered sums, as the embedding's backward would otherwise
+take) and cuBLAS's fixed workspace; ``distributed/steps.py``
+``check_replicas`` holds the replicas to it.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+if TYPE_CHECKING:   # models/moe.py imports this module
+    from ..models.config import ModelConfig
+
+# the logical axes the port executes sharded (module docstring); the
+# batch rule is the data-parallel step's, outside the parameters
+EXECUTED = ("experts",)
+
+
+class Axis:
+    """One line of a mesh: the ranks that differ only along ``names``,
+    with this rank's index on it and the collectives over it.  A line of
+    one rank makes no collective.  ``seconds`` adds up the host's wall
+    time in the collectives, copies to and from the host included."""
+
+    def __init__(self, names: Tuple[str, ...], size: int, index: int,
+                 group=None, via: Optional[torch.device] = None):
+        self.names, self.size, self.index = names, size, index
+        self.group, self.via = group, via
+        self.seconds, self.calls = 0.0, 0
+
+    def _run(self, t: torch.Tensor, fn) -> torch.Tensor:
+        t0 = time.perf_counter()
+        src = t.to(self.via).contiguous()
+        out = fn(src).to(t.device)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Block j of axis 0 goes to rank j of the line; block j of the
+        result came from rank j (``jax.lax.all_to_all`` with
+        split_axis = concat_axis = 0, untiled)."""
+        if self.size == 1:
+            return t
+
+        def fn(src):
+            out = torch.empty_like(src)
+            dist.all_to_all_single(out, src, group=self.group)
+            return out
+        return self._run(t, fn)
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` (equal shapes) concatenated along ``dim`` in
+        line order."""
+        if self.size == 1:
+            return t
+
+        def fn(src):
+            parts = [torch.empty_like(src) for _ in range(self.size)]
+            dist.all_gather(parts, src, group=self.group)
+            return torch.cat(parts, dim=dim)
+        return self._run(t, fn)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``t`` over the line, on every rank."""
+        if self.size == 1:
+            return t
+
+        def fn(src):
+            src = src.clone() if src.data_ptr() == t.data_ptr() else src
+            dist.all_reduce(src, group=self.group)
+            return src
+        return self._run(t, fn)
+
+
+class Mesh:
+    """A mesh of ``prod(shape)`` ranks with named axes (module
+    docstring).  ``rank`` places this process; ``axes`` are the
+    collective lines ``make_mesh`` built (none for a description)."""
+
+    def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+                 rank: int = 0, axes: Optional[Dict] = None,
+                 device: Optional[torch.device] = None):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {shape} and axes {axis_names} "
+                             "differ in length")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+        self.size = int(np.prod(shape)) if len(shape) else 1
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in
+                                np.unravel_index(rank, tuple(shape)))))
+        self._axes = axes
+        self.device = device
+
+    def axis(self, names) -> Axis:
+        """The line through this rank along ``names`` (an axis name or a
+        tuple of them); a line of one rank when their sizes multiply to
+        one.  Raises on a description made without a world."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        size = int(np.prod([self.shape[a] for a in names]))
+        if size == 1:
+            return Axis(names, 1, 0)
+        if self._axes is None or names not in self._axes:
+            raise ValueError(f"mesh axes {names}: this mesh has no process "
+                             "groups (make it with make_mesh over an "
+                             "initialised world)")
+        return self._axes[names]
+
+    def exchanges(self) -> dict:
+        """The collectives every line of this rank made: their count
+        and the host seconds they took."""
+        lines = (self._axes or {}).values()
+        return {"calls": sum(a.calls for a in lines),
+                "seconds": sum(a.seconds for a in lines)}
+
+
+def _line_ranks(shape, names, axis_names, fixed):
+    """The world ranks of the line along ``names`` through the
+    coordinates ``fixed`` of the other axes, in line order."""
+    idx = [range(shape[i]) if a in names else [fixed[a]]
+           for i, a in enumerate(axis_names)]
+    grid = np.stack(np.meshgrid(*idx, indexing="ij"), -1).reshape(
+        -1, len(shape))
+    return [int(np.ravel_multi_index(tuple(c), tuple(shape))) for c in grid]
+
+
+def _via(backend: str, device: torch.device) -> torch.device:
+    if backend == "gloo":
+        return torch.device("cpu")
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError(f"the nccl backend needs each rank on a card, "
+                             f"not on {device}")
+        return device
+    raise ValueError(f"collectives over {backend!r}: the mesh exchanges over "
+                     "gloo (host tensors) or nccl (device tensors)")
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+              device=None) -> Mesh:
+    """The mesh ``shape`` with axis names ``axes`` over the initialised
+    ``torch.distributed`` world (every rank calls it, in the same order),
+    its process groups built; ``device`` is this rank's (default
+    ``cuda:(rank % device_count)``, raising without a card).  A mesh of
+    one rank needs no world.  Raises unless the mesh's size is the
+    world's.  A mesh of several ranks on cards turns on deterministic
+    algorithms for the whole process (module docstring): call it before
+    the process's first matrix product on the card."""
+    from ..core.distributed import rank_device
+    shape = tuple(int(s) for s in shape)
+    size = int(np.prod(shape)) if shape else 1
+    if not (dist.is_available() and dist.is_initialized()):
+        if size != 1:
+            raise ValueError(f"a mesh of {size} ranks needs an initialised "
+                             "torch.distributed world of as many")
+        return Mesh(shape, axes, 0, {}, rank_device(device, 0))
+    world = dist.get_world_size()
+    if size != world:
+        raise ValueError(f"mesh {shape} has {size} ranks, the world {world}")
+    rank = dist.get_rank()
+    dev = rank_device(device, rank)
+    via = _via(dist.get_backend(), dev)
+    if dev.type == "cuda":
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    lines = [(a,) for a in axes]
+    dp = tuple(a for a in ("pod", "data") if a in axes)
+    if len(dp) > 1:
+        lines.append(dp)
+    built = {}
+    for names in lines:
+        others = [a for a in axes if a not in names]
+        n = int(np.prod([shape[axes.index(a)] for a in names]))
+        # every rank creates every group of the line family, in one order
+        for fixed in np.ndindex(*[shape[axes.index(a)] for a in others]):
+            ranks = _line_ranks(shape, names, axes, dict(zip(others, fixed)))
+            group = dist.new_group(ranks) if n > 1 else None
+            if rank in ranks:
+                built[names] = Axis(names, n, ranks.index(rank), group, via)
+    return Mesh(shape, axes, rank, built, dev)
+
+
+# ---------------------------------------------------------------------------
+# logical specs of the port's parameters (the reference's init specs)
+# ---------------------------------------------------------------------------
+
+_LEAF_SPECS = {
+    ("embed", "table"): ("vocab", "residual"),
+    ("head", "w"): ("residual", "vocab"),
+    ("attn", "wq"): ("residual", "heads"),
+    ("attn", "wk"): ("residual", "kv_heads"),
+    ("attn", "wv"): ("residual", "kv_heads"),
+    ("attn", "wo"): ("heads", "residual"),
+    ("attn", "q_scale"): (None,),
+    ("attn", "k_scale"): (None,),
+    ("attn", "wq_a"): ("residual", None),
+    ("attn", "wkv_a"): ("residual", None),
+    ("attn", "wq_b"): (None, "heads"),
+    ("attn", "wkv_b"): (None, "heads"),
+    ("xattn", "wq"): ("residual", "heads"),
+    ("xattn", "wk"): ("residual", "heads"),
+    ("xattn", "wv"): ("residual", "heads"),
+    ("xattn", "wo"): ("heads", "residual"),
+    ("mlp", "w_gate"): ("residual", "ff"),
+    ("mlp", "w_up"): ("residual", "ff"),
+    ("mlp", "w_in"): ("residual", "ff"),
+    ("mlp", "w_down"): ("ff", "residual"),
+    ("ssm", "w_in"): ("residual", "d_inner"),
+    ("ssm", "conv_w"): (None, "d_inner"),
+    ("ssm", "conv_b"): ("d_inner",),
+    ("ssm", "w_x"): ("d_inner", None),
+    ("ssm", "w_dt"): (None, "d_inner"),
+    ("ssm", "dt_bias"): ("d_inner",),
+    ("ssm", "A_log"): ("d_inner", None),
+    ("ssm", "D"): ("d_inner",),
+    ("ssm", "w_out"): ("d_inner", "residual"),
+}
+
+_MOE_SPECS = {
+    "router": ("residual", None),
+    "w_gate": ("experts", "residual", None),
+    "w_up": ("experts", "residual", None),
+    "w_down": ("experts", None, "residual"),
+    "ws_gate": ("residual", "ff_expert"),
+    "ws_up": ("residual", "ff_expert"),
+    "ws_down": ("ff_expert", "residual"),
+}
+
+
+def param_spec(name: str, cfg: ModelConfig) -> Tuple:
+    """The logical axes of the port's parameter ``name`` (a dotted name
+    of ``named_parameters()``, or any path that ends in one) under
+    ``cfg``: the reference's init spec for the same leaf, without the
+    stacked ``layers`` axis, since the port keeps one tensor a layer.
+    Norm scales and biases are ``(None,)``."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    group = parts[-2] if len(parts) > 1 else ""
+    if group == "mlp" and cfg.mlp_kind == "moe":
+        return _MOE_SPECS[leaf]
+    if (group, leaf) in _LEAF_SPECS:
+        return _LEAF_SPECS[(group, leaf)]
+    if leaf in ("scale", "bias"):
+        return (None,)
+    if leaf == "pos_table":     # a top-level parameter of EncDecLM
+        return (None, "residual")
+    raise KeyError(f"no logical spec for parameter {name!r}")
+
+
+def param_specs(model) -> Dict[str, Tuple]:
+    """{name: logical axes} of every parameter of ``model``."""
+    return {n: param_spec(n, model.cfg) for n, _ in model.named_parameters()}
+
+
+# ---------------------------------------------------------------------------
+# the Sharder
+# ---------------------------------------------------------------------------
+
+def _entry(r):
+    """A spec entry as a PartitionSpec holds it: one axis in a tuple is
+    the axis's name."""
+    return r[0] if isinstance(r, tuple) and len(r) == 1 else r
+
+
+class Sharder:
+    """Resolves logical axis names for one (cfg, mesh) pair."""
+
+    def __init__(self, cfg: ModelConfig, mesh: Optional[Mesh]):
+        self.cfg = cfg
+        self.mesh = mesh
+        if mesh is None:
+            self.tp = 1
+            self.tp_axis = None
+            self.dp_axes = ()
+            self.rules = {}
+            return
+        names = mesh.axis_names
+        self.tp = mesh.shape["model"] if "model" in names else 1
+        self.tp_axis = "model" if "model" in names else None
+        self.dp_axes = tuple(a for a in ("pod", "data") if a in names)
+
+        n_heads = cfg.n_heads_padded or cfg.n_heads
+        n_kv = cfg.n_kv_heads_padded or cfg.n_kv_heads
+        heads_ok = n_heads > 0 and n_heads % self.tp == 0
+        kv_ok = n_kv > 0 and n_kv % self.tp == 0
+        ff_ok = cfg.d_ff > 0 and cfg.d_ff % self.tp == 0
+        ffe_ok = cfg.d_ff_expert > 0 and cfg.d_ff_expert % self.tp == 0
+        exp_ok = cfg.n_experts > 0 and cfg.n_experts % self.tp == 0
+        din_ok = cfg.d_inner > 0 and cfg.d_inner % self.tp == 0
+        fsdp = cfg.fsdp and "data" in names and \
+            cfg.d_model % mesh.shape["data"] == 0
+
+        self.rules = {
+            "layers": None,
+            "batch": self.dp_axes or None,
+            "vocab": "model",
+            "residual": "data" if fsdp else None,
+            "ff": "model" if ff_ok else None,
+            "ff_expert": "model" if ffe_ok else None,
+            "heads": "model" if heads_ok else None,
+            "kv_heads": "model" if kv_ok else None,
+            "experts": "model" if exp_ok else None,
+            "d_inner": "model" if din_ok else None,
+            "seq_sp": "model" if cfg.seq_shard else None,
+            "kv_seq": None if kv_ok else "model",
+            "expert_local": None,  # inside-shard_map expert dim
+        }
+        # vocab divisibility (padded vocab is a multiple of 128; 128 % tp
+        # == 0 for tp in {1,2,4,8,16,...,128})
+        if cfg.vocab_padded % self.tp != 0:
+            self.rules["vocab"] = None
+
+    # -- params -----------------------------------------------------------
+    def spec(self, logical: Tuple) -> Tuple:
+        if self.mesh is None:
+            return ()
+        return tuple(_entry(self.rules.get(ax)) if ax is not None else None
+                     for ax in logical)
+
+    def opt_state_spec(self, logical: Tuple) -> Tuple:
+        """ZeRO-1: optimizer moments additionally shard 'residual' over
+        'data' even when the params themselves don't (fsdp off)."""
+        if self.mesh is None:
+            return ()
+        axes = []
+        used = set(a for a in (self.rules.get(ax) for ax in logical) if a)
+        for ax in logical:
+            r = self.rules.get(ax) if ax is not None else None
+            if r is None and ax == "residual" and "data" not in used \
+                    and "data" in self.mesh.axis_names:
+                axes.append("data")
+                used.add("data")
+            else:
+                axes.append(_entry(r))
+        return tuple(axes)
+
+    def _axis_size(self, axes) -> int:
+        if axes is None:
+            return 1
+        if isinstance(axes, str):
+            axes = (axes,)
+        return int(np.prod([self.mesh.shape[a] for a in axes]))
+
+    def pspec(self, *logical) -> Tuple:
+        return self.spec(logical)
+
+    # -- activations --------------------------------------------------------
+    def act_spec(self, shape, *logical) -> Tuple:
+        """The reference's ``act`` placement for an activation of
+        ``shape``, guarded: a dim is only sharded when its size divides
+        the axis size (e.g. seq=1 at decode never shards)."""
+        if self.mesh is None:
+            return ()
+        entries = []
+        for dim, ax in enumerate(logical):
+            r = self.rules.get(ax) if ax is not None else None
+            if r is not None and shape[dim] % self._axis_size(r) != 0:
+                r = None
+            entries.append(_entry(r))
+        return tuple(entries)
+
+    # -- what the port executes -------------------------------------------
+    def experts_sharded(self) -> bool:
+        """Whether the MoE experts are sharded: ``experts`` resolves to
+        'model' and tp > 1."""
+        return self.mesh is not None and self.tp > 1 and \
+            self.rules.get("experts") is not None
+
+    def expert_axis(self) -> Optional[Axis]:
+        """The model line the MoE layer exchanges tokens over when its
+        experts are sharded, else None."""
+        return self.mesh.axis("model") if self.experts_sharded() else None
+
+    def data_axis(self) -> Axis:
+        """The data-parallel line (the ``batch`` rule's axes)."""
+        if self.mesh is None or not self.dp_axes:
+            return Axis((), 1, 0)
+        return self.mesh.axis(self.dp_axes)
+
+    def model_axis(self) -> Axis:
+        if self.mesh is None or self.tp_axis is None:
+            return Axis((), 1, 0)
+        return self.mesh.axis(self.tp_axis)
+
+    def local_slices(self, logical: Tuple, shape) -> Tuple[slice, ...]:
+        """This rank's slice of a whole array of ``shape`` with logical
+        axes ``logical``: the executed rules' dims cut into equal blocks
+        by the rank's coordinate, every other dim whole."""
+        out = []
+        for dim, ax in enumerate(logical):
+            r = self.rules.get(ax) if ax in EXECUTED else None
+            if r is None or self.mesh is None:
+                out.append(slice(None))
+                continue
+            n = self._axis_size(r)
+            names = (r,) if isinstance(r, str) else tuple(r)
+            idx = int(np.ravel_multi_index(
+                tuple(self.mesh.coords[a] for a in names),
+                tuple(self.mesh.shape[a] for a in names)))
+            if shape[dim] % n:
+                raise ValueError(f"dim {dim} of size {shape[dim]} does not "
+                                 f"split over {n} ranks")
+            step = shape[dim] // n
+            out.append(slice(idx * step, (idx + 1) * step))
+        return tuple(out)
+
+    def is_sharded(self, logical: Tuple) -> bool:
+        return any(self.rules.get(ax) is not None and self.mesh is not None
+                   for ax in logical if ax in EXECUTED)
+
+    def param_shardings(self, spec_tree: Dict[str, Tuple],
+                        shapes: Dict[str, Tuple]) -> Dict[str, Tuple]:
+        """{name: this rank's slices} for a {name: logical axes} tree of
+        whole arrays of ``shapes``."""
+        return {k: self.local_slices(s, shapes[k])
+                for k, s in spec_tree.items()}
+
+    def model_summed(self, name: str) -> bool:
+        """Whether the gradient of parameter ``name`` is a partial sum
+        over the model line: the MoE router under expert parallelism,
+        which sees only this rank's tokens (or, without ``seq_sp``, its
+        1/tp share of the cotangent)."""
+        return self.experts_sharded() and \
+            name.split(".")[-2:] == ["mlp", "router"]
+
+
+def shard_params(tree: Dict[str, torch.Tensor], sharder: Sharder,
+                 specs: Optional[Dict[str, Tuple]] = None) -> Dict:
+    """{name: this rank's slice} of a {name: whole array} tree; ``specs``
+    defaults to ``param_spec`` of each name."""
+    specs = specs or {k: param_spec(k, sharder.cfg) for k in tree}
+    slices = sharder.param_shardings(specs, {k: v.shape
+                                             for k, v in tree.items()})
+    return {k: v[slices[k]] for k, v in tree.items()}
+
+
+def gather_params(tree: Dict[str, torch.Tensor], sharder: Sharder,
+                  specs: Optional[Dict[str, Tuple]] = None) -> Dict:
+    """The whole arrays of a {name: this rank's slice} tree, gathered
+    over the executed axes (a collective: every rank calls it, with the
+    same names in the same order)."""
+    specs = specs or {k: param_spec(k, sharder.cfg) for k in tree}
+    out = {}
+    for k, v in tree.items():
+        for dim, ax in enumerate(specs[k]):
+            if ax in EXECUTED and sharder.rules.get(ax) is not None:
+                v = sharder.mesh.axis(sharder.rules[ax]).all_gather(
+                    v.detach(), dim)
+        out[k] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the exchanges as autograd functions
+# ---------------------------------------------------------------------------
+
+class AllToAll(torch.autograd.Function):
+    """``Axis.all_to_all``; its backward is the inverse exchange, the
+    same all-to-all of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_to_all(g), None
+
+
+class GatherSeq(torch.autograd.Function):
+    """Every rank's sequence slice (B, S / n, ...) gathered to (B, S,
+    ...); the backward takes this rank's slice of the cotangent (every
+    rank holds the whole one), without a sum."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.n = axis, x.shape[1]
+        return axis.all_gather(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, n = ctx.axis.index, ctx.n
+        return g[:, i * n:(i + 1) * n].contiguous(), None
+
+
+class ScatterSeq(torch.autograd.Function):
+    """This rank's slice of the sequence of a replicated (B, S, ...);
+    the backward gathers the slices' cotangents, so every rank holds the
+    whole one."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        n = x.shape[1] // axis.size
+        return x[:, axis.index * n:(axis.index + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_gather(g.contiguous(), 1), None
+
+
+class EnterReplicated(torch.autograd.Function):
+    """Identity into a region every rank of the line runs on the same
+    tokens; the backward sums the ranks' partial cotangents (the
+    reference's psum of an input not sharded over the axis)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g), None
+
+
+class LeaveReplicated(torch.autograd.Function):
+    """Identity out of that region: every rank holds the same output, so
+    each takes 1/size of its cotangent (the reference's shard_map divides
+    the cotangent of an output replicated over an axis by its size)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.axis.size, None

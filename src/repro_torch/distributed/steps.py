@@ -1,17 +1,42 @@
-"""The train, prefill and decode steps (the one-device part of the
-reference's ``distributed/steps.py``).
+"""The train, prefill and decode steps (the reference's
+``distributed/steps.py``), on one device or over a mesh.
 
 The batch is split along its leading axis into ``microbatches``; each
 takes one ``torch.autograd.grad`` of the model's loss, added into float32
 accumulators, which are then divided by the microbatch count.  The global
 norm clips the gradients (at CLIP_NORM, the reference's default) before
 the optimizer's update.
-Sharding over ``torch.distributed`` waits for the port of the reference's
-``distributed/`` (ROADMAP: the rest of the LM scaffold).
+
+With a sharder (``distributed/sharding.py``) the step is the reference's
+under GSPMD on its mesh, as the port executes it:
+
+* every rank is handed the global batch and takes its rows: microbatch i
+  is rows [i B / M, (i + 1) B / M), split over the data line as the
+  reference's ``batch`` rule splits it (each rank of a model line takes
+  the same rows);
+* the loss is the mean over the global microbatch, every unmasked token
+  counted once: each rank's sum is divided by the count summed over the
+  data line, and the ranks' quotients are summed, never averaged;
+* the gradients are summed over the data line, and those of leaves that
+  only this rank's tokens reach (the MoE router under expert
+  parallelism, ``Sharder.model_summed``) over the model line too;
+  replicated leaves computed on replicated activations are not summed
+  there;
+* the clip's global norm counts each replicated leaf once and sums each
+  expert slab's squares over the model line;
+* the optimizer updates each rank's leaves, expert slabs included, in
+  place.
+
+Nothing sums the replicated leaves' gradients over the model line: its
+ranks compute them from the same activations, and ``check_replicas``
+holds them equal bit for bit (the mesh runs deterministic algorithms on
+the card, ``sharding.make_mesh``).
 """
 from __future__ import annotations
 
 import torch
+
+from .sharding import Sharder, param_spec
 
 CLIP_NORM = 1.0
 
@@ -22,36 +47,93 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
-def make_train_step(model, optimizer, microbatches: int = 1):
+def local_rows(batch: int, microbatches: int, data_size: int = 1,
+               data_index: int = 0) -> list:
+    """The row slice of the global batch each microbatch hands this rank
+    (module docstring); raises unless the batch splits evenly."""
+    if batch % (microbatches * data_size):
+        raise ValueError(f"batch {batch} does not split into {microbatches} "
+                         f"microbatches over {data_size} data ranks")
+    size = batch // microbatches
+    per = size // data_size
+    return [slice(i * size + data_index * per,
+                  i * size + (data_index + 1) * per)
+            for i in range(microbatches)]
+
+
+class _Plan:
+    """The mesh lines and each parameter's place in the reductions."""
+
+    def __init__(self, model, shd: Sharder | None):
+        shd = shd or Sharder(model.cfg, None)
+        self.data, self.model_line = shd.data_axis(), shd.model_axis()
+        names = [n for n, _ in model.named_parameters()]
+        self.sharded = [shd.is_sharded(param_spec(n, model.cfg))
+                        for n in names]
+        self.summed = [shd.model_summed(n) for n in names]
+
+    def rows(self, batch: dict, microbatches: int) -> list:
+        return local_rows(batch["tokens"].shape[0], microbatches,
+                          self.data.size, self.data.index)
+
+    def local(self, model, mb: dict, params):
+        """This rank's share of the global microbatch's mean loss and its
+        gradients (module docstring), before the reductions."""
+        tot, cnt = model.loss_sum(mb)
+        loss = tot / self.data.all_reduce(cnt.detach()).clamp(min=1.0)
+        return loss, torch.autograd.grad(loss, params)
+
+    def reduce(self, grads: list) -> list:
+        out = []
+        for g, summed in zip(grads, self.summed):
+            if summed:
+                g = self.model_line.all_reduce(g)
+            out.append(self.data.all_reduce(g))
+        return out
+
+
+def loss_and_grads(model, batch: dict, shd: Sharder | None = None):
+    """The mean loss of the global ``batch`` and the gradients of this
+    rank's parameters (in ``model.parameters()`` order, reduced over the
+    mesh as the train step reduces them), without an optimizer step:
+    (loss, grads), the loss a float32 scalar, the same on every rank."""
+    plan = _Plan(model, shd)
+    params = list(model.parameters())
+    loss, grads = plan.local(model, {k: v[plan.rows(batch, 1)[0]]
+                                     for k, v in batch.items()}, params)
+    return plan.data.all_reduce(loss.detach()), plan.reduce(list(grads))
+
+
+def make_train_step(model, optimizer, microbatches: int = 1,
+                    shd: Sharder | None = None):
     """``train_step(opt_state, batch) -> metrics`` for the port's ``LM``
     ``model`` and an ``optim`` optimizer.  ``batch`` is {"tokens",
-    "labels"}, (B, S) integer tensors on the model's device, B a multiple
-    of ``microbatches``.  The step updates the model's parameters and
-    ``opt_state`` in place and returns {"loss", "grad_norm"} as float32
-    scalars on the device."""
+    "labels"} (and a family's frames or patches), (B, S) tensors on the
+    model's device, B a multiple of ``microbatches`` (times the data
+    ranks with ``shd``: the global batch, of which each rank takes its
+    rows).  The step updates the model's parameters and ``opt_state`` in
+    place and returns {"loss", "grad_norm"} as float32 scalars on the
+    device, the same on every rank."""
+    plan = _Plan(model, shd)
 
     def train_step(opt_state, batch):
         params = list(model.parameters())
-        B = batch["tokens"].shape[0]
-        if B % microbatches:
-            raise ValueError(f"batch {B} does not split into "
-                             f"{microbatches} microbatches")
-        size = B // microbatches
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in params]
         losses = []
-        for i in range(microbatches):
-            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            loss = model.loss_fn(mb)
-            grads = torch.autograd.grad(loss, params)
+        for sl in plan.rows(batch, microbatches):
+            loss, grads = plan.local(model, {k: v[sl]
+                                             for k, v in batch.items()},
+                                     params)
             losses.append(loss.detach())
             for a, g in zip(acc, grads):
                 a.add_(g)
             del loss, grads   # before the next microbatch's backward
+        acc = plan.reduce(acc)
         for a in acc:
             a.div_(microbatches)
-        loss = losses[0] if microbatches == 1 else torch.stack(losses).mean()
-        gnorm = global_norm(acc)
+        loss = plan.data.all_reduce(torch.stack(losses)).mean()
+        gnorm = _norm(acc, plan.sharded, plan.model_line)
         scale = torch.clamp(CLIP_NORM / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         for a in acc:
@@ -60,6 +142,44 @@ def make_train_step(model, optimizer, microbatches: int = 1):
         return {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def _norm(grads, sharded, model_line) -> torch.Tensor:
+    """The global norm of the whole model's gradients: each replicated
+    leaf counted once, the sharded slabs' squares summed over the model
+    line."""
+    zero = grads[0].new_zeros((), dtype=torch.float32)
+    rep = sum((g.float().square().sum() for g, s in zip(grads, sharded)
+               if not s), zero)
+    own = sum((g.float().square().sum() for g, s in zip(grads, sharded)
+               if s), zero)
+    return torch.sqrt(rep + model_line.all_reduce(own))
+
+
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def check_replicas(model, shd: Sharder | None) -> int:
+    """Raise ``RuntimeError`` unless every rank of the model line holds
+    each parameter that the line does not shard bit for bit as this rank
+    does (one digest a leaf, the int64 sum of its bits, gathered over the
+    line).  Returns the number of leaves compared: 0 without a model line
+    of several ranks."""
+    line = shd.model_axis() if shd is not None else None
+    if line is None or line.size == 1:
+        return 0
+    plan = _Plan(model, shd)
+    named = [(n, p.detach()) for (n, p), s in
+             zip(model.named_parameters(), plan.sharded) if not s]
+    digest = torch.stack([p.contiguous().view(_BITS[p.element_size()])
+                          .sum(dtype=torch.int64) for _, p in named])
+    every = line.all_gather(digest[None], 0)
+    differ = (every != digest).any(0).tolist()
+    if any(differ):
+        bad = [n for (n, _), d in zip(named, differ) if d]
+        raise RuntimeError(f"{len(bad)} replicated leaves differ across the "
+                           f"model line: {bad[:4]}")
+    return len(named)
 
 
 def make_prefill_step(model):

@@ -250,10 +250,10 @@ STACKS = {"blocks": "layers", "enc_layers": "enc_layers",
           "dec_layers": "dec_layers"}
 
 
-def _port_model(cfg, device):
+def _port_model(cfg, device, shd=None):
     from .models.encdec import EncDecLM
     cls = EncDecLM if cfg.family == "encdec" else LM
-    return cls(cfg, device=torch.device(device))
+    return cls(cfg, device=torch.device(device), shd=shd)
 
 
 def _flat_reference(tree, model) -> dict:
@@ -282,7 +282,7 @@ def _flat_reference(tree, model) -> dict:
     return out
 
 
-def lm_from_reference(cfg, params_np, device="cpu"):
+def lm_from_reference(cfg, params_np, device="cpu", shd=None):
     """The port's model of ``cfg`` on ``device`` (``EncDecLM`` for the
     encdec family, ``LM`` for every other) with the reference model's
     parameters: ``params_np`` is ``jax.tree.map(np.asarray, params)`` of
@@ -291,9 +291,16 @@ def lm_from_reference(cfg, params_np, device="cpu"):
     ``mlp``, the decoder's ``norm_x`` and ``xattn``, MLA's nested norms)
     and the encdec tree's ``pos_table`` included.  Both keep weights as
     (in, out), so each leaf is a copy (through float32, which holds
-    bfloat16 exactly), its shape checked."""
-    model = _port_model(cfg, device)
+    bfloat16 exactly), its shape checked.  With ``shd`` (a
+    ``distributed.sharding.Sharder``) the model is this rank's: each
+    leaf is cut to the slice the rank holds (``Sharder.local_slices``)."""
+    from .distributed.sharding import param_spec
+    model = _port_model(cfg, device, shd)
     src = _flat_reference(params_np, model)
+    if shd is not None:
+        src = {k: np.asarray(v)[shd.local_slices(param_spec(k, cfg),
+                                                 np.shape(v))]
+               for k, v in src.items()}
     dst = dict(model.named_parameters())
     if set(src) != set(dst):
         raise ValueError(f"reference leaves {sorted(set(src) - set(dst))} "

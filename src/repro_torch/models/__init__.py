@@ -15,13 +15,15 @@ from .encdec import EncDecLM  # noqa: F401
 from .transformer import LM  # noqa: F401
 
 
-def build_model(cfg: ModelConfig, device=None, seed: int = 0):
+def build_model(cfg: ModelConfig, device=None, seed: int = 0, shd=None):
     """The model of ``cfg`` (``EncDecLM`` for the encdec family, ``LM``
     for every other) with parameters drawn from a ``torch.Generator``
     seeded with ``seed`` on ``device`` (the card unless ``device="cpu"``;
-    ``None`` without a card raises)."""
+    ``None`` without a card raises).  ``shd`` (a
+    ``distributed.sharding.Sharder``) keeps this rank's expert slabs of
+    the same whole model."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     cls = EncDecLM if cfg.family == "encdec" else LM
-    return cls(cfg, device=dev, generator=gen)
+    return cls(cfg, device=dev, generator=gen, shd=shd)

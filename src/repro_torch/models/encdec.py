@@ -32,7 +32,7 @@ from .config import ModelConfig
 from .layers import (TensorSpec, apply_norm, embed_init, embed_lookup,
                      head_init, logits_apply, mlp_apply, mlp_init,
                      normal_init, norm_init, torch_dtype)
-from .transformer import _params, chunked_ce, map_cache
+from .transformer import _params, chunked_ce_sum, map_cache
 
 POS_TABLE_ROWS = 32768
 
@@ -135,10 +135,14 @@ class EncDecLM(nn.Module):
     ``cache_shape``) plus ``encode``; its inputs add the frames.
     ``generator`` draws the parameters (embedding, position table,
     encoder, decoder, head, in that order); ``None`` leaves them
-    uninitialized for ``interop.lm_from_reference`` to fill."""
+    uninitialized for ``interop.lm_from_reference`` to fill.  ``shd``
+    is kept for the data-parallel step; the family has no expert to
+    shard."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None,
+                 shd=None):
         super().__init__()
+        self.shd = shd
         if cfg.family != "encdec":
             raise ValueError(f"{cfg.name}: EncDecLM runs the encdec family, "
                              f"not {cfg.family}")
@@ -223,12 +227,17 @@ class EncDecLM(nn.Module):
         """batch: {"frames": (B, S_enc, D), "tokens": (B, S) integer,
         "labels": (B, S) integer} on the model's device; labels < 0 are
         masked.  Returns the mean next-token cross entropy (float32)."""
+        tot, cnt = self.loss_sum(batch)
+        return tot / cnt.clamp(min=1.0)
+
+    def loss_sum(self, batch):
+        """``loss_fn``'s (sum, count) of the unmasked tokens' losses."""
         enc_out = self.encode(batch["frames"], mode="train")
         x = self._dec_embed(batch["tokens"])
         x, _ = self._dec_layers(x, enc_out, mode="train",
                                 positions=self._positions(x))
         x = apply_norm(self.dec_norm, x, self.cfg.norm_kind)
-        return chunked_ce(self._head(), x, batch["labels"], self.cfg)
+        return chunked_ce_sum(self._head(), x, batch["labels"], self.cfg)
 
     def prefill(self, tokens, frames=None):
         """tokens: (B, S) integer; frames: (B, S_enc, D).  Returns

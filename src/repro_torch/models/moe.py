@@ -26,10 +26,27 @@ mask does.
 No step of the layer reads a value back to the host (no boolean
 indexing, no ``nonzero``, no ``.item()``), so decode runs it once a
 layer a step without a host synchronization, the router's solve
-included.  The reference's expert-parallel path (experts sharded over
-the model axis under ``shard_map``, two ``all_to_all`` exchanges) waits
-for the port of ``distributed/sharding.py`` (ROADMAP: the rest of the LM
-scaffold); ``moe_apply`` takes no sharder and runs the ``tp = 1`` body.
+included.
+
+Expert parallelism (``moe_apply(..., shd=)``, the reference's
+``shard_map`` path): when the sharder's ``experts`` rule resolves to the
+model axis and tp > 1, each rank holds E / tp expert slabs and routes
+its local tokens: its rows of the batch (the data-parallel step gives it
+only those) and, under ``seq_sp`` where the sequence divides tp, its
+slice of the sequence.  The capacity comes from the local token count,
+and with ``lp_capacity`` each rank solves its own (1, E) LP, as each
+shard of the reference does.  The (tp, El x C, D) send buffer goes out by
+one all-to-all over the model line, the SwiGLU experts run on the El
+local slabs, a second all-to-all brings the results back, and the
+combine is local; under ``seq_sp`` the output is gathered back along the
+sequence.  Without ``seq_sp`` every model rank routes the same tokens,
+each expert receives tp copies, and the cotangent of the (replicated)
+output is split tp ways, as the reference's ``shard_map`` transpose
+does; the input's cotangent is then summed over the line.  Each exchange
+is an autograd function whose backward is the inverse exchange
+(``distributed/sharding.py``).  Over gloo an exchange copies its buffer
+to the host and back: that copy is the only host synchronization the
+sharded layer adds.  The shared experts stay outside, on the whole x.
 """
 from __future__ import annotations
 
@@ -40,25 +57,36 @@ import torch
 import torch.nn.functional as F
 
 from ..core.lp_router import expert_capacity_lp
+from ..distributed.sharding import (AllToAll, EnterReplicated, GatherSeq,
+                                    LeaveReplicated, ScatterSeq)
 from .config import ModelConfig
 from .layers import dense_init, normal_init, torch_dtype
 
 
-def moe_init(gen, cfg: ModelConfig, device) -> dict:
+def moe_init(gen, cfg: ModelConfig, device, experts=slice(None)) -> dict:
     """router (D, E); w_gate, w_up (E, D, Fe) and w_down (E, Fe, D); with
     shared experts ws_gate, ws_up (D, Fs) and ws_down (Fs, D), Fs =
     n_shared_experts x Fe.  The reference's scales: N(0, 1/D) for the
     router, the expert inputs and the shared MLP's, N(0, 1/Fe) for
-    w_down and N(0, 1/Fs) for ws_down."""
+    w_down and N(0, 1/Fs) for ws_down.  ``experts`` keeps a slice of the
+    expert slabs (a rank's under expert parallelism): each slab tensor is
+    drawn whole and cut, so the generator's stream, and every other
+    parameter, is the whole model's."""
     D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     dtype = torch_dtype(cfg.param_dtype)
+
+    def slabs(shape, scale):
+        if gen is None:
+            n = len(range(E)[experts])
+            return torch.empty((n,) + shape[1:], dtype=dtype, device=device)
+        whole = normal_init(gen, shape, scale, dtype, device)
+        return whole if experts == slice(None) else \
+            whole[experts].clone()
+
     p = {"router": dense_init(gen, D, E, dtype, device),
-         "w_gate": normal_init(gen, (E, D, Fe), 1.0 / math.sqrt(D), dtype,
-                               device),
-         "w_up": normal_init(gen, (E, D, Fe), 1.0 / math.sqrt(D), dtype,
-                             device),
-         "w_down": normal_init(gen, (E, Fe, D), 1.0 / math.sqrt(Fe), dtype,
-                               device)}
+         "w_gate": slabs((E, D, Fe), 1.0 / math.sqrt(D)),
+         "w_up": slabs((E, D, Fe), 1.0 / math.sqrt(D)),
+         "w_down": slabs((E, Fe, D), 1.0 / math.sqrt(Fe))}
     if cfg.n_shared_experts:
         Fs = cfg.n_shared_experts * Fe
         p["ws_gate"] = dense_init(gen, D, Fs, dtype, device)
@@ -114,41 +142,67 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     return Routing(top_w, expert, slot, keep, demand, caps)
 
 
-def _moe_local(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+def _moe_local(x: torch.Tensor, p, cfg: ModelConfig,
+               axis=None) -> torch.Tensor:
     """The routed experts on x: (N, D) tokens -> (N, D) in x's dtype (the
-    reference's ``_moe_local`` at tp = 1)."""
+    reference's ``_moe_local``).  ``axis`` is the model line the experts
+    are sharded over (p holds this rank's El = E / tp slabs), None at
+    tp = 1."""
     N, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
+    tp = 1 if axis is None else axis.size
+    El = p["w_gate"].shape[0]
     C = _capacity(N, K, E, cfg.capacity_factor)
     r = route(x, p["router"], cfg, C)
 
     # dispatch: each kept pair to its (expert, slot) row, the dropped ones
     # to the sentinel row; every live row receives one token, so the add
-    # is a copy
+    # is a copy.  Expert e lives on rank e // El, so the buffer's rows are
+    # (rank, local expert, slot)
     sent = E * C
     dest = torch.where(r.keep, r.expert * C + r.slot, sent)
     xk = x[:, None, :].expand(N, K, D).reshape(N * K, D)
     buf = x.new_zeros((sent + 1, D)).index_add_(
         0, dest, xk * r.keep[:, None].to(x.dtype))
-    h_in = buf[:sent].reshape(E, C, D)
+    buf = buf[:sent].reshape(tp, El * C, D)
+    if axis is not None:
+        buf = AllToAll.apply(buf, axis)
+    # rows grouped by source rank, for this rank's experts
+    h_in = buf.reshape(tp, El, C, D).transpose(0, 1).reshape(El, tp * C, D)
 
     # the SwiGLU experts, in the parameters' dtype
     g = torch.bmm(h_in, p["w_gate"])
     u = torch.bmm(h_in, p["w_up"])
     y = torch.bmm(F.silu(g) * u, p["w_down"])
 
-    # combine: the sentinel row reads zero
+    # the return path, then combine: the sentinel row reads zero
+    y = y.reshape(El, tp, C, D).transpose(0, 1).reshape(tp, El * C, D)
+    if axis is not None:
+        y = AllToAll.apply(y, axis)
     y_flat = torch.cat([y.reshape(sent, D), y.new_zeros((1, D))])
     z = y_flat[dest]                                         # (N*K, D)
     w = (r.top_w.reshape(-1) * r.keep).to(x.dtype)
     return (z * w[:, None]).reshape(N, K, D).sum(1)
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, shd=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D): the routed experts over the B x S
-    tokens, plus the shared experts where the config has them."""
+    tokens, plus the shared experts where the config has them.  With a
+    sharder whose experts are sharded (``Sharder.expert_axis``), the
+    expert-parallel path of the module docstring; x is this rank's rows
+    of the batch."""
     B, S, D = x.shape
-    out = _moe_local(x.reshape(B * S, D), p, cfg).reshape(B, S, D)
+    axis = None if shd is None else shd.expert_axis()
+    if axis is None:
+        out = _moe_local(x.reshape(B * S, D), p, cfg).reshape(B, S, D)
+    else:
+        seq_sp = shd.act_spec(x.shape, "batch", "seq_sp", None)[1] \
+            is not None
+        xl = (ScatterSeq if seq_sp else EnterReplicated).apply(x, axis)
+        Bl, Sl, _ = xl.shape
+        out = _moe_local(xl.reshape(Bl * Sl, D), p, cfg, axis) \
+            .reshape(Bl, Sl, D)
+        out = (GatherSeq if seq_sp else LeaveReplicated).apply(out, axis)
     if cfg.n_shared_experts:
         h = F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"])
         out = out + h @ p["ws_down"]

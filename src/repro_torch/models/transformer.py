@@ -64,10 +64,13 @@ def _params(tensors: dict) -> nn.ParameterDict:
         for k, v in tensors.items()})
 
 
-def chunked_ce(head, x, labels, cfg: ModelConfig, chunk: int = 1024):
-    """Sequence-chunked mean cross entropy of ``x`` (B, S, D) through
-    ``head`` against ``labels`` (B, S), labels < 0 masked, so that the
-    (S, vocab) logits never materialize at once."""
+def chunked_ce_sum(head, x, labels, cfg: ModelConfig, chunk: int = 1024):
+    """Sequence-chunked cross entropy of ``x`` (B, S, D) through ``head``
+    against ``labels`` (B, S), labels < 0 masked, so that the (S, vocab)
+    logits never materialize at once: the float32 sum of the unmasked
+    tokens' negative log likelihoods and their count.  The mean is the
+    sum over the count (at least one); a data-parallel step adds both
+    over the ranks before it divides."""
     S = x.shape[1]
     chunk = min(chunk, S)
     tot = x.new_zeros((), dtype=torch.float32)
@@ -78,7 +81,7 @@ def chunked_ce(head, x, labels, cfg: ModelConfig, chunk: int = 1024):
         mask = ls >= 0
         tot = tot + (token_nll(logits, ls.clamp(min=0)) * mask).sum()
         cnt = cnt + mask.sum()
-    return tot / cnt.clamp(min=1.0)
+    return tot, cnt
 
 
 def check_ported(cfg: ModelConfig):
@@ -101,9 +104,10 @@ class Block(nn.Module):
     h, and every other family's GQA.  The MLP is the config's kind, MoE
     included."""
 
-    def __init__(self, cfg: ModelConfig, gen, device):
+    def __init__(self, cfg: ModelConfig, gen, device, shd=None):
         super().__init__()
         self.cfg = cfg
+        self.shd = shd
         dtype = torch_dtype(cfg.param_dtype)
         self.norm1 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                        device))
@@ -117,8 +121,11 @@ class Block(nn.Module):
         if self.has_mlp:
             self.norm2 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                            device))
-            init = moe_init if cfg.mlp_kind == "moe" else mlp_init
-            self.mlp = _params(init(gen, cfg, device))
+            if cfg.mlp_kind == "moe":
+                self.mlp = _params(moe_init(gen, cfg, device,
+                                            expert_slice(shd, cfg)))
+            else:
+                self.mlp = _params(mlp_init(gen, cfg, device))
 
     def forward(self, x, *, mode: str, positions=None, cache=None, pos=None):
         cfg = self.cfg
@@ -145,23 +152,40 @@ class Block(nn.Module):
         x = x + a
         if self.has_mlp:
             h2 = apply_norm(self.norm2, x, cfg.norm_kind)
-            apply = moe_apply if cfg.mlp_kind == "moe" else mlp_apply
-            x = x + apply(self.mlp, h2, cfg)
+            if cfg.mlp_kind == "moe":
+                x = x + moe_apply(self.mlp, h2, cfg, shd=self.shd)
+            else:
+                x = x + mlp_apply(self.mlp, h2, cfg)
         return x, new_cache
+
+
+def expert_slice(shd, cfg: ModelConfig) -> slice:
+    """The expert slabs a rank holds under ``shd`` (all of them unless
+    the experts are sharded)."""
+    if shd is None or not shd.experts_sharded():
+        return slice(None)
+    return shd.local_slices(("experts",), (cfg.n_experts,))[0]
 
 
 class LM(nn.Module):
     """Decoder LM of the ssm, hybrid, dense, MoE or VLM family.
-    ``generator`` draws the parameters (embedding, blocks, head, in that order); ``None`` leaves
-    them uninitialized for ``interop.lm_from_reference`` to fill."""
+    ``generator`` draws the parameters (embedding, blocks, head, in that
+    order); ``None`` leaves them uninitialized for
+    ``interop.lm_from_reference`` to fill.  ``shd`` (a
+    ``distributed.sharding.Sharder``) shards the MoE experts over its
+    model axis: each block keeps this rank's slabs of the whole model's
+    (drawn whole from ``generator`` and cut) and runs the
+    expert-parallel ``moe_apply``; every other parameter is whole."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None,
+                 shd=None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
+        self.shd = shd
         gen = generator
         self.embed = _params(embed_init(gen, cfg, device))
-        self.blocks = nn.ModuleList(Block(cfg, gen, device)
+        self.blocks = nn.ModuleList(Block(cfg, gen, device, shd)
                                     for _ in range(cfg.n_layers))
         self.final_norm = _params(norm_init(cfg.d_model, cfg.norm_kind,
                                             torch_dtype(cfg.param_dtype),
@@ -216,6 +240,11 @@ class LM(nn.Module):
         device.  Labels < 0 are masked; with patches the loss is taken on
         the text positions only.  Returns the mean next-token cross
         entropy (a float32 scalar)."""
+        tot, cnt = self.loss_sum(batch)
+        return tot / cnt.clamp(min=1.0)
+
+    def loss_sum(self, batch):
+        """``loss_fn``'s (sum, count) of the unmasked tokens' losses."""
         patches = batch.get("patches")
         x = self._embed_inputs(batch["tokens"], patches)
         x, _ = self._run_layers(x, mode="train",
@@ -224,7 +253,7 @@ class LM(nn.Module):
         labels = batch["labels"]
         if patches is not None:
             x = x[:, -labels.shape[1]:]
-        return chunked_ce(self._head(), x, labels, self.cfg)
+        return chunked_ce_sum(self._head(), x, labels, self.cfg)
 
     # -- serving --------------------------------------------------------------
     @staticmethod

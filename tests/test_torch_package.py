@@ -91,7 +91,10 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.models.mla, repro_torch.models.encdec, "
             "repro_torch.configs.deepseek_v2_236b, "
             "repro_torch.configs.whisper_small, "
-            "repro_torch.configs.phi_3_vision_4_2b\n"
+            "repro_torch.configs.phi_3_vision_4_2b, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.compression, repro_torch.launch.mesh, "
+            "repro_torch.checkpoint, repro_torch.checkpoint.manager\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

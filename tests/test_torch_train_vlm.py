@@ -50,8 +50,8 @@ def test_microbatches_slice_the_patches_and_leave_the_batch_untouched(
     b = tp.to_torch(tp.batch(cfg, 4, 16, 3))
     kept = {k: v.clone() for k, v in b.items()}
     seen = []
-    real = lm.loss_fn
-    monkeypatch.setattr(lm, "loss_fn",
+    real = lm.loss_sum   # the train step's loss: its (sum, count)
+    monkeypatch.setattr(lm, "loss_sum",
                         lambda mb: seen.append(mb) or real(mb))
     opt = adamw()
     make_train_step(lm, opt, microbatches=2)(
