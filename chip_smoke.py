@@ -226,10 +226,10 @@ custom kernel, the caps of layer 0's first prefill and layer 5's last
 decode step bit-equal to the plain version on the CPU, one decode-shaped
 ``moe_apply`` with host synchronization forbidden, the router's share of
 a decode step's kernels and wall printed.  Its float32 twin (1 layer, a
-32,000-token vocabulary) runs as scout's, routing equal; decode (MLA's
-absorbed form, against the latent cache) against prefill (its
-materialized per-head K/V) within ``TWIN_ATOL`` is the MLA-specific
-check.
+32,000-token vocabulary) runs on the card only (its runs against the CPU
+are cut for the run's time limit): decode (MLA's absorbed form, against
+the latent cache) against prefill (its materialized per-head K/V) within
+``TWIN_ATOL`` is the MLA-specific check.
 
 Encoder-decoder serving: whisper-small whole (12 encoder and 12 decoder
 layers, d_model 768, 12 heads padded to 16, LayerNorm, GELU, a tied
@@ -292,8 +292,9 @@ bit-equal to its plain version and timed.  scout: the router launches
 once a MoE layer call, forward and recompute (12), the recompute's
 demand, caps, experts, slots and keep mask equal the forward's, and the
 caps equal the plain version's.  deepseek-v2-236b does not fit one card
-for training at full width (one layer is 3.97 B parameters, 80 GB with
-AdamW), so its reduced config (MLA, the LP router, remat per block)
+for training at full width in one process (one layer is 3.97 B
+parameters, 80 GB with AdamW; ``training_sharded`` trains it over a
+mesh), so its reduced config (MLA, the LP router, remat per block)
 trains 2 steps on the card and on the CPU, within ``TWIN_ATOL``.  Last,
 ``repro_torch.data.optimal_mixture`` on 4,096 utility rows over 8
 sources launches the simplex kernel once; its statuses and weights equal
@@ -354,24 +355,35 @@ host synchronization forbidden (``torch.cuda.set_sync_debug_mode
 must exit 0.  Each phase prints its seconds.
 
 Training on a mesh (``training_sharded``, last): (a) deepseek-v2-236b at
-its published width, 1 of 60 layers, bf16 from seed 2018, ``lp_capacity``
-and ``seq_shard`` as shipped, over a 1 x 4 mesh of four processes that
-share the card over gloo, each holding 40 of the 160 expert slabs: the
-loss and gradients of 2 x 1,024 tokens under ``remat="block"`` with no
-optimizer step (the four ranks hold one card's memory); exactly 8 router
-launches (4 ranks x forward and recompute), each rank's routing
-bit-equal to one process's ``route`` of its tokens and its caps to the
-plain version on the CPU, its MoE output within 2^-7 of one process's
-``_moe_local`` over all 160 experts, the replicated gradients bit-equal
-across ranks (the mesh turns on the deterministic algorithms that keep
-them so; this script does not), every gradient finite; the peak a rank,
-the step's wall and the exchanges' host seconds printed.  (b) the
+its published width, 1 of 60 layers, bf16 from seed 2018, ``lp_capacity``,
+``seq_shard`` and ``fsdp`` as shipped, over a 2 x 2 mesh of four
+processes that share the card over gloo, every placement of the Sharder
+acting (data parallel, FSDP over data, the heads, the shared experts'
+``ff_expert`` and the vocabulary tensor parallel, 80 of the 160 expert
+slabs a rank): the parameters a rank predicted from the rules and
+AdamW's reckoning printed first; the loss and gradients of 2 x 1,024
+tokens under ``remat="block"``; exactly 8 router launches (4 ranks x
+forward and recompute), each rank's caps bit-equal to the plain version
+on the CPU, the share of its tokens routed as one process's ``route``
+routes them, its MoE output within 2^-7 of one process's ``_moe_local``
+over all 160 experts, every gradient bit-equal on the ranks that hold
+the same block of it (the mesh turns on the deterministic algorithms
+that keep them so; this script does not), every gradient finite; then
+one AdamW step where the card keeps 8 GB free beside the four ranks'
+moments, every parameter moved and finite.  In the same world,
+falcon-mamba-7b at full width, 1 of 64 layers, its 8,192 d_inner
+channels cut to 4,096 a rank: the scans launched on each rank's channels
+(exactly 4 forward and 2 backward a rank), one captured launch of each
+bit-equal to its plain version and timed.  The peak a rank, the step's
+wall and the exchanges' calls and host seconds printed.  (b) the
 reduced llama4-scout (float32, ``lp_capacity``, top-2) through ``train
 --mesh 2x2 --checkpoint-dir`` in four processes with torchrun's
 environment, every run resuming from one step-0 checkpoint drawn on the
 card, three worlds side by side: 4 steps on the card and on the CPU
-within ``TWIN_ATOL``, the replicated
-parameters bit-equal on every rank after them; the card run's step-2
+within ``TWIN_ATOL``, every parameter
+bit-equal on the ranks that hold the same block of it after them (the
+heads, the shared experts and the vocabulary tensor parallel, AdamW's
+moments under ZeRO-1); the card run's step-2
 save, written from its writer thread, resumed in new processes for 2
 more, bit-equal to the 4 straight; the checkpoint restored on a 1 x 4
 mesh and on one rank equal to the saved whole arrays.  (c) whisper-small whole,
@@ -4698,31 +4710,26 @@ def serving_mla():
         prof["decode_step_simplex_ms"] / prof["decode_step_kernel_ms"]
     emit({"serve_profile": MLA_ARCH, **prof})
 
+    # the card-against-CPU runs of this twin (about 30 s, the CPU's
+    # forward over 160 experts at full width) are cut for the run's time
+    # limit: the reduced deepseek-v2 trains card against CPU
+    # (training_families.mla_twin) and llama4-scout's MoE twin holds the
+    # router's card-against-CPU routing
     with phase("serving_mla.twin"), torch.inference_mode():
         spec = MOE_TWIN
-        cpu = float32_cut(model, "cpu", spec["layers"], spec["vocab"])
+        card = float32_cut(model, "cuda", spec["layers"], spec["vocab"])
         del model
         torch.cuda.empty_cache()
-        card = float32_cut(cpu, "cuda", spec["layers"])
         prompt = twin_prompt(card.cfg, spec["prompt_len"])
         twin = {"twin_layers": spec["layers"], "vocab": spec["vocab"],
-                "prompt_len": spec["prompt_len"],
-                "greedy_steps": spec["gen"], "tolerance": TWIN_ATOL}
-        for lp in (True, False):
-            for lm in (card, cpu):
-                reconfigure(lm, lp_capacity=lp)
-            twin[f"lp_capacity_{lp}"] = run = moe_twin_run(
-                card, cpu, prompt, spec["gen"])
-            assert run["card_vs_cpu_routing_equal"], run
-            assert run["card_vs_cpu_tokens_equal"], run
-            assert run["card_vs_cpu_max_abs_err"] <= TWIN_ATOL, run
+                "prompt_len": spec["prompt_len"], "tolerance": TWIN_ATOL}
         # decode is MLA's absorbed form, prefill its materialized one:
         # the one MLA-specific check, with routing out of it (no drops)
         reconfigure(card, lp_capacity=False, capacity_factor=100.0)
         twin.update(decode_vs_prefill(card, prompt, spec["prefix"]))
         emit({"mla_float32_twin": twin})
         assert twin["decode_vs_prefill_max_abs_err"] <= TWIN_ATOL, twin
-        del card, cpu
+        del card
     torch.cuda.empty_cache()
     return {**line, **prof, "twin": twin, "launches": launches}
 
@@ -5856,8 +5863,11 @@ def reachability():
 # ---- training on a mesh: the Sharder, expert parallelism, checkpoints -----
 
 SHARDED_WORLD = 4             # ranks sharing the one card over gloo
-SHARDED = {"mesh": (1, 4), "layers": 1, "batch": 2, "seq": 1024}
+SHARDED = {"mesh": (2, 2), "layers": 1, "batch": 2, "seq": 1024}
 MOE_REL = 2.0 ** -7           # a rank's MoE output against one process's
+# AdamW's step at full width runs where the card keeps this much free
+# beside the four ranks' parameters, gradients and float32 moments
+ADAMW_FREE_BYTES = 8e9
 MESH_TWIN = {"mesh": "2x2", "steps": 4, "batch": 4, "seq": 32, "lr": 1e-3}
 COMPRESSED = {"batch": 4, "seq": 64, "n_frames": 1500, "steps": 2,
               "lr": 1e-3}
@@ -5882,7 +5892,9 @@ from repro_torch.distributed.sharding import (Sharder, make_mesh,
                                               param_spec)
 marks["imported"] = time.time()
 from repro_torch.distributed.steps import loss_and_grads
-from repro_torch.models import build_model, moe
+from repro_torch.kernels import ssm_scan_bwd, ssm_scan_bwd_plain
+from repro_torch.models import build_model, mamba, moe
+from repro_torch.optim import adamw
 with open(job_path, "rb") as f:
     job = pickle.load(f)
 cfg = job["cfg"]
@@ -5892,6 +5904,15 @@ marks["mesh"] = time.time()
 # keep the replicas bit-equal
 deterministic = torch.are_deterministic_algorithms_enabled()
 shd = Sharder(cfg, mesh)
+
+def digest(t):
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+def bits(t):
+    return int(t.detach().contiguous().view(torch.int16).sum(
+        dtype=torch.int64))
+
 t0 = time.perf_counter()
 model = build_model(cfg, seed=job["seed"], shd=shd)
 torch.cuda.synchronize()
@@ -5922,23 +5943,25 @@ finite = all(bool(torch.isfinite(g).all()) for g in grads)
 wall = time.perf_counter() - t0
 launches = {k: v for k, v in cs.counts().items() if v}
 peak = torch.cuda.max_memory_allocated()
+moe.route, moe._moe_local = real_route, real_local
 names = [n for n, _ in model.named_parameters()]
-digests = {n: hashlib.sha256(g.contiguous().view(torch.uint8).cpu()
-                             .numpy().tobytes()).hexdigest()
-           for n, g in zip(names, grads)
-           if not shd.is_sharded(param_spec(n, cfg))}
+axes = {n: sorted(shd.shard_axes(param_spec(n, cfg))) for n in names}
+digests = {n: digest(g) for n, g in zip(names, grads)}
 marks["step"] = marks["model"] + wall
 marks["digests"] = time.time()
 fwd, rec = kept["route"][0], kept["route"][1]
 x, y = kept["local"][0]
-got = {"rank": rank, "loss": float(loss), "finite": finite, "wall_s": wall,
+exchanges = mesh.exchanges()
+got = {"rank": rank, "coords": mesh.coords, "loss": float(loss),
+       "finite": finite, "wall_s": wall,
        "deterministic_from_the_mesh": deterministic, "marks": marks,
        "init_s": init_s, "peak_device_bytes": peak, "launches": launches,
-       "exchange_host_s": mesh.exchanges()["seconds"],
-       "exchange_calls": mesh.exchanges()["calls"],
+       "exchange_host_s": exchanges["seconds"],
+       "exchange_calls": exchanges["calls"],
        "params": sum(p.numel() for p in model.parameters()),
        "expert_slabs": model.blocks[0].mlp["w_gate"].shape[0],
-       "digests": digests, "route_calls": len(kept["route"]),
+       "shard_axes": axes, "digests": digests,
+       "route_calls": len(kept["route"]),
        "recompute_routes_as_forward": all(
            torch.equal(a, b) for a, b in zip(fwd, rec)
            if isinstance(a, torch.Tensor)),
@@ -5947,9 +5970,107 @@ got = {"rank": rank, "loss": float(loss), "finite": finite, "wall_s": wall,
                  ("expert", "slot", "keep", "caps", "demand")}}
 if rank == 0:
     got["router"] = model.blocks[0].mlp["router"].detach().cpu()
+del kept, fwd, rec, x, y, loss
+# AdamW's step where the card keeps ADAMW_FREE_BYTES free beside the four
+# ranks' float32 moments (the decision taken on the least free any rank
+# sees, so that every rank takes it or none does)
+torch.cuda.empty_cache()
+dist.barrier()
+free = torch.tensor([float(torch.cuda.mem_get_info()[0])])
+dist.all_reduce(free, op=dist.ReduceOp.MIN)
+moments = 8 * got["params"]
+got["free_after_grads_bytes"] = float(free)
+got["allocated_after_grads_bytes"] = torch.cuda.memory_allocated()
+got["reserved_after_grads_bytes"] = torch.cuda.memory_reserved()
+got["adamw_moment_bytes_a_rank"] = moments
+step = float(free) - world * moments >= cs.ADAMW_FREE_BYTES
+got["adamw_step_taken"] = step
+if step:
+    torch.cuda.reset_peak_memory_stats()
+    params = list(model.parameters())
+    before = [bits(p) for p in params]
+    # lr 1.0: a bf16 parameter has no float32 master copy, so a smaller
+    # step would leave entries unmoved
+    opt = adamw(lr=1.0, warmup=1)
+    state = opt.init(list(model.named_parameters()), shd=shd)
+    t0 = time.perf_counter()
+    opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    got["adamw_step_s"] = time.perf_counter() - t0
+    got["adamw_moved"] = sum(b != bits(p) for b, p in zip(before, params))
+    got["adamw_leaves"] = len(params)
+    got["adamw_finite"] = all(bool(torch.isfinite(p).all()) for p in params)
+    got["adamw_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    del state, opt, params
+del grads, model
+torch.cuda.empty_cache()
+marks["deepseek_done"] = time.time()
+
+# falcon-mamba-7b at full width in the same world: d_inner over the model
+# line, the scans on this rank's channels
+fcfg = job["falcon_cfg"]
+fshd = Sharder(fcfg, mesh)
+fmodel = build_model(fcfg, seed=job["seed"], shd=fshd)
+fbatch = {k: torch.from_numpy(v).cuda()
+          for k, v in job["falcon_batch"].items()}
+fkept, fn = {}, [0]
+real_scan = mamba.ssm_scan_bt_ds
+
+def keep_scan(dA, dBx, h0):
+    if fn[0] == 0:
+        fkept["fwd"] = (dA.detach(), dBx.detach(), h0.detach())
+    fn[0] += 1
+    return real_scan(dA, dBx, h0)
+
+mamba.ssm_scan_bt_ds = keep_scan
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+dist.barrier()
+before_ex = mesh.exchanges()
+cs.zero_counts()
+t0 = time.perf_counter()
+with cs.bwd_inputs_kept(0) as bkept:
+    floss, fgrads = loss_and_grads(fmodel, fbatch, fshd)
+    torch.cuda.synchronize()
+fwall = time.perf_counter() - t0
+flaunch = {k: v for k, v in cs.counts().items() if v}
+mamba.ssm_scan_bt_ds = real_scan
+after_ex = mesh.exchanges()
+fnames = [n for n, _ in fmodel.named_parameters()]
+got["falcon"] = {
+    "loss": float(floss), "wall_s": fwall, "launches": flaunch,
+    "finite": all(bool(torch.isfinite(g).all()) for g in fgrads),
+    "params": sum(p.numel() for p in fmodel.parameters()),
+    "d_inner_local": fmodel.blocks[0].ssm["D"].shape[0],
+    "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    "exchange_calls": after_ex["calls"] - before_ex["calls"],
+    "exchange_host_s": after_ex["seconds"] - before_ex["seconds"],
+    "shard_axes": {n: sorted(fshd.shard_axes(param_spec(n, fcfg)))
+                   for n in fnames},
+    "digests": {n: digest(g) for n, g in zip(fnames, fgrads)}}
+del fgrads, fmodel
+torch.cuda.empty_cache()
+if rank == 0:
+    # one captured launch of each scan against its plain version, then
+    # each timed at the rank's shape while the other ranks wait
+    dA, dBx, h0 = fkept["fwd"]
+    bargs = tuple(t.detach() for t in bkept["args"])
+    got["falcon"]["scan_shape"] = list(dA.shape)
+    got["falcon"]["scan_max_abs_err"] = cs.scan_vs_plain(dA, dBx, h0)
+    got["falcon"]["scan_bwd_max_abs_err"] = cs.scan_bwd_vs_plain(*bargs)
+    from repro_torch.kernels import ssm_scan_bt_ds, ssm_scan_plain
+    got["falcon"]["scan_ms"] = cs.timed_avg(
+        lambda: ssm_scan_bt_ds(dA, dBx, h0))
+    got["falcon"]["scan_plain_ms"] = cs.timed_avg(
+        lambda: ssm_scan_plain(dA, dBx, h0), reps=3)
+    got["falcon"]["scan_bwd_ms"] = cs.timed_avg(
+        lambda: ssm_scan_bwd(*bargs))
+    got["falcon"]["scan_bwd_plain_ms"] = cs.timed_avg(
+        lambda: ssm_scan_bwd_plain(*bargs), reps=3)
+    del dA, dBx, h0, bargs
+marks["falcon_done"] = time.time()
 with open(out + "." + str(rank), "wb") as f:
     pickle.dump(got, f)
-del grads, model
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -6015,19 +6136,25 @@ for run in job["runs"]:   # one CLI run after another in these processes
     cfg, model, shd = seen["cfg"], seen["model"], seen["shd"]
     whole = gather_params({n: p.detach()
                            for n, p in model.named_parameters()}, shd)
-    # the replicated leaves, bit for bit, on every rank of the world
+    # every leaf, bit for bit, on every rank of the world that holds the
+    # same block of it (the same coordinates on the axes that shard it)
     mine = {n: hashlib.sha256(p.detach().contiguous().view(torch.uint8)
                               .cpu().numpy().tobytes()).hexdigest()
-            for n, p in model.named_parameters()
-            if not shd.is_sharded(param_spec(n, cfg))}
+            for n, p in model.named_parameters()}
+    axes = {n: shd.shard_axes(param_spec(n, cfg)) for n in mine}
     every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, mine)
+    dist.all_gather_object(every, (shd.mesh.coords, mine))
+    equal = all(d[n] == mine[n] for c, d in every for n in mine
+                if all(c[a] == shd.mesh.coords[a] for a in axes[n]))
+    # the (leaf, line) pairs check_replicas compares
+    pairs = sum(shd.mesh.shape[a] > 1 and a not in axes[n]
+                for n in mine for a in ("data", "model"))
     got = {"losses": res["losses"], "start": res["start"],
            "launches": [int(p) for p in parts],
            "replicas_checked": res["replicas_checked"],
            "step_s": res["step_s"], "marks": marks,
-           "replicated_leaves": len(mine),
-           "replicas_equal": all(d == mine for d in every),
+           "replicated_leaves": pairs,
+           "replicas_equal": equal,
            "device": str(model.device),
            "params": {n: p.float().cpu().numpy() for n, p in whole.items()}}
     if run["restore"]:
@@ -6036,7 +6163,8 @@ for run in job["runs"]:   # one CLI run after another in these processes
         shd4 = Sharder(cfg, make_mesh((1, 4), ("data", "model"),
                                       device=model.device))
         other = build_model(cfg, device=model.device, shd=shd4)
-        state = get_optimizer("adamw").init(list(other.named_parameters()))
+        state = get_optimizer("adamw").init(list(other.named_parameters()),
+                                            shd=shd4)
         mgr = CheckpointManager(seen["dir"])
         back = mgr.restore(mgr.latest_step(), state_tree(other, state),
                            sharder=shd4, device=model.device)
@@ -6054,18 +6182,84 @@ dist.destroy_process_group()
 """
 
 
+def sharded_scan(falcon, kind) -> dict:
+    """The kernel table's shape row of the sharded falcon-mamba scan
+    ("scan" or "scan_bwd")."""
+    return {"shape": falcon["scan_shape"], "ms": falcon[f"{kind}_ms"],
+            "plain_ms": falcon[f"{kind}_plain_ms"],
+            "bound_ms": falcon[f"{kind}_bound_ms"], "yardstick_ms": None,
+            "max_abs_err": falcon[f"{kind}_max_abs_err"],
+            "path": "train falcon-mamba-7b sharded 2x2, rank 0"}
+
+
+def shard_replicas_equal(ranks, part=None):
+    """Whether every two ranks that hold the same block of a gradient
+    (equal coordinates on each mesh axis that shards the leaf) hold the
+    same bits of it, and the number of (leaf, pair of ranks) compared;
+    ``part`` names a model's entry of each rank's result ("falcon"),
+    None the ranks' own (deepseek-v2's)."""
+    def get(g):
+        return g if part is None else g[part]
+    pairs = 0
+    for name, axes in get(ranks[0])["shard_axes"].items():
+        for a in ranks:
+            for b in ranks:
+                if a["rank"] >= b["rank"] or any(
+                        a["coords"][ax] != b["coords"][ax] for ax in axes):
+                    continue
+                if get(a)["digests"][name] != get(b)["digests"][name]:
+                    return False, pairs
+                pairs += 1
+    return True, pairs
+
+
+def adamw_reckoning(n_params, world):
+    """The bytes AdamW's step at full width needs on the card before the
+    run: each rank's bf16 parameters and gradients, float32 moments
+    (``opt_state_spec``: FSDP already cuts the residual dim, so ZeRO-1
+    adds no cut here), the FSDP gather of its largest leaves (the three
+    expert slabs of 80 x 5,120 x 1,536 gathered over data) and their
+    gradients, an activation share scaled from PR 27's 1x4 run (16.04 GB
+    peak at 2.19 B parameters a rank: 7.28 GB beside the parameters and
+    gradients, for twice these tokens a rank) and a CUDA context."""
+    gib = 1 << 30
+    params = 2 * n_params
+    grads = 2 * n_params
+    moments = 8 * n_params
+    gathered = 2 * 3 * (80 * 5120 * 1536 * 2)
+    activations = 7.28e9 / 2
+    context = 0.5 * gib
+    step = params + grads + moments + context
+    grads_peak = params + grads + gathered + activations + context
+    return {"params_bytes": params, "grads_bytes": grads,
+            "moment_bytes": moments, "fsdp_gathered_bytes": gathered,
+            "activation_bytes": activations, "context_bytes": context,
+            "grads_peak_bytes_a_rank": grads_peak,
+            "step_bytes_a_rank": step,
+            "four_ranks_bytes": world * max(step, grads_peak),
+            "card_bytes": 80e9}
+
+
 def sharded_deepseek(workdir):
     """(a) deepseek-v2-236b at its published width, 1 of 60 layers, bf16
-    from SERVE_SEED, lp_capacity, remat per block (as shipped), seq_sp as
-    shipped, over a 1 x 4 mesh of SHARDED_WORLD processes that share the
-    card over gloo, each holding 40 of the 160 expert slabs: one
-    microbatch of 2 x 1,024 tokens through ``distributed.steps.
-    loss_and_grads`` (the loss and torch.autograd.grad, no optimizer
-    step: the four ranks hold one card's memory).  Then, in this process
-    with the whole model: each rank's routing bit-equal to one process's
-    ``route`` of the same rank's tokens (caps also against the plain
-    version on the CPU), each rank's MoE output within MOE_REL of one
-    process's ``_moe_local`` over all 160 experts."""
+    from SERVE_SEED, lp_capacity, remat per block and fsdp (as shipped),
+    seq_sp as shipped, over a 2 x 2 mesh of SHARDED_WORLD processes that
+    share the card over gloo, every rule acting: each rank holds its
+    block of every leaf (80 of the 160 expert slabs, half the heads, the
+    shared experts' ff_expert, the vocabulary, and the residual dim over
+    data under FSDP).  One microbatch of 2 x 1,024 tokens through
+    ``distributed.steps.loss_and_grads``, then AdamW's step where the
+    card keeps ADAMW_FREE_BYTES free beside the four ranks' moments (the
+    reckoning is printed first): every parameter moved, and finite.
+    Then, in this process with the whole model: each rank's routing
+    against one process's ``route`` of the same rank's tokens (the share
+    routed alike printed; caps bit-equal to the plain version), each
+    rank's MoE output within MOE_REL of one process's ``_moe_local``
+    over all 160 experts.  In the same world after it: falcon-mamba-7b
+    at full width, 1 of 64 layers, its d_inner of 8,192 cut to 4,096 a
+    rank: its loss and gradients, the scans launched on the rank's
+    channels (counted exactly), one captured launch of each bit-equal to
+    its plain version and timed."""
     import pickle
     import numpy as np
     import torch
@@ -6074,12 +6268,34 @@ def sharded_deepseek(workdir):
     from repro_torch.models.moe import _capacity, _moe_local, route
     cfg = dataclasses.replace(get_config(MLA_ARCH),
                               n_layers=SHARDED["layers"], lp_capacity=True)
-    assert cfg.seq_shard and cfg.remat == "block", cfg
+    assert cfg.seq_shard and cfg.remat == "block" and cfg.fsdp, cfg
+    fcfg = dataclasses.replace(get_config(SERVE_ARCH),
+                               n_layers=SHARDED["layers"])
+    assert (fcfg.d_inner, fcfg.remat) == (8192, "block"), fcfg
     rng = np.random.default_rng(SERVE_SEED)
     shape = (SHARDED["batch"], SHARDED["seq"])
     job = {"cfg": cfg, "mesh": SHARDED["mesh"], "seed": SERVE_SEED,
            "batch": {k: rng.integers(0, cfg.vocab, shape) for k in
-                     ("tokens", "labels")}}
+                     ("tokens", "labels")},
+           "falcon_cfg": fcfg,
+           "falcon_batch": {k: rng.integers(0, fcfg.vocab, shape) for k in
+                            ("tokens", "labels")}}
+    # the parameters a rank, from the rules (about 1.27 B against PR 27's
+    # 2.19 B at 1 x 4), and AdamW's reckoning, printed before the run
+    from repro_torch.distributed.sharding import Mesh, Sharder, param_spec
+    from repro_torch.models import LM
+    meta = LM(cfg, device=torch.device("meta"))
+    desc = Sharder(cfg, Mesh(SHARDED["mesh"], ("data", "model")))
+    predicted = sum(int(np.prod([
+        (sl.indices(n)[1] - sl.indices(n)[0])
+        for sl, n in zip(desc.local_slices(param_spec(name, cfg), p.shape),
+                         p.shape)]))
+        for name, p in meta.named_parameters())
+    whole_params = sum(p.numel() for p in meta.parameters())
+    del meta
+    reckoning = adamw_reckoning(predicted, SHARDED_WORLD)
+    emit({"sharded_deepseek_predicted_params_a_rank": predicted,
+          "whole_params": whole_params, "adamw_reckoning": reckoning})
     with open(workdir / "sharded.job", "wb") as f:
         pickle.dump(job, f)
     out = workdir / "sharded.out"
@@ -6087,6 +6303,11 @@ def sharded_deepseek(workdir):
         [os.path.join(ROOT, "src"), ROOT]
         + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     env.pop("CUBLAS_WORKSPACE_CONFIG", None)   # the mesh sets it
+    # segments the allocator can give back to the card: after the
+    # gradients, what the FSDP gathers and the activations took is free
+    # for the moments (fixed segments that still hold a live block stay
+    # reserved)
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0, wall0 = time.perf_counter(), time.time()
     procs = [subprocess.Popen(
         [sys.executable, "-c", SHARDED_RANK, str(r), str(SHARDED_WORLD),
@@ -6109,13 +6330,42 @@ def sharded_deepseek(workdir):
                g["deterministic_from_the_mesh"] for g in ranks)
     assert len({g["loss"] for g in ranks}) == 1 and \
         np.isfinite(ranks[0]["loss"])
-    assert all(g["digests"] == ranks[0]["digests"] for g in ranks)
-    assert all(g["expert_slabs"] == cfg.n_experts // SHARDED_WORLD
-               for g in ranks)
+    grads_equal, grad_pairs = shard_replicas_equal(ranks)
+    assert grads_equal and grad_pairs > 0
+    assert all(g["expert_slabs"] == cfg.n_experts // 2 for g in ranks)
+    assert all(g["params"] == predicted for g in ranks), \
+        ([g["params"] for g in ranks], predicted)
+    step = ranks[0]["adamw_step_taken"]
+    assert all(g["adamw_step_taken"] == step for g in ranks)
+    if step:
+        assert all(g["adamw_finite"] and
+                   g["adamw_moved"] == g["adamw_leaves"] for g in ranks), \
+            [(g["adamw_moved"], g["adamw_leaves"]) for g in ranks]
+    # falcon-mamba: every rank's scans on its 4,096 channels, counted
+    # exactly (the forward and the block's recompute: two chunks each;
+    # the backward two), each captured launch bit-equal to the plain one
+    falcon = [g["falcon"] for g in ranks]
+    chunks = SHARDED["seq"] // SCAN_CHUNK
+    want = {"ssm_scan": 2 * chunks * fcfg.n_layers,
+            "ssm_scan_bwd": chunks * fcfg.n_layers}
+    assert all(f["launches"] == want for f in falcon), \
+        [f["launches"] for f in falcon]
+    assert all(f["finite"] and f["d_inner_local"] == fcfg.d_inner // 2
+               for f in falcon), falcon
+    assert len({f["loss"] for f in falcon}) == 1
+    assert falcon[0]["scan_shape"] == [SHARDED["batch"] // 2, SCAN_CHUNK,
+                                       fcfg.d_inner // 2, fcfg.ssm_state]
+    assert falcon[0]["scan_max_abs_err"] == 0.0
+    assert falcon[0]["scan_bwd_max_abs_err"] == 0.0
+    falcon_equal, falcon_pairs = shard_replicas_equal(ranks, "falcon")
+    assert falcon_equal and falcon_pairs > 0
     # one process, the whole model drawn from the same seed
     whole = build_model(cfg, seed=SERVE_SEED)
     p = whole.blocks[0].mlp
-    assert torch.equal(p["router"].detach().cpu(), ranks[0]["router"])
+    rank0 = Sharder(cfg, Mesh(SHARDED["mesh"], ("data", "model"), rank=0))
+    cut = rank0.local_slices(param_spec("blocks.0.mlp.router", cfg),
+                             p["router"].shape)
+    assert torch.equal(p["router"].detach()[cut].cpu(), ranks[0]["router"])
     rows = []
     with torch.no_grad():
         for g in ranks:
@@ -6123,34 +6373,56 @@ def sharded_deepseek(workdir):
             N = x.shape[0]
             C = _capacity(N, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
             one = route(x, p["router"], cfg, C)
-            same = all(torch.equal(getattr(one, f).cpu(), g["route"][f])
-                       for f in ("expert", "slot", "keep", "caps"))
+            alike = float((one.expert.cpu() == g["route"]["expert"])
+                          .float().mean())
             caps_err = caps_vs_plain(one, C)
             ref = _moe_local(x, p, cfg).float().cpu()
             rel = float((g["y"].float() - ref).abs().max()
                         / ref.abs().max())
             rows.append({"rank": g["rank"], "tokens": N, "capacity": C,
-                         "routing_equal_to_one_process": same,
+                         "routed_alike_share": alike,
                          "caps_vs_plain_max_abs_err": caps_err,
                          "moe_output_rel_err": rel,
                          "kept_share": float(g["route"]["keep"].float()
                                              .mean())})
     del whole, p
     torch.cuda.empty_cache()
-    assert all(r["routing_equal_to_one_process"] for r in rows), rows
     assert all(r["caps_vs_plain_max_abs_err"] == 0.0 for r in rows), rows
     assert all(r["moe_output_rel_err"] <= MOE_REL for r in rows), rows
     n_params = ranks[0]["params"]
+    f0 = falcon[0]
+    scan_bytes = 4 * (3 * int(np.prod(f0["scan_shape"]))
+                      + 2 * f0["scan_shape"][0] * int(np.prod(
+                          f0["scan_shape"][2:])))
+    bwd_bytes = 4 * (5 * int(np.prod(f0["scan_shape"]))
+                     + 3 * f0["scan_shape"][0] * int(np.prod(
+                         f0["scan_shape"][2:])))
     line = {"train_sharded": MLA_ARCH, "mesh": list(SHARDED["mesh"]),
             "ranks_on_one_card": SHARDED_WORLD, "backend": "gloo",
+            "rules_acting": ["batch", "residual (FSDP)", "heads", "experts",
+                             "ff_expert", "vocab", "ZeRO-1 (opt_state_spec,"
+                             " no cut beyond FSDP's here)"],
             "config": {"n_layers": cfg.n_layers, "published_n_layers": 60,
                        "d_model": cfg.d_model, "n_experts": cfg.n_experts,
                        "top_k": cfg.top_k, "seq_shard": cfg.seq_shard,
-                       "remat": cfg.remat, "lp_capacity": True,
+                       "fsdp": cfg.fsdp, "remat": cfg.remat,
+                       "lp_capacity": True,
                        "param_dtype": cfg.param_dtype},
             "batch": SHARDED["batch"], "seq": SHARDED["seq"],
             "seed": SERVE_SEED, "params_a_rank": n_params,
+            "whole_params": whole_params,
             "bf16_param_and_grad_bytes_a_rank": 4 * n_params,
+            "adamw_reckoning": reckoning,
+            "free_after_grads_bytes": ranks[0]["free_after_grads_bytes"],
+            "allocated_after_grads_bytes_a_rank": [
+                g["allocated_after_grads_bytes"] for g in ranks],
+            "reserved_after_grads_bytes_a_rank": [
+                g["reserved_after_grads_bytes"] for g in ranks],
+            "adamw_step_taken": step,
+            "adamw": [{k: g.get(k) for k in (
+                "adamw_step_s", "adamw_moved", "adamw_leaves",
+                "adamw_finite", "adamw_peak_device_bytes")}
+                for g in ranks] if step else None,
             "loss": ranks[0]["loss"],
             "router_launches": sum(n["simplex_tile"] for n in launches),
             "peak_device_bytes_a_rank": [g["peak_device_bytes"]
@@ -6162,12 +6434,37 @@ def sharded_deepseek(workdir):
             "spawn_to_exit_s": spawn_s,
             # seconds after the spawn at which each rank had started
             # Python, reached the card, joined the world, drawn its model,
-            # taken its step, and digested its replicated gradients
+            # taken its step, digested its gradients and ended each model
             "rank_timeline_s": [{k: round(v - wall0, 3)
                                  for k, v in g["marks"].items()}
                                 for g in ranks],
-            "replicated_grads_equal_across_ranks": True,
-            "ranks": rows, "moe_rel_bound": MOE_REL}
+            "grads_equal_over_unsharded_axes": True,
+            "grad_rank_pairs_compared": grad_pairs,
+            "ranks": rows, "moe_rel_bound": MOE_REL,
+            "falcon": {
+                "arch": SERVE_ARCH, "n_layers": fcfg.n_layers,
+                "published_n_layers": 64, "d_inner": fcfg.d_inner,
+                "d_inner_a_rank": f0["d_inner_local"],
+                "params_a_rank": f0["params"], "loss": f0["loss"],
+                "launches_a_rank": f0["launches"],
+                "scan_launches": sum(f["launches"]["ssm_scan"]
+                                     for f in falcon),
+                "scan_bwd_launches": sum(f["launches"]["ssm_scan_bwd"]
+                                         for f in falcon),
+                "scan_shape": f0["scan_shape"],
+                "scan_max_abs_err": f0["scan_max_abs_err"],
+                "scan_bwd_max_abs_err": f0["scan_bwd_max_abs_err"],
+                "scan_ms": f0["scan_ms"], "scan_plain_ms": f0["scan_plain_ms"],
+                "scan_bound_ms": scan_bytes / PEAK_BYTES * 1e3,
+                "scan_bwd_ms": f0["scan_bwd_ms"],
+                "scan_bwd_plain_ms": f0["scan_bwd_plain_ms"],
+                "scan_bwd_bound_ms": bwd_bytes / PEAK_BYTES * 1e3,
+                "loss_and_grads_wall_s": [f["wall_s"] for f in falcon],
+                "peak_device_bytes_a_rank": [f["peak_device_bytes"]
+                                             for f in falcon],
+                "exchange_calls": f0["exchange_calls"],
+                "exchange_host_s": [f["exchange_host_s"] for f in falcon],
+                "grad_rank_pairs_compared": falcon_pairs}}
     emit(line)
     return line
 
@@ -6405,11 +6702,11 @@ def compressed_whisper():
 
 def training_sharded(workdir):
     """The phase: (a) sharded_deepseek, (b) mesh_twin, (c)
-    compressed_whisper.  The router's kernel is built here, once, before
-    any rank loads it.  Returns their lines."""
+    compressed_whisper.  The router's and the scans' kernels are built
+    here, once, before any rank loads them.  Returns their lines."""
     import torch
     from repro_torch.kernels import _build
-    _build.build(("simplex_tile",))
+    _build.build(("simplex_tile", "ssm_scan"))
     # the four ranks of (a) take about 64 GB: this process keeps nothing
     # cached beside them
     torch.cuda.empty_cache()
@@ -6916,9 +7213,15 @@ def smoke() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         with phase("training_sharded"):
             shard = training_sharded(Path(tmp))
-    path_launches("simplex_tile", f"train {MLA_ARCH} sharded 1x4 "
+    path_launches("simplex_tile", f"train {MLA_ARCH} sharded 2x2 "
                   "(lp_capacity, forward and recompute, 4 ranks)",
                   shard["deepseek"]["router_launches"])
+    path_launches("ssm_scan", f"train {SERVE_ARCH} sharded 2x2 (d_inner "
+                  "/ 2 a rank, forward and recompute, 4 ranks)",
+                  shard["deepseek"]["falcon"]["scan_launches"])
+    path_launches("ssm_scan_bwd", f"train {SERVE_ARCH} sharded 2x2 "
+                  "(d_inner / 2 a rank, 4 ranks)",
+                  shard["deepseek"]["falcon"]["scan_bwd_launches"])
     path_launches("simplex_tile", f"train {MOE_ARCH} reduced --mesh 2x2 "
                   "(lp_capacity, straight and resumed runs)",
                   sum(sum(v) for v in shard["mesh_twin"]
@@ -7078,34 +7381,41 @@ def smoke() -> int:
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:44",
         **launch_keys("ssm_scan"), "max_abs_err": max(
-            scan["max_abs_err"], hymba["max_abs_err"]),
+            scan["max_abs_err"], hymba["max_abs_err"],
+            shard["deepseek"]["falcon"]["scan_max_abs_err"]),
         "ms": scan["ms"], "plain_ms": scan["plain_ms"],
         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
         "library_ms": None, "yardstick_ms": scan["yardstick_ms"],
         "yardstick": scan["yardstick"], "shape": scan["shape"],
         "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                       "yardstick_ms", "max_abs_err")}
-                   for r in (scan, hymba)],
+                   for r in (scan, hymba)] + [sharded_scan(
+                       shard["deepseek"]["falcon"], "scan")],
         "parity": "hs and hT equal to the plain version on layer 0's and "
                   "layer 63's second-chunk inputs of falcon-mamba-7b, on "
                   "layer 0's and layer 31's last-chunk inputs of "
-                  "hymba-1.5b and at four odd shapes"}, {
+                  "hymba-1.5b, on rank 0's first forward chunk of "
+                  "falcon-mamba-7b sharded 2x2 (d_inner / 2) and at four "
+                  "odd shapes"}, {
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:57",
         **launch_keys("ssm_scan_bwd"), "max_abs_err": max(
-            bwd["max_abs_err"], fam["hymba_bwd"]["max_abs_err"]),
+            bwd["max_abs_err"], fam["hymba_bwd"]["max_abs_err"],
+            shard["deepseek"]["falcon"]["scan_bwd_max_abs_err"]),
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": None, "yardstick_ms": bwd["yardstick_ms"],
         "yardstick": bwd["yardstick"], "shape": bwd["shape"],
         "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                       "yardstick_ms", "max_abs_err")}
-                   for r in (bwd, fam["hymba_bwd"])],
+                   for r in (bwd, fam["hymba_bwd"])] + [sharded_scan(
+                       shard["deepseek"]["falcon"], "scan_bwd")],
         "parity": "ddA, ddBx and dh0 equal to the plain version on layer "
                   "0's chunk-0 inputs of the first microbatch of "
-                  "falcon-mamba-7b's and of hymba-1.5b's training, and at "
-                  "four odd shapes"}]})
+                  "falcon-mamba-7b's and of hymba-1.5b's training, on rank "
+                  "0's first backward launch of falcon-mamba-7b sharded "
+                  "2x2 (d_inner / 2), and at four odd shapes"}]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

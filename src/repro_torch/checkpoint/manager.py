@@ -26,7 +26,10 @@ leaf's path is its keys joined by dots.  The train CLI's tree is
 leaves are stored as their uint16 bits with the dtype named in the
 manifest: NumPy has no bfloat16.  A leaf's sharding is found from its
 path (``distributed.sharding.param_spec`` of the path, which ends in a
-parameter's name; other leaves are whole on every rank).
+parameter's name, placed by ``Sharder.placement``; under ``opt.`` by the
+ZeRO-1 placement of the optimizer moments, ``opt_state_spec``), or from
+``specs``, {path: placement}, where the caller gives one (Adafactor's
+statistics); other leaves are whole on every rank.
 """
 from __future__ import annotations
 
@@ -88,12 +91,19 @@ def _from_host(arr: np.ndarray, dtype):
     return torch.from_numpy(np.array(arr))
 
 
-def _spec(path: str, sharder):
+def _placement(path: str, sharder, specs=None):
+    """The placement of the leaf at ``path`` (module docstring), None
+    for a leaf whole on every rank."""
     from ..distributed.sharding import param_spec
-    try:
-        return param_spec(path, sharder.cfg)
-    except KeyError:
-        return None
+    if specs is not None and path in specs:
+        placement = specs[path]
+    else:
+        try:
+            logical = param_spec(path, sharder.cfg)
+        except KeyError:
+            return None
+        placement = sharder.placement(logical, zero=path.startswith("opt."))
+    return placement if any(r is not None for r in placement) else None
 
 
 def _writer() -> bool:
@@ -133,15 +143,16 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, *, blocking: bool = True,
-             extra: Optional[dict] = None, sharder=None):
+             extra: Optional[dict] = None, sharder=None,
+             specs: Optional[dict] = None):
         """Snapshot ``tree`` to the host now (gathering sharded leaves
-        with ``sharder``), then write it, from a thread unless
-        ``blocking``.  Under a ``torch.distributed`` world only rank 0
-        writes."""
+        with ``sharder``, placed as the module docstring says), then
+        write it, from a thread unless ``blocking``.  Under a
+        ``torch.distributed`` world only rank 0 writes."""
         self.wait()
         items = flatten(tree)
         if sharder is not None:
-            items = [(p, self._gathered(p, leaf, sharder))
+            items = [(p, self._gathered(p, leaf, sharder, specs))
                      for p, leaf in items]
         if not _writer():
             return
@@ -184,12 +195,12 @@ class CheckpointManager:
         self._thread.start()
 
     @staticmethod
-    def _gathered(path, leaf, sharder):
-        spec = _spec(path, sharder)
-        if spec is None or not sharder.is_sharded(spec):
+    def _gathered(path, leaf, sharder, specs):
+        placement = _placement(path, sharder, specs)
+        if placement is None or not isinstance(leaf, torch.Tensor):
             return leaf
-        from ..distributed.sharding import gather_params
-        return gather_params({path: leaf}, sharder, {path: spec})[path]
+        from ..distributed.sharding import gather_placed
+        return gather_placed(leaf, placement, sharder.mesh)
 
     def wait(self):
         """Join the writer thread; raise what it raised."""
@@ -209,11 +220,12 @@ class CheckpointManager:
 
     # -- restore --------------------------------------------------------------
     def restore(self, step: int, like: Any, *, sharder=None,
-                device="cpu") -> Any:
+                device="cpu", specs: Optional[dict] = None) -> Any:
         """The tree saved at ``step``, shaped as ``like`` (its leaves'
         paths must be the saved ones); tensor leaves take the dtype of
         ``like``'s tensor at the same place and lie on ``device``.  With
-        ``sharder`` each sharded leaf is cut to this rank's slice."""
+        ``sharder`` each sharded leaf is cut to this rank's slice
+        (placed as ``save`` places it)."""
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -232,9 +244,10 @@ class CheckpointManager:
                               dtype)
             if isinstance(leaf, torch.Tensor):
                 if sharder is not None:
-                    spec = _spec(path, sharder)
-                    if spec is not None:
-                        leaf = leaf[sharder.local_slices(spec, leaf.shape)]
+                    placement = _placement(path, sharder, specs)
+                    if placement is not None:
+                        leaf = leaf[sharder.place_slices(placement,
+                                                         leaf.shape)]
                 if hasattr(ref, "dtype"):
                     leaf = leaf.to(_torch_dtype(ref.dtype))
                 leaf = leaf.contiguous().to(device)

@@ -14,20 +14,38 @@ resolves them against a mesh with the reference's rules, word for word:
 
 ``spec``, ``pspec``, ``opt_state_spec`` and ``act_spec`` report the
 reference's placement, as tuples of mesh axes (a PartitionSpec is a
-tuple).  What the port *executes* is a part of it:
+tuple).  The port executes every rule the reference resolves for a
+parameter (``EXECUTED``): each rank holds only its block of each leaf
+(``local_slices``, the reference's ``NamedSharding`` shard of the same
+device index) and computes on it:
 
 * ``batch``: data parallel, each rank its rows of the global batch, the
   gradients summed over the data group (``distributed/steps.py``);
+* ``heads``, ``kv_heads``, ``ff``, ``ff_expert``, ``d_inner``: tensor
+  parallel over the model line, the Megatron pair around each
+  column-parallel product and its row-parallel partner
+  (``EnterReplicated``: identity forward, the cotangent summed over the
+  line backward; ``ReduceOver``: the partial products summed forward,
+  identity backward);
+* ``vocab``: the embedding's rows and the head's columns over the model
+  line, a masked lookup summed over the line and a vocabulary-parallel
+  cross entropy (``models/layers.py``), the whole logits never gathered;
 * ``experts``: expert parallel, each rank its ``E / tp`` slabs of the
   MoE weights, tokens exchanged over the model group by two all-to-alls
   (``models/moe.py``);
+* ``residual`` where ``fsdp`` resolves it to the data axis: FSDP, each
+  leaf gathered over the data line before use (``GatherLeaf``) and its
+  gradient reduce-scattered back;
 * ``seq_sp``: the MoE layer routes this rank's slice of the sequence and
   gathers its output back.
 
-Every other leaf and activation stays replicated on every rank, so the
-arithmetic is the reference's GSPMD layout's up to reduction order
-(``param_shardings`` gives each leaf the slice this rank holds; only
-expert slabs are cut).
+ZeRO-1 (``opt_state_spec``): the optimizer moments shard ``residual``
+over ``data`` even where the parameters do not (``zero_axis``).  A dim
+whose size does not divide its axis stays whole, the reference's
+divisibility guard.  What stays reported only: ``kv_seq`` (a sharded
+decode cache; serving has no mesh) and ``seq_sp`` on the residual
+stream outside the MoE layer (the activations stay whole on every rank
+of the model line).
 
 A ``Mesh`` is the reference's ``jax.sharding.Mesh`` description
 (``.shape`` an ordered {axis: size}, ``.axis_names``) over the ranks of
@@ -61,7 +79,8 @@ if TYPE_CHECKING:   # models/moe.py imports this module
 
 # the logical axes the port executes sharded (module docstring); the
 # batch rule is the data-parallel step's, outside the parameters
-EXECUTED = ("experts",)
+EXECUTED = ("heads", "kv_heads", "ff", "ff_expert", "d_inner", "vocab",
+            "experts", "residual")
 
 
 class Axis:
@@ -77,9 +96,16 @@ class Axis:
         self.seconds, self.calls = 0.0, 0
 
     def _run(self, t: torch.Tensor, fn) -> torch.Tensor:
+        """fn on ``t`` moved to the exchange's device; its result, a
+        tensor or a list of them to concatenate along the dim it names,
+        back on ``t``'s device."""
         t0 = time.perf_counter()
         src = t.to(self.via).contiguous()
-        out = fn(src).to(t.device)
+        out = fn(src)
+        if isinstance(out, tuple):   # (parts, dim): joined on t's device
+            out = torch.cat([o.to(t.device) for o in out[0]], dim=out[1])
+        else:
+            out = out.to(t.device)
         self.seconds += time.perf_counter() - t0
         self.calls += 1
         return out
@@ -106,19 +132,32 @@ class Axis:
         def fn(src):
             parts = [torch.empty_like(src) for _ in range(self.size)]
             dist.all_gather(parts, src, group=self.group)
-            return torch.cat(parts, dim=dim)
+            return parts, dim
         return self._run(t, fn)
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's ``t`` over the line, on every rank."""
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        """The sum (or ``op``) of every rank's ``t`` over the line, on
+        every rank."""
         if self.size == 1:
             return t
 
         def fn(src):
             src = src.clone() if src.data_ptr() == t.data_ptr() else src
-            dist.all_reduce(src, group=self.group)
+            dist.all_reduce(src, op=op, group=self.group)
             return src
         return self._run(t, fn)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of every rank's
+        ``t`` over the line: block j of every rank sent to rank j by one
+        all-to-all (gloo has no reduce-scatter), then summed in line
+        order on ``t``'s device."""
+        if self.size == 1:
+            return t
+        n = t.shape[dim] // self.size
+        blocks = t.unflatten(dim, (self.size, n)).movedim(dim, 0)
+        return self.all_to_all(blocks.contiguous()).sum(0)
 
 
 class Mesh:
@@ -434,31 +473,91 @@ class Sharder:
             return Axis((), 1, 0)
         return self.mesh.axis(self.tp_axis)
 
-    def local_slices(self, logical: Tuple, shape) -> Tuple[slice, ...]:
-        """This rank's slice of a whole array of ``shape`` with logical
-        axes ``logical``: the executed rules' dims cut into equal blocks
-        by the rank's coordinate, every other dim whole."""
+    def zero_axis(self) -> Optional[str]:
+        """The mesh axis ZeRO-1 adds to a moment's ``residual`` dim where
+        the parameter's is whole ('data', guarded as the reference's
+        ``_guarded_sharding_opt``: d_model divides it), else None."""
+        if self.mesh is None or "data" not in self.mesh.axis_names or \
+                self.mesh.shape["data"] == 1:
+            return None
+        return "data" if self.cfg.d_model % self.mesh.shape["data"] == 0 \
+            else None
+
+    def placement(self, logical: Tuple, shape=None,
+                  zero: bool = False) -> Tuple:
+        """The mesh axes each dim of a leaf with logical axes ``logical``
+        is executed sharded over (an axis name, a tuple of them, or None):
+        the ``EXECUTED`` rules, a dim of ``shape`` that its axes do not
+        divide left whole (the reference's guard), and with ``zero`` the
+        optimizer moments' placement (``opt_state_spec``, ZeRO-1)."""
+        if self.mesh is None:
+            return (None,) * len(logical)
         out = []
         for dim, ax in enumerate(logical):
             r = self.rules.get(ax) if ax in EXECUTED else None
-            if r is None or self.mesh is None:
+            if r is not None and self._axis_size(r) == 1:
+                r = None
+            if r is not None and shape is not None and \
+                    shape[dim] % self._axis_size(r):
+                r = None
+            out.append(r)
+        if zero and "residual" in logical and \
+                "data" not in [a for r in out if r for a in _names(r)]:
+            z = self.zero_axis()
+            dim = logical.index("residual")
+            if z is not None and out[dim] is None and (
+                    shape is None or shape[dim] % self._axis_size(z) == 0):
+                out[dim] = z
+        return tuple(out)
+
+    def shard_axes(self, logical: Tuple, zero: bool = False) -> frozenset:
+        """The mesh axes (of more than one rank) that shard a leaf."""
+        return frozenset(a for r in self.placement(logical, zero=zero)
+                         if r for a in _names(r))
+
+    def line(self, ax: str) -> Axis:
+        """The mesh line a logical axis is executed sharded over (a line
+        of one rank where it is not)."""
+        r = self.placement((ax,))[0]
+        return Axis((), 1, 0) if r is None else self.mesh.axis(r)
+
+    def zero_dim(self, logical: Tuple) -> Optional[Tuple[int, Axis]]:
+        """(dim, line) of the moment's ZeRO-1 cut of a leaf whose
+        parameter leaves that dim whole, else None."""
+        have = self.placement(logical)
+        want = self.placement(logical, zero=True)
+        for dim, (h, w) in enumerate(zip(have, want)):
+            if h != w:
+                return dim, self.mesh.axis(w)
+        return None
+
+    def place_slices(self, placement, shape) -> Tuple[slice, ...]:
+        """This rank's slice of a whole array of ``shape`` placed by
+        ``placement`` (``placement``'s result)."""
+        out = []
+        for dim, r in enumerate(placement):
+            if r is None:
                 out.append(slice(None))
                 continue
+            names = _names(r)
             n = self._axis_size(r)
-            names = (r,) if isinstance(r, str) else tuple(r)
             idx = int(np.ravel_multi_index(
                 tuple(self.mesh.coords[a] for a in names),
                 tuple(self.mesh.shape[a] for a in names)))
-            if shape[dim] % n:
-                raise ValueError(f"dim {dim} of size {shape[dim]} does not "
-                                 f"split over {n} ranks")
             step = shape[dim] // n
             out.append(slice(idx * step, (idx + 1) * step))
         return tuple(out)
 
+    def local_slices(self, logical: Tuple, shape,
+                     zero: bool = False) -> Tuple[slice, ...]:
+        """This rank's slice of a whole array of ``shape`` with logical
+        axes ``logical`` (``placement``): each sharded dim cut into equal
+        blocks by the rank's coordinate, every other dim whole."""
+        return self.place_slices(self.placement(logical, shape, zero),
+                                 shape)
+
     def is_sharded(self, logical: Tuple) -> bool:
-        return any(self.rules.get(ax) is not None and self.mesh is not None
-                   for ax in logical if ax in EXECUTED)
+        return bool(self.shard_axes(logical))
 
     def param_shardings(self, spec_tree: Dict[str, Tuple],
                         shapes: Dict[str, Tuple]) -> Dict[str, Tuple]:
@@ -468,12 +567,66 @@ class Sharder:
                 for k, s in spec_tree.items()}
 
     def model_summed(self, name: str) -> bool:
-        """Whether the gradient of parameter ``name`` is a partial sum
-        over the model line: the MoE router under expert parallelism,
-        which sees only this rank's tokens (or, without ``seq_sp``, its
-        1/tp share of the cotangent)."""
-        return self.experts_sharded() and \
-            name.split(".")[-2:] == ["mlp", "router"]
+        """Whether the gradient of parameter ``name``, replicated over
+        the model line, is a partial sum there: the MoE router under
+        expert parallelism, which sees only this rank's tokens (or,
+        without ``seq_sp``, its 1/tp share of the cotangent); the
+        qk-norm scales under sharded heads, and GQA's K and V
+        projections where the heads are sharded and the KV heads are
+        not, which see only the heads this rank computes."""
+        group, leaf = ([""] + name.split("."))[-2:]
+        if self.experts_sharded() and (group, leaf) == ("mlp", "router"):
+            return True
+        heads, kv = self.placement(("heads", "kv_heads"))
+        if group != "attn" or heads is None:
+            return False
+        if leaf in ("q_scale", "k_scale"):
+            return True
+        return leaf in ("wk", "wv") and kv is None and \
+            self.cfg.attn_kind != "mla"
+
+    def gathered(self, p, group: str) -> dict:
+        """The leaves of the parameter group ``p`` (a ``ParameterDict``
+        of the group ``group``: "attn", "mlp", ...) ready for use: each
+        leaf FSDP shards over the data line gathered (``GatherLeaf``,
+        its gradient reduce-scattered back); ``p`` itself where none
+        is."""
+        axis = self.line("residual")
+        if axis.size == 1:
+            return p
+        out = {}
+        for k, v in p.items():
+            out[k] = v
+            if isinstance(v, torch.Tensor):
+                spec = param_spec(f"{group}.{k}", self.cfg)
+                if "residual" in spec:
+                    out[k] = GatherLeaf.apply(v, axis, spec.index("residual"))
+        return out
+
+
+def _names(r) -> Tuple[str, ...]:
+    return (r,) if isinstance(r, str) else tuple(r)
+
+
+def line(shd: Optional[Sharder], ax: str) -> Axis:
+    """``shd.line(ax)``, a line of one rank without a sharder."""
+    return Axis((), 1, 0) if shd is None else shd.line(ax)
+
+
+def gathered(shd: Optional[Sharder], p, group: str):
+    """``shd.gathered(p, group)``, ``p`` itself without a sharder."""
+    return p if shd is None else shd.gathered(p, group)
+
+
+def gather_placed(t: torch.Tensor, placement: Tuple, mesh: Mesh
+                  ) -> torch.Tensor:
+    """The whole array of a leaf whose block this rank holds under
+    ``placement`` (``Sharder.placement``), gathered over its lines (a
+    collective: every rank calls it, in the same order)."""
+    for dim, r in enumerate(placement):
+        if r is not None:
+            t = mesh.axis(r).all_gather(t.detach().contiguous(), dim)
+    return t
 
 
 def shard_params(tree: Dict[str, torch.Tensor], sharder: Sharder,
@@ -492,14 +645,8 @@ def gather_params(tree: Dict[str, torch.Tensor], sharder: Sharder,
     over the executed axes (a collective: every rank calls it, with the
     same names in the same order)."""
     specs = specs or {k: param_spec(k, sharder.cfg) for k in tree}
-    out = {}
-    for k, v in tree.items():
-        for dim, ax in enumerate(specs[k]):
-            if ax in EXECUTED and sharder.rules.get(ax) is not None:
-                v = sharder.mesh.axis(sharder.rules[ax]).all_gather(
-                    v.detach(), dim)
-        out[k] = v
-    return out
+    return {k: gather_placed(v, sharder.placement(specs[k]), sharder.mesh)
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -580,3 +727,76 @@ class LeaveReplicated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g / ctx.axis.size, None
+
+
+class ReduceOver(torch.autograd.Function):
+    """The row-parallel exit: the ranks' partial products summed over
+    the line forward; the backward passes the (replicated, whole)
+    cotangent to each partial product unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherLeaf(torch.autograd.Function):
+    """Every rank's block of ``dim`` gathered in line order (FSDP's
+    gather of a leaf before use); the backward sums the whole cotangent
+    over the line and takes this rank's block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.reduce_scatter(g.contiguous(), ctx.dim), None, None
+
+
+def enter(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``EnterReplicated`` over ``axis``; ``x`` itself on a line of one
+    rank."""
+    return x if axis.size == 1 else EnterReplicated.apply(x, axis)
+
+
+def reduce_over(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``ReduceOver`` over ``axis``; ``x`` itself on a line of one
+    rank."""
+    return x if axis.size == 1 else ReduceOver.apply(x, axis)
+
+
+class VocabNLL(torch.autograd.Function):
+    """The negative log likelihood of each label from this rank's block
+    of the vocabulary's logits (..., n) float32, block i of the model
+    line ``axis`` holding columns [i n, (i + 1) n): the maximum, the sum
+    of exponentials and the gold logit reduced over the line, so each
+    rank returns the whole nll (...,) and never gathers the logits.  The
+    backward is this rank's block of softmax - onehot, times the
+    (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, axis):
+        n = logits.shape[-1]
+        local = labels.long() - axis.index * n
+        inside = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        m = axis.all_reduce(logits.amax(-1), op=dist.ReduceOp.MAX)
+        e = torch.exp(logits - m[..., None])
+        s = axis.all_reduce(e.sum(-1))
+        gold = logits.gather(-1, local[..., None])[..., 0]
+        gold = axis.all_reduce(torch.where(inside, gold, gold.new_zeros(())))
+        ctx.save_for_backward(e, s, local, inside)
+        return (torch.log(s) + m) - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, local, inside = ctx.saved_tensors
+        grad = e / s[..., None] * g[..., None]
+        hit = torch.where(inside, g, g.new_zeros(()))
+        grad = grad.scatter_add(-1, local[..., None], -hit[..., None])
+        return grad, None, None

@@ -17,20 +17,24 @@ under GSPMD on its mesh, as the port executes it:
 * the loss is the mean over the global microbatch, every unmasked token
   counted once: each rank's sum is divided by the count summed over the
   data line, and the ranks' quotients are summed, never averaged;
-* the gradients are summed over the data line, and those of leaves that
-  only this rank's tokens reach (the MoE router under expert
-  parallelism, ``Sharder.model_summed``) over the model line too;
-  replicated leaves computed on replicated activations are not summed
-  there;
-* the clip's global norm counts each replicated leaf once and sums each
-  expert slab's squares over the model line;
-* the optimizer updates each rank's leaves, expert slabs included, in
-  place.
+* each rank holds its block of every leaf (``Sharder.placement``) and
+  its gradient of that block.  A leaf sharded over the model line has
+  no sum there; a leaf replicated on it gets its whole gradient from
+  the Megatron pair around the tensor-parallel regions, except those
+  that see only this rank's share (``Sharder.model_summed``: the MoE
+  router under expert parallelism, the qk-norm scales and GQA's
+  unsharded K and V projections under sharded heads), which are summed
+  over the model line.  FSDP's leaves were reduce-scattered over the
+  data line in the backward (``GatherLeaf``); every other leaf is
+  summed over it;
+* the clip's global norm sums each leaf's squares once, over the axes
+  that shard it;
+* the optimizer updates each rank's blocks in place (ZeRO-1: AdamW's
+  moments cut further over the data line, ``optim/adamw.py``).
 
-Nothing sums the replicated leaves' gradients over the model line: its
-ranks compute them from the same activations, and ``check_replicas``
-holds them equal bit for bit (the mesh runs deterministic algorithms on
-the card, ``sharding.make_mesh``).
+``check_replicas`` holds every leaf equal bit for bit over each line it
+is not sharded on (the mesh runs deterministic algorithms on the card,
+``sharding.make_mesh``).
 """
 from __future__ import annotations
 
@@ -66,10 +70,11 @@ class _Plan:
 
     def __init__(self, model, shd: Sharder | None):
         shd = shd or Sharder(model.cfg, None)
+        self.shd = shd
         self.data, self.model_line = shd.data_axis(), shd.model_axis()
         names = [n for n, _ in model.named_parameters()]
-        self.sharded = [shd.is_sharded(param_spec(n, model.cfg))
-                        for n in names]
+        self.axes = [shd.shard_axes(param_spec(n, model.cfg))
+                     for n in names]
         self.summed = [shd.model_summed(n) for n in names]
 
     def rows(self, batch: dict, microbatches: int) -> list:
@@ -85,10 +90,16 @@ class _Plan:
 
     def reduce(self, grads: list) -> list:
         out = []
-        for g, summed in zip(grads, self.summed):
+        for g, axes, summed in zip(grads, self.axes, self.summed):
             if summed:
                 g = self.model_line.all_reduce(g)
-            out.append(self.data.all_reduce(g))
+            # the data-parallel axes an FSDP reduce-scatter has not summed
+            rest = tuple(a for a in self.shd.dp_axes if a not in axes)
+            if rest == self.shd.dp_axes:
+                g = self.data.all_reduce(g)
+            elif rest:
+                g = self.shd.mesh.axis(rest).all_reduce(g)
+            out.append(g)
         return out
 
 
@@ -133,7 +144,7 @@ def make_train_step(model, optimizer, microbatches: int = 1,
         for a in acc:
             a.div_(microbatches)
         loss = plan.data.all_reduce(torch.stack(losses)).mean()
-        gnorm = _norm(acc, plan.sharded, plan.model_line)
+        gnorm = _norm(acc, plan.axes, plan.shd)
         scale = torch.clamp(CLIP_NORM / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         for a in acc:
@@ -144,42 +155,56 @@ def make_train_step(model, optimizer, microbatches: int = 1,
     return train_step
 
 
-def _norm(grads, sharded, model_line) -> torch.Tensor:
-    """The global norm of the whole model's gradients: each replicated
-    leaf counted once, the sharded slabs' squares summed over the model
-    line."""
+def _norm(grads, axes, shd: Sharder) -> torch.Tensor:
+    """The global norm of the whole model's gradients: each leaf's
+    squares summed once, over the mesh axes that shard it (leaves
+    grouped by those axes, each group's sum reduced over them)."""
     zero = grads[0].new_zeros((), dtype=torch.float32)
-    rep = sum((g.float().square().sum() for g, s in zip(grads, sharded)
-               if not s), zero)
-    own = sum((g.float().square().sum() for g, s in zip(grads, sharded)
-               if s), zero)
-    return torch.sqrt(rep + model_line.all_reduce(own))
+    groups = {}
+    for g, ax in zip(grads, axes):
+        groups[ax] = groups.get(ax, zero) + g.float().square().sum()
+    total = zero
+    for ax in sorted(groups, key=sorted):
+        part = groups[ax]
+        for a in sorted(ax):
+            part = shd.mesh.axis(a).all_reduce(part)
+        total = total + part
+    return torch.sqrt(total)
 
 
 _BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def check_replicas(model, shd: Sharder | None) -> int:
-    """Raise ``RuntimeError`` unless every rank of the model line holds
-    each parameter that the line does not shard bit for bit as this rank
-    does (one digest a leaf, the int64 sum of its bits, gathered over the
-    line).  Returns the number of leaves compared: 0 without a model line
-    of several ranks."""
-    line = shd.model_axis() if shd is not None else None
-    if line is None or line.size == 1:
+    """Raise ``RuntimeError`` unless every rank of each mesh line (model,
+    and the data-parallel line) holds each parameter that the line does
+    not shard bit for bit as this rank does (one digest a leaf, the
+    int64 sum of its bits, gathered over the line).  Returns the number
+    of (leaf, line) pairs compared: 0 without a line of several
+    ranks."""
+    if shd is None or shd.mesh is None:
         return 0
     plan = _Plan(model, shd)
-    named = [(n, p.detach()) for (n, p), s in
-             zip(model.named_parameters(), plan.sharded) if not s]
-    digest = torch.stack([p.contiguous().view(_BITS[p.element_size()])
-                          .sum(dtype=torch.int64) for _, p in named])
-    every = line.all_gather(digest[None], 0)
-    differ = (every != digest).any(0).tolist()
-    if any(differ):
-        bad = [n for (n, _), d in zip(named, differ) if d]
-        raise RuntimeError(f"{len(bad)} replicated leaves differ across the "
-                           f"model line: {bad[:4]}")
-    return len(named)
+    named = [(n, p.detach()) for n, p in model.named_parameters()]
+    count = 0
+    for line, names in ((shd.model_axis(), (shd.tp_axis,)),
+                        (shd.data_axis(), shd.dp_axes)):
+        if line.size == 1:
+            continue
+        mine = [(n, p) for (n, p), ax in zip(named, plan.axes)
+                if not ax & set(names)]
+        if not mine:
+            continue
+        digest = torch.stack([p.contiguous().view(_BITS[p.element_size()])
+                              .sum(dtype=torch.int64) for _, p in mine])
+        every = line.all_gather(digest[None], 0)
+        differ = (every != digest).any(0).tolist()
+        if any(differ):
+            bad = [n for (n, _), d in zip(mine, differ) if d]
+            raise RuntimeError(f"{len(bad)} replicated leaves differ across "
+                               f"the {'x'.join(line.names)} line: {bad[:4]}")
+        count += len(mine)
+    return count
 
 
 def make_prefill_step(model):

@@ -27,8 +27,13 @@ step, given the same inputs, are what the port is held to.
 
 ``--mesh DxM`` trains over a (data, model) mesh of D x M ranks
 (``distributed/sharding.py``): each rank reads the global batch from
-``batch_at(step)`` and takes its rows, the MoE experts are sharded over
-the model axis, and every other parameter is replicated.  The ranks come
+``batch_at(step)`` and takes its rows, and holds and computes only its
+block of each leaf that the reference's rules shard (the attention
+heads, ``ff``, ``ff_expert``, ``d_inner``, the vocabulary and the MoE
+experts over the model axis, FSDP's ``residual`` over the data axis),
+with AdamW's moments cut further over the data axis (ZeRO-1).  The
+model is built sharded, the state drawn or restored sharded, and the
+parameters a rank holds are printed.  The ranks come
 from ``torchrun`` (``launch/mesh.py`` ``join_world``): ranks that share
 one card, or run on the CPU, exchange over gloo, ranks that own a card
 each over NCCL.
@@ -125,13 +130,9 @@ def train(cfg, model: LM, *, batch: int, seq: int, steps: int,
         raise ValueError(f"the model is on {model.device}, training on {dev}")
     dev = model.device
     name = optimizer or cfg.optimizer
-    if name != "adamw" and shd is not None and shd.experts_sharded():
-        raise NotImplementedError(f"{name} with sharded experts: its "
-                                  "factored statistics of the expert slabs "
-                                  "are not split over the ranks; use adamw")
     opt = get_optimizer(name, lr=lr)
     # named: Adafactor groups the layers of one stacked reference leaf
-    opt_state = opt.init(list(model.named_parameters()))
+    opt_state = opt.init(list(model.named_parameters()), shd=shd)
     step_fn = make_train_step(model, opt, microbatches=microbatches, shd=shd)
     data = DataPipeline(vocab=cfg.vocab, batch=batch, seq=seq, seed=seed)
     lead = shd is None or shd.mesh.rank == 0
@@ -172,12 +173,14 @@ def train(cfg, model: LM, *, batch: int, seq: int, steps: int,
         if mgr and done < steps and done % save_every == 0:
             check_replicas(model, shd)
             mgr.save(done, state_tree(model, opt_state), blocking=False,
-                     extra={"data_step": done}, sharder=shd)
+                     extra={"data_step": done}, sharder=shd,
+                     specs=state_specs(opt_state))
     out["replicas_checked"] = check_replicas(model, shd)
     if mgr:
         mgr.wait()
         mgr.save(steps, state_tree(model, opt_state),
-                 extra={"data_step": steps}, sharder=shd)
+                 extra={"data_step": steps}, sharder=shd,
+                 specs=state_specs(opt_state))
     return out
 
 
@@ -195,13 +198,30 @@ def state_tree(model, opt_state) -> dict:
     return {"params": dict(model.named_parameters()), "opt": opt}
 
 
+def state_specs(opt_state) -> dict:
+    """{path: placement} of the checkpoint's optimizer leaves that their
+    paths do not place (``checkpoint/manager.py``): Adafactor's
+    statistics, each placed as its group's members' dims."""
+    from ..checkpoint.manager import flatten
+    from ..optim.adafactor import stat_placements
+    out = {}
+    for i, g in enumerate(opt_state.get("groups", [])):
+        if "placement" not in g:
+            continue
+        for stat, placement in stat_placements(g).items():
+            for path, _ in flatten(g[stat], f"opt.groups.{i}.{stat}."):
+                out[path] = placement
+    return out
+
+
 @torch.no_grad()
 def restore_state(mgr: CheckpointManager, step: int, model, opt_state,
                   shd: Sharder | None = None) -> None:
     """Load checkpoint ``step`` into ``model``'s parameters and
     ``opt_state`` in place, each rank its slice under ``shd``."""
     like = state_tree(model, opt_state)
-    got = mgr.restore(step, like, sharder=shd, device=model.device)
+    got = mgr.restore(step, like, sharder=shd, device=model.device,
+                      specs=state_specs(opt_state))
 
     def copy(dst, src):
         if isinstance(dst, dict):
@@ -222,8 +242,10 @@ def main(argv=None):
         epilog="Trains every family with the config's optimizer (AdamW "
                "under --reduced); the encdec and VLM families get stub "
                "frames or patches each step.  --mesh DxM runs under "
-               "torchrun with D x M ranks: data parallel, the MoE experts "
-               "sharded over the model axis.")
+               "torchrun with D x M ranks: data parallel, every leaf the "
+               "reference's rules shard held and computed in blocks "
+               "(tensor, expert and vocabulary parallel over the model "
+               "axis, FSDP and ZeRO-1 over the data axis).")
     ap.add_argument("--arch", default="falcon-mamba-7b")
     ap.add_argument("--reduced", action="store_true",
                     help="use the CPU-sized config of the same family, "

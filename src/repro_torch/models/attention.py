@@ -20,6 +20,15 @@ whole for a row contributes exp(0) until the next chunk's ``alpha = 0``
 wipes it, as in the reference (``-inf`` would give NaN).  These are torch
 ops on the CPU and the card alike: the reference computes attention
 outside any Pallas kernel.
+
+With a sharder (``distributed/sharding.py``) a rank computes its block
+of the heads: ``wq`` and ``wo`` on ``heads``, ``wk`` and ``wv`` on
+``kv_heads``, the input entering the model line and the ``wo`` products
+summed over it.  Where the heads are sharded and the KV heads are not
+(their count does not divide the line), each rank projects every KV head
+and takes the ones its query heads read (query head h reads h //
+groups), not a contiguous 1/tp of them.  TP-padding heads are masked by
+their global index.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..distributed.sharding import enter, gathered, line, reduce_over
 from .config import ModelConfig
 from .layers import TensorSpec, apply_rope, dense_init, torch_dtype
 
@@ -182,30 +192,58 @@ def _check_rows(pos: torch.Tensor, rows: int):
                          f"cache's {rows} rows")
 
 
-def _zero_padding_heads(out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """out (B, S, H, dh) with the heads past ``n_heads`` zeroed (the
-    TP-padding heads, function-preserving)."""
+def _zero_padding_heads(out: torch.Tensor, cfg: ModelConfig,
+                        h0: int = 0) -> torch.Tensor:
+    """out (B, S, H, dh), heads h0 .. h0 + H - 1 of the model's, with
+    the heads past ``n_heads`` zeroed (the TP-padding heads,
+    function-preserving)."""
     H = out.shape[2]
-    if H == cfg.n_heads:
+    if h0 + H <= cfg.n_heads:
         return out
-    live = torch.arange(H, device=out.device) < cfg.n_heads
+    live = torch.arange(h0, h0 + H, device=out.device) < cfg.n_heads
     return out * live[None, None, :, None].to(out.dtype)
+
+
+def head_blocks(p, cfg: ModelConfig, shd):
+    """(the model line the heads are sharded over, the first global
+    query head this rank computes, its query heads, its KV heads, the
+    global index of its first KV head) for the GQA weights ``p``."""
+    dh = cfg.d_head
+    hl, kl = line(shd, "heads"), line(shd, "kv_heads")
+    Hl, KVl = p["wq"].shape[1] // dh, p["wk"].shape[1] // dh
+    return hl, hl.index * Hl, Hl, KVl, kl.index * KVl
+
+
+def kv_for_heads(k: torch.Tensor, cfg: ModelConfig, h0: int, Hl: int,
+                 kv0: int) -> torch.Tensor:
+    """k (B, S, KVl, dh), KV heads kv0 .. kv0 + KVl - 1 of the model's,
+    repeated to the Hl query heads from h0 (query head h reads KV head
+    h // groups): ``repeat_kv`` where the blocks line up."""
+    H = cfg.n_heads_padded or cfg.n_heads
+    KV = cfg.n_kv_heads_padded or cfg.n_kv_heads
+    groups = H // KV
+    if Hl == k.shape[2] * groups and h0 == kv0 * groups:
+        return repeat_kv(k, groups)
+    idx = torch.arange(h0, h0 + Hl, device=k.device) // groups - kv0
+    return k[:, :, idx]
 
 
 def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, mode: str,
               cache: Optional[KVCache] = None,
-              pos: Optional[torch.Tensor] = None
+              pos: Optional[torch.Tensor] = None, shd=None
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x: (B, S, D); positions: (B, S).  mode: "train" | "prefill" |
     "decode".  Prefill returns the filled cache (S rows); decode (S == 1)
     takes the cache and returns a new one with each sequence's K/V row
-    written at its ``pos`` (B,); a position outside the cache raises."""
+    written at its ``pos`` (B,); a position outside the cache raises.
+    With ``shd``, this rank's heads (module docstring); the cache holds
+    its KV heads."""
     B, S, D = x.shape
     dh = cfg.d_head
-    H = cfg.n_heads_padded or cfg.n_heads
-    KV = cfg.n_kv_heads_padded or cfg.n_kv_heads
-    groups = H // KV
+    p = gathered(shd, p, "attn")
+    hl, h0, H, KV, kv0 = head_blocks(p, cfg, shd)
+    x = enter(x, hl)
 
     q = (x @ p["wq"]).reshape(B, S, H, dh)
     k = (x @ p["wk"]).reshape(B, S, KV, dh)
@@ -229,19 +267,21 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
         v_cache = cache.v.index_put(at, v[:, 0])
         new_cache = KVCache(k_cache, v_cache)
         out = decode_attention(
-            q, repeat_kv(k_cache, groups), repeat_kv(v_cache, groups), pos,
+            q, kv_for_heads(k_cache, cfg, h0, H, kv0),
+            kv_for_heads(v_cache, cfg, h0, H, kv0), pos,
             window=cfg.sliding_window)
     elif mode in ("train", "prefill"):
         out = blockwise_attention(
-            q, repeat_kv(k, groups), repeat_kv(v, groups),
+            q, kv_for_heads(k, cfg, h0, H, kv0),
+            kv_for_heads(v, cfg, h0, H, kv0),
             causal=True, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
             window=cfg.sliding_window)
         if mode == "prefill":
             new_cache = KVCache(k, v)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    out = _zero_padding_heads(out, cfg).reshape(B, S, H * dh)
-    return out @ p["wo"], new_cache
+    out = _zero_padding_heads(out, cfg, h0).reshape(B, S, H * dh)
+    return reduce_over(out @ p["wo"], hl), new_cache
 
 
 def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int) -> KVCache:
@@ -273,15 +313,19 @@ def cross_attn_init(gen, cfg: ModelConfig, device) -> dict:
             "wo": dense_init(gen, H * dh, D, dtype, device)}
 
 
-def cross_attn_apply(p, x: torch.Tensor, enc_kv, cfg: ModelConfig
-                     ) -> torch.Tensor:
+def cross_attn_apply(p, x: torch.Tensor, enc_kv, cfg: ModelConfig,
+                     shd=None) -> torch.Tensor:
     """x: (B, S, D) decoder stream; enc_kv: (k, v) each (B, Senc, H, dh).
     A decode step (S == 1) attends through ``decode_attention`` at
     position Senc - 1, which sees every encoder row; prefill runs
-    non-causal ``blockwise_attention``."""
+    non-causal ``blockwise_attention``.  With ``shd``, this rank's block
+    of the heads (and of enc_kv's, ``cross_kv``)."""
     B, S, D = x.shape
     dh = cfg.d_head
-    H = cfg.n_heads_padded or cfg.n_heads
+    p = gathered(shd, p, "xattn")
+    hl = line(shd, "heads")
+    H = p["wq"].shape[1] // dh
+    x = enter(x, hl)
     q = (x @ p["wq"]).reshape(B, S, H, dh)
     k, v = enc_kv
     if S == 1:
@@ -291,16 +335,18 @@ def cross_attn_apply(p, x: torch.Tensor, enc_kv, cfg: ModelConfig
     else:
         out = blockwise_attention(q, k, v, causal=False,
                                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    out = _zero_padding_heads(out, cfg)
-    return out.reshape(B, S, H * dh) @ p["wo"]
+    out = _zero_padding_heads(out, cfg, hl.index * H)
+    return reduce_over(out.reshape(B, S, H * dh) @ p["wo"], hl)
 
 
-def cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+def cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig, shd=None):
     """The encoder output's cross-attention K and V, each
-    (B, Senc, H, dh)."""
+    (B, Senc, H, dh); with ``shd`` this rank's block of the heads."""
     B, Senc, D = enc_out.shape
     dh = cfg.d_head
-    H = cfg.n_heads_padded or cfg.n_heads
+    p = gathered(shd, p, "xattn")
+    H = p["wk"].shape[1] // dh
+    enc_out = enter(enc_out, line(shd, "heads"))
     k = (enc_out @ p["wk"]).reshape(B, Senc, H, dh)
     v = (enc_out @ p["wv"]).reshape(B, Senc, H, dh)
     return k, v

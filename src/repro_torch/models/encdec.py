@@ -15,6 +15,11 @@ layers become Python loops, and the caches come back stacked on a
 leading layer axis.  Prefill computes each decoder layer's cross K/V from
 the encoder's output once and keeps them in the cache; a decode step
 reads them there and writes only its self-attention row.
+
+With a sharder every group is this rank's block, as in ``LM``: the
+self- and cross-attention heads and the MLP's ``ff`` tensor parallel,
+the embedding and the tied head on the vocabulary, and under FSDP the
+position table's ``residual`` columns gathered before use.
 """
 from __future__ import annotations
 
@@ -25,14 +30,18 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .attention import (KVCache, blockwise_attention, cross_attn_apply,
-                        cross_attn_init, cross_kv, gqa_apply, gqa_cache_shape,
-                        gqa_init, repeat_kv, _zero_padding_heads)
+from ..distributed.sharding import (GatherLeaf, enter, gathered, line,
+                                    reduce_over)
+from .attention import (KVCache, _zero_padding_heads, blockwise_attention,
+                        cross_attn_apply, cross_attn_init, cross_kv,
+                        gqa_apply, gqa_cache_shape, gqa_init, head_blocks,
+                        kv_for_heads)
 from .config import ModelConfig
 from .layers import (TensorSpec, apply_norm, embed_init, embed_lookup,
-                     head_init, logits_apply, mlp_apply, mlp_init,
-                     normal_init, norm_init, torch_dtype)
-from .transformer import _params, chunked_ce_sum, map_cache
+                     head_init, mlp_apply, mlp_init, normal_init, norm_init,
+                     torch_dtype)
+from .transformer import (_params, chunked_ce_sum, group_params, map_cache,
+                          shard_group, whole_logits)
 
 POS_TABLE_ROWS = 32768
 
@@ -57,75 +66,83 @@ def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
     return torch.from_numpy(table.astype(np.float32)).to(device)
 
 
-def _bidir_attn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Non-causal self-attention (the encoder's) with GQA's weights."""
+def _bidir_attn(p, x: torch.Tensor, cfg: ModelConfig,
+                shd=None) -> torch.Tensor:
+    """Non-causal self-attention (the encoder's) with GQA's weights;
+    with ``shd`` this rank's heads, as ``gqa_apply``'s."""
     B, S, D = x.shape
     dh = cfg.d_head
-    H = cfg.n_heads_padded or cfg.n_heads
-    KV = cfg.n_kv_heads_padded or cfg.n_kv_heads
+    p = gathered(shd, p, "attn")
+    hl, h0, H, KV, kv0 = head_blocks(p, cfg, shd)
+    x = enter(x, hl)
     q = (x @ p["wq"]).reshape(B, S, H, dh)
     k = (x @ p["wk"]).reshape(B, S, KV, dh)
     v = (x @ p["wv"]).reshape(B, S, KV, dh)
-    out = blockwise_attention(q, repeat_kv(k, H // KV), repeat_kv(v, H // KV),
+    out = blockwise_attention(q, kv_for_heads(k, cfg, h0, H, kv0),
+                              kv_for_heads(v, cfg, h0, H, kv0),
                               causal=False, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)
-    return _zero_padding_heads(out, cfg).reshape(B, S, H * dh) @ p["wo"]
+    out = _zero_padding_heads(out, cfg, h0).reshape(B, S, H * dh)
+    return reduce_over(out @ p["wo"], hl)
 
 
 class EncBlock(nn.Module):
     """x + attn(norm1(x)), then x + mlp(norm2(x)); the decoder's block
     adds norm_x and the cross-attention between the two."""
 
-    def __init__(self, cfg: ModelConfig, gen, device):
+    def __init__(self, cfg: ModelConfig, gen, device, shd=None):
         super().__init__()
         self.cfg = cfg
+        self.shd = shd
         dtype = torch_dtype(cfg.param_dtype)
         self.norm1 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                        device))
-        self.attn = _params(gqa_init(gen, cfg, device))
+        self.attn = group_params(gqa_init(gen, cfg, device), "attn", shd,
+                                 cfg)
         self.norm2 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                        device))
-        self.mlp = _params(mlp_init(gen, cfg, device))
+        self.mlp = group_params(mlp_init(gen, cfg, device), "mlp", shd, cfg)
 
     def forward(self, x):
-        cfg = self.cfg
+        cfg, shd = self.cfg, self.shd
         x = x + _bidir_attn(self.attn, apply_norm(self.norm1, x,
-                                                  cfg.norm_kind), cfg)
+                                                  cfg.norm_kind), cfg, shd)
         return x + mlp_apply(self.mlp, apply_norm(self.norm2, x,
-                                                  cfg.norm_kind), cfg)
+                                                  cfg.norm_kind), cfg, shd)
 
 
 class DecBlock(EncBlock):
     """Causal self-attention, cross-attention, the MLP; each pre-norm
     and residual."""
 
-    def __init__(self, cfg: ModelConfig, gen, device):
-        super().__init__(cfg, gen, device)
+    def __init__(self, cfg: ModelConfig, gen, device, shd=None):
+        super().__init__(cfg, gen, device, shd)
         self.norm_x = _params(norm_init(cfg.d_model, cfg.norm_kind,
                                         torch_dtype(cfg.param_dtype),
                                         device))
-        self.xattn = _params(cross_attn_init(gen, cfg, device))
+        self.xattn = group_params(cross_attn_init(gen, cfg, device), "xattn",
+                                  shd, cfg)
 
     def forward(self, x, enc_out=None, *, mode, positions, cache=None,
                 pos=None):
         """Returns (x, this layer's ``EncDecCache`` slice, None in train
         mode).  Decode reads the cross K/V from ``cache``; train and
         prefill compute them from ``enc_out``."""
-        cfg = self.cfg
+        cfg, shd = self.cfg, self.shd
         h = apply_norm(self.norm1, x, cfg.norm_kind)
         a, new_kv = gqa_apply(self.attn, h, cfg, positions=positions,
                               mode=mode,
                               cache=None if cache is None else cache.self_kv,
-                              pos=pos)
+                              pos=pos, shd=shd)
         x = x + a
         hx = apply_norm(self.norm_x, x, cfg.norm_kind)
         if mode == "decode":
             ck, cv = cache.cross_k, cache.cross_v
         else:
-            ck, cv = cross_kv(self.xattn, enc_out, cfg)
-        x = x + cross_attn_apply(self.xattn, hx, (ck, cv), cfg)
+            ck, cv = cross_kv(self.xattn, enc_out, cfg, shd)
+        x = x + cross_attn_apply(self.xattn, hx, (ck, cv), cfg, shd)
         x = x + mlp_apply(self.mlp, apply_norm(self.norm2, x, cfg.norm_kind),
-                          cfg)
+                          cfg, shd)
         return x, None if mode == "train" else EncDecCache(new_kv, ck, cv)
 
 
@@ -136,8 +153,7 @@ class EncDecLM(nn.Module):
     ``generator`` draws the parameters (embedding, position table,
     encoder, decoder, head, in that order); ``None`` leaves them
     uninitialized for ``interop.lm_from_reference`` to fill.  ``shd``
-    is kept for the data-parallel step; the family has no expert to
-    shard."""
+    makes the model this rank's, as ``LM``'s (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, *, device, generator=None,
                  shd=None):
@@ -149,18 +165,22 @@ class EncDecLM(nn.Module):
         self.cfg = cfg
         gen = generator
         dtype = torch_dtype(cfg.param_dtype)
-        self.embed = _params(embed_init(gen, cfg, device))
-        self.pos_table = nn.Parameter(normal_init(
-            gen, (POS_TABLE_ROWS, cfg.d_model), 0.01, dtype, device))
-        self.enc_layers = nn.ModuleList(EncBlock(cfg, gen, device)
+        self.embed = group_params(embed_init(gen, cfg, device), "embed",
+                                  shd, cfg)
+        self.pos_table = nn.Parameter(shard_group(
+            {"pos_table": normal_init(gen, (POS_TABLE_ROWS, cfg.d_model),
+                                      0.01, dtype, device)}, "", shd,
+            cfg)["pos_table"])
+        self.enc_layers = nn.ModuleList(EncBlock(cfg, gen, device, shd)
                                         for _ in range(cfg.n_encoder_layers))
-        self.dec_layers = nn.ModuleList(DecBlock(cfg, gen, device)
+        self.dec_layers = nn.ModuleList(DecBlock(cfg, gen, device, shd)
                                         for _ in range(cfg.n_layers))
         self.enc_norm = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                           device))
         self.dec_norm = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                           device))
-        self.head = _params(head_init(gen, cfg, device))
+        self.head = group_params(head_init(gen, cfg, device), "head", shd,
+                                 cfg)
 
     @property
     def device(self) -> torch.device:
@@ -190,8 +210,17 @@ class EncDecLM(nn.Module):
         if S > POS_TABLE_ROWS:
             raise ValueError(f"{S} tokens past the {POS_TABLE_ROWS}-row "
                              "position table")
-        x = embed_lookup(self.embed, tokens).to(torch_dtype(self.cfg.dtype))
-        return x + self.pos_table[:S][None].to(x.dtype)
+        x = embed_lookup(self.embed, tokens, self.shd).to(
+            torch_dtype(self.cfg.dtype))
+        return x + self._pos_table()[:S][None].to(x.dtype)
+
+    def _pos_table(self):
+        """The whole position table: under FSDP this rank's columns
+        gathered over the data line."""
+        axis = line(self.shd, "residual")
+        if axis.size == 1:
+            return self.pos_table
+        return GatherLeaf.apply(self.pos_table, axis, 1)
 
     def _dec_layers(self, x, enc_out, *, mode, positions, caches=None,
                     pos=None):
@@ -215,7 +244,8 @@ class EncDecLM(nn.Module):
 
     def _logits(self, x):
         x = apply_norm(self.dec_norm, x, self.cfg.norm_kind)
-        return logits_apply(self._head(), x[:, -1:], self.cfg)[:, 0]
+        return whole_logits(self._head(), x[:, -1:], self.cfg,
+                            self.shd)[:, 0]
 
     @staticmethod
     def _positions(x):
@@ -237,7 +267,8 @@ class EncDecLM(nn.Module):
         x, _ = self._dec_layers(x, enc_out, mode="train",
                                 positions=self._positions(x))
         x = apply_norm(self.dec_norm, x, self.cfg.norm_kind)
-        return chunked_ce_sum(self._head(), x, batch["labels"], self.cfg)
+        return chunked_ce_sum(self._head(), x, batch["labels"], self.cfg,
+                              shd=self.shd)
 
     def prefill(self, tokens, frames=None):
         """tokens: (B, S) integer; frames: (B, S_enc, D).  Returns
@@ -257,7 +288,8 @@ class EncDecLM(nn.Module):
         if bool(((pos < 0) | (pos >= POS_TABLE_ROWS)).any()):
             raise IndexError(f"decode position {pos.tolist()} outside the "
                              f"{POS_TABLE_ROWS}-row position table")
-        x = (embed_lookup(self.embed, token) + self.pos_table[pos.long()])
+        x = (embed_lookup(self.embed, token, self.shd)
+             + self._pos_table()[pos.long()])
         x = x[:, None].to(torch_dtype(self.cfg.dtype))
         x, new_caches = self._dec_layers(x, None, mode="decode",
                                          positions=pos[:, None],

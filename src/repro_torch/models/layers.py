@@ -10,6 +10,13 @@ Weights keep the reference's (in, out) layout, so ``x @ w`` is the
 reference's product.  The MLPs (SwiGLU, squared ReLU, tanh-approximate
 GELU) and RoPE, which rotates the two halves of the head dimension in
 float32, follow the reference op by op.
+
+With a sharder (``distributed/sharding.py``) each function computes on
+this rank's blocks: ``mlp_apply`` column-parallel on ``ff`` and
+row-parallel back, ``embed_lookup`` and ``vocab_nll`` on this rank's
+rows of the vocabulary, FSDP's leaves gathered over the data line
+before use.  Without one they are the one-device functions, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (VocabNLL, enter, gathered, line,
+                                    reduce_over)
 from .config import ModelConfig
 
 
@@ -98,16 +107,22 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: int | None = None) -> dict:
             "w_down": dense_init(gen, F_, D, dtype, device)}
 
 
-def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig, shd=None
+              ) -> torch.Tensor:
     """x: (..., D) -> (..., D) in x's dtype.  Any kind but swiglu and relu2
-    is the tanh-approximate GELU, as in the reference."""
+    is the tanh-approximate GELU, as in the reference.  With ``shd`` the
+    hidden units are this rank's ``ff`` block: x enters the model line,
+    and the row-parallel ``w_down`` products are summed over it."""
+    ff = line(shd, "ff")
+    p = gathered(shd, p, "mlp")
+    x = enter(x, ff)
     if cfg.mlp_kind == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     elif cfg.mlp_kind == "relu2":  # nemotron-4 squared ReLU
         h = F.relu(x @ p["w_in"]).square()
     else:  # gelu (whisper); jax.nn.gelu(approximate=True)
         h = F.gelu(x @ p["w_in"], approximate="tanh")
-    return h @ p["w_down"]
+    return reduce_over(h @ p["w_down"], ff)
 
 
 # ---------------------------------------------------------------------------
@@ -146,8 +161,20 @@ def embed_init(gen, cfg: ModelConfig, device) -> dict:
                                  torch_dtype(cfg.param_dtype), device)}
 
 
-def embed_lookup(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def embed_lookup(p, tokens: torch.Tensor, shd=None) -> torch.Tensor:
+    """The table's rows of ``tokens``.  With ``shd`` the table is this
+    rank's block of the ``vocab`` rows: ids outside it read zero, and
+    the rows are summed over the model line (each id is one rank's)."""
+    table = gathered(shd, p, "embed")["table"]
+    vl = line(shd, "vocab")
+    if vl.size == 1:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - vl.index * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return reduce_over(torch.where(inside[..., None], rows,
+                                   rows.new_zeros(())), vl)
 
 
 def logits_apply(p_head, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -159,6 +186,31 @@ def logits_apply(p_head, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e9)
     return logits
+
+
+def vocab_nll(p_head, x: torch.Tensor, labels: torch.Tensor,
+              cfg: ModelConfig, shd=None) -> torch.Tensor:
+    """``token_nll(logits_apply(p_head, x, cfg), labels)``, the negative
+    log likelihood of each label, (..., ) float32.  With ``shd`` the head
+    holds this rank's columns of the vocabulary (a tied head, the
+    embedding's rows): x enters the model line, the rank's logits stay
+    its own, and the maximum, the sum of exponentials and the gold logit
+    are reduced over the line (``VocabNLL``); the whole logits are never
+    gathered."""
+    vl = line(shd, "vocab")
+    if vl.size == 1:
+        return token_nll(logits_apply(p_head, x, cfg), labels)
+    group = "embed" if "table" in p_head else "head"
+    p_head = gathered(shd, p_head, group)
+    x = enter(x, vl)
+    logits = (x @ p_head["table"].T if "table" in p_head
+              else x @ p_head["w"]).float()
+    n = logits.shape[-1]
+    lo = vl.index * n
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(lo, lo + n, device=x.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e9)
+    return VocabNLL.apply(logits, labels, vl)
 
 
 def head_init(gen, cfg: ModelConfig, device) -> dict:

@@ -15,6 +15,17 @@ dA, dBx, the scan, y, ``D``, ``A_log`` and the silu gate in float32, cast
 back where the reference casts.  Train mode is the prefill body without a
 cache; autograd carries gradients through the conv, the discretization,
 the scan (its backward kernel on the card) and the y contraction.
+
+With a sharder (``distributed/sharding.py``) a rank computes its block
+of the ``d_inner`` channels: ``w_in`` and ``w_dt`` column-parallel, the
+conv, ``dt_bias``, ``A_log`` and ``D`` per channel, the scan (the CUDA
+kernels on the card) on the rank's d_inner / tp channels, and ``w_x``
+and ``w_out`` row-parallel, summed over the model line.  ``w_in``'s
+block of the reference's layout is a block of the [x, z] columns, not
+the rank's x and z channels, so its product is gathered over the line
+and the rank takes its channels of each half; the backward sums the
+cotangent back to each block.  ``dt_r``, B and C, summed over the line,
+enter it again, since every channel reads them.
 """
 from __future__ import annotations
 
@@ -24,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.fp import fma
+from ..distributed.sharding import (GatherLeaf, enter, gathered, line,
+                                    reduce_over)
 from ..kernels.ssm_scan import ssm_scan_bt_ds
 from .config import ModelConfig
 from .layers import TensorSpec, dense_init, normal_init, torch_dtype
@@ -54,11 +67,14 @@ def mamba_init(gen, cfg: ModelConfig, device) -> dict:
     return p
 
 
-def _ssm_coeffs(p, xc, cfg: ModelConfig):
+def _ssm_coeffs(p, xc, cfg: ModelConfig, dl=None):
     """xc: (B, T, di) post-conv activations -> discretized (dA, dBx, Cc),
-    float32, (B, T, di, st) and (B, T, st)."""
+    float32, (B, T, di, st) and (B, T, st).  ``dl`` is the model line the
+    channels are sharded over (module docstring)."""
     st, dr = cfg.ssm_state, cfg.dt_rank
     proj = xc @ p["w_x"]                                    # (B, T, dr+2st)
+    if dl is not None and dl.size > 1:
+        proj = enter(reduce_over(proj, dl), dl)
     dt_r, B_ssm, C_ssm = proj.split([dr, st, st], dim=-1)
     dt = F.softplus((dt_r @ p["w_dt"]).float()
                     + p["dt_bias"].float())                 # (B, T, di)
@@ -98,15 +114,32 @@ def _causal_conv_chunk(p, x_chunk, tail, cv):
     return out + p["conv_b"], new_tail
 
 
+def _in_proj(p, x, dl):
+    """x @ w_in split into (x, z), each (B, S, di) of this rank's
+    channels (module docstring)."""
+    xz = enter(x, dl) @ p["w_in"]
+    di = xz.shape[-1] // 2
+    if dl.size == 1:
+        return xz.split([di, di], dim=-1)
+    whole = GatherLeaf.apply(xz, dl, xz.dim() - 1)
+    half = whole.shape[-1] // 2
+    lo = dl.index * di
+    return whole[..., lo:lo + di], whole[..., half + lo:half + lo + di]
+
+
 def mamba_apply(p, x, cfg: ModelConfig, *, mode: str,
                 cache: MambaCache | None = None,
-                chunk: int = 512) -> Tuple[torch.Tensor, MambaCache | None]:
+                chunk: int = 512, shd=None
+                ) -> Tuple[torch.Tensor, MambaCache | None]:
     """x: (B, S, D) (S == 1 for decode).  Returns (out (B, S, D), the new
-    cache in prefill and decode mode, else None)."""
+    cache in prefill and decode mode, else None).  With ``shd``, this
+    rank's channels (module docstring); the cache holds them."""
     B, S, D = x.shape
-    di, st, cv = cfg.d_inner, cfg.ssm_state, cfg.conv_dim
-    xz = x @ p["w_in"]
-    xr, z = xz.split([di, di], dim=-1)                      # (B, S, di) each
+    st, cv = cfg.ssm_state, cfg.conv_dim
+    p = gathered(shd, p, "ssm")
+    dl = line(shd, "d_inner")
+    xr, z = _in_proj(p, x, dl)                              # (B, S, di) each
+    di = xr.shape[-1]
 
     if mode == "decode":
         if cache is None:
@@ -114,13 +147,13 @@ def mamba_apply(p, x, cfg: ModelConfig, *, mode: str,
         conv_win = torch.cat([cache.conv, xr], dim=1)       # (B, cv, di)
         xc = torch.einsum("bcd,cd->bd", conv_win, p["conv_w"]) + p["conv_b"]
         xc = F.silu(xc)[:, None]                            # (B, 1, di)
-        dA, dBx, C_ssm = _ssm_coeffs(p, xc, cfg)
+        dA, dBx, C_ssm = _ssm_coeffs(p, xc, cfg, dl)
         h = fma(cache.h, dA[:, 0], dBx[:, 0])               # (B, di, st)
         y = torch.einsum("bds,bs->bd", h, C_ssm[:, 0])[:, None]
         y = y + p["D"] * xc.float()
         new_cache = MambaCache(h=h, conv=conv_win[:, 1:])
         out = (y * F.silu(z.float())).to(x.dtype)
-        return out @ p["w_out"], new_cache
+        return reduce_over(out @ p["w_out"], dl), new_cache
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -134,7 +167,7 @@ def mamba_apply(p, x, cfg: ModelConfig, *, mode: str,
     for c0 in range(0, S, T):
         xc, tail = _causal_conv_chunk(p, xr[:, c0:c0 + T], tail, cv)
         xc = F.silu(xc)
-        dA, dBx, C_ssm = _ssm_coeffs(p, xc, cfg)
+        dA, dBx, C_ssm = _ssm_coeffs(p, xc, cfg, dl)
         if x.is_cuda or cfg.ssm_impl == "kernel":
             hs, h = ssm_scan_bt_ds(dA, dBx, h)
         else:
@@ -149,7 +182,7 @@ def mamba_apply(p, x, cfg: ModelConfig, *, mode: str,
     if mode == "prefill":
         new_cache = MambaCache(h=h, conv=tail[:, -(cv - 1):].to(x.dtype)
                                if cv > 1 else tail)
-    return y @ p["w_out"], new_cache
+    return reduce_over(y @ p["w_out"], dl), new_cache
 
 
 def mamba_cache_shape(cfg: ModelConfig, batch: int) -> MambaCache:

@@ -15,6 +15,12 @@ both score products in float32, the softmax weights cast to the cache's
 dtype before the PV product, and the mask ``arange(S) <= pos``.  It
 writes each sequence's latent row at its ``pos`` and raises
 ``IndexError`` for a position outside the cache, as GQA decode does.
+
+With a sharder a rank computes its block of the heads: ``wq_b``,
+``wkv_b`` and ``wo`` on ``heads``; ``wq_a`` and ``wkv_a`` stay whole on
+the model line (the reference's ``("residual", None)``), so the query
+latent, the KV latent and the shared positional key enter the line
+after them, and the ``wo`` products are summed over it.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..distributed.sharding import enter, gathered, line, reduce_over
 from .attention import NEG_INF, _check_rows, _einsum_f32, blockwise_attention
 from .config import ModelConfig
 from .layers import (TensorSpec, apply_norm, apply_rope, dense_init,
@@ -51,37 +58,42 @@ def mla_init(gen, cfg: ModelConfig, device) -> dict:
             "wo": dense_init(gen, H * vh, D, dtype, device)}
 
 
-def _project_q(p, x, cfg: ModelConfig, positions):
+def _project_q(p, x, cfg: ModelConfig, positions, hl):
     B, S, _ = x.shape
-    H, qn, qr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm") @ p["wq_b"]
+    qn, qr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    H = p["wq_b"].shape[1] // (qn + qr)
+    q = enter(apply_norm(p["q_norm"], x @ p["wq_a"], "rmsnorm"), hl) \
+        @ p["wq_b"]
     q = q.reshape(B, S, H, qn + qr)
     q_nope, q_pe = q[..., :qn], q[..., qn:]
     return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
 
 
-def _latents(p, x, cfg: ModelConfig, positions):
+def _latents(p, x, cfg: ModelConfig, positions, hl):
     kvl = cfg.kv_lora
     kv = x @ p["wkv_a"]                                     # (B, S, kvl+qr)
     c_kv = apply_norm(p["kv_norm"], kv[..., :kvl], "rmsnorm")
     k_pe = apply_rope(kv[..., kvl:], positions, cfg.rope_theta)  # (B, S, qr)
-    return c_kv, k_pe
+    return enter(c_kv, hl), enter(k_pe, hl)
 
 
 def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, mode: str,
               cache: Optional[MLACache] = None,
-              pos: Optional[torch.Tensor] = None
+              pos: Optional[torch.Tensor] = None, shd=None
               ) -> Tuple[torch.Tensor, Optional[MLACache]]:
     """x: (B, S, D); positions: (B, S).  mode: "train" | "prefill" |
     "decode".  Prefill returns the latent cache of the S rows; decode
     (S == 1) takes it and returns a new one with each sequence's row
-    written at its ``pos`` (B,)."""
+    written at its ``pos`` (B,).  With ``shd``, this rank's heads (module
+    docstring)."""
     B, S, D = x.shape
-    H = cfg.n_heads
     qn, qr, vh, kvl = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                        cfg.kv_lora)
-    q_nope, q_pe = _project_q(p, x, cfg, positions)
+    p = gathered(shd, p, "attn")
+    hl = line(shd, "heads")
+    H = p["wq_b"].shape[1] // (qn + qr)
+    q_nope, q_pe = _project_q(p, x, cfg, positions, hl)
     wkv_b = p["wkv_b"].reshape(kvl, H, qn + vh)
 
     if mode == "decode":
@@ -90,7 +102,7 @@ def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
         if S != 1:
             raise ValueError(f"decode takes one token a sequence, got {S}")
         _check_rows(pos, cache.c_kv.shape[1])
-        c_new, kpe_new = _latents(p, x, cfg, positions)
+        c_new, kpe_new = _latents(p, x, cfg, positions, hl)
         at = (torch.arange(B, device=x.device), pos.long())
         c_kv = cache.c_kv.index_put(at, c_new[:, 0])
         k_rope = cache.k_rope.index_put(at, kpe_new[:, 0])
@@ -107,12 +119,13 @@ def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
         probs = torch.softmax(scores, dim=-1)
         o_lat = torch.einsum("bhst,btk->bshk", probs.to(c_kv.dtype), c_kv)
         out = torch.einsum("bshk,khv->bshv", o_lat, w_uv)     # (B,1,H,vh)
-        return out.reshape(B, S, H * vh) @ p["wo"], MLACache(c_kv, k_rope)
+        return reduce_over(out.reshape(B, S, H * vh) @ p["wo"], hl), \
+            MLACache(c_kv, k_rope)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
 
     # train / prefill: materialized per-head K/V
-    c_kv, k_pe = _latents(p, x, cfg, positions)
+    c_kv, k_pe = _latents(p, x, cfg, positions, hl)
     k_nope = torch.einsum("btk,khn->bthn", c_kv, wkv_b[..., :qn])
     v = torch.einsum("btk,khv->bthv", c_kv, wkv_b[..., qn:])
     k_pe_b = k_pe[:, :, None, :].expand(B, S, H, qr)
@@ -122,7 +135,7 @@ def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     v = torch.nn.functional.pad(v, (0, qn + qr - vh))
     out = blockwise_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)[..., :vh]
-    out = out.reshape(B, S, H * vh) @ p["wo"]
+    out = reduce_over(out.reshape(B, S, H * vh) @ p["wo"], hl)
     return out, MLACache(c_kv, k_pe) if mode == "prefill" else None
 
 

@@ -46,7 +46,8 @@ does; the input's cotangent is then summed over the line.  Each exchange
 is an autograd function whose backward is the inverse exchange
 (``distributed/sharding.py``).  Over gloo an exchange copies its buffer
 to the host and back: that copy is the only host synchronization the
-sharded layer adds.  The shared experts stay outside, on the whole x.
+sharded layer adds.  The shared experts stay outside the exchange,
+tensor parallel on ``ff_expert``.
 """
 from __future__ import annotations
 
@@ -58,35 +59,28 @@ import torch.nn.functional as F
 
 from ..core.lp_router import expert_capacity_lp
 from ..distributed.sharding import (AllToAll, EnterReplicated, GatherSeq,
-                                    LeaveReplicated, ScatterSeq)
+                                    LeaveReplicated, ScatterSeq, enter,
+                                    gathered, line, reduce_over)
 from .config import ModelConfig
 from .layers import dense_init, normal_init, torch_dtype
 
 
-def moe_init(gen, cfg: ModelConfig, device, experts=slice(None)) -> dict:
+def moe_init(gen, cfg: ModelConfig, device) -> dict:
     """router (D, E); w_gate, w_up (E, D, Fe) and w_down (E, Fe, D); with
     shared experts ws_gate, ws_up (D, Fs) and ws_down (Fs, D), Fs =
     n_shared_experts x Fe.  The reference's scales: N(0, 1/D) for the
     router, the expert inputs and the shared MLP's, N(0, 1/Fe) for
-    w_down and N(0, 1/Fs) for ws_down.  ``experts`` keeps a slice of the
-    expert slabs (a rank's under expert parallelism): each slab tensor is
-    drawn whole and cut, so the generator's stream, and every other
-    parameter, is the whole model's."""
+    w_down and N(0, 1/Fs) for ws_down.  A rank's expert slabs are cut from
+    these by ``transformer.shard_group``."""
     D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     dtype = torch_dtype(cfg.param_dtype)
-
-    def slabs(shape, scale):
-        if gen is None:
-            n = len(range(E)[experts])
-            return torch.empty((n,) + shape[1:], dtype=dtype, device=device)
-        whole = normal_init(gen, shape, scale, dtype, device)
-        return whole if experts == slice(None) else \
-            whole[experts].clone()
-
     p = {"router": dense_init(gen, D, E, dtype, device),
-         "w_gate": slabs((E, D, Fe), 1.0 / math.sqrt(D)),
-         "w_up": slabs((E, D, Fe), 1.0 / math.sqrt(D)),
-         "w_down": slabs((E, Fe, D), 1.0 / math.sqrt(Fe))}
+         "w_gate": normal_init(gen, (E, D, Fe), 1.0 / math.sqrt(D), dtype,
+                               device),
+         "w_up": normal_init(gen, (E, D, Fe), 1.0 / math.sqrt(D), dtype,
+                             device),
+         "w_down": normal_init(gen, (E, Fe, D), 1.0 / math.sqrt(Fe), dtype,
+                               device)}
     if cfg.n_shared_experts:
         Fs = cfg.n_shared_experts * Fe
         p["ws_gate"] = dense_init(gen, D, Fs, dtype, device)
@@ -190,8 +184,12 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, shd=None) -> torch.Tensor:
     tokens, plus the shared experts where the config has them.  With a
     sharder whose experts are sharded (``Sharder.expert_axis``), the
     expert-parallel path of the module docstring; x is this rank's rows
-    of the batch."""
+    of the batch.  The shared experts are tensor parallel on
+    ``ff_expert``, and FSDP's leaves (the slabs' ``residual`` dim over
+    the data line, the router, the shared experts) are gathered before
+    the products."""
     B, S, D = x.shape
+    p = gathered(shd, p, "mlp")
     axis = None if shd is None else shd.expert_axis()
     if axis is None:
         out = _moe_local(x.reshape(B * S, D), p, cfg).reshape(B, S, D)
@@ -204,6 +202,8 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, shd=None) -> torch.Tensor:
             .reshape(Bl, Sl, D)
         out = (GatherSeq if seq_sp else LeaveReplicated).apply(out, axis)
     if cfg.n_shared_experts:
-        h = F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"])
-        out = out + h @ p["ws_down"]
+        fe = line(shd, "ff_expert")
+        xs = enter(x, fe)
+        h = F.silu(xs @ p["ws_gate"]) * (xs @ p["ws_up"])
+        out = out + reduce_over(h @ p["ws_down"], fe)
     return out

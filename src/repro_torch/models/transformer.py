@@ -19,6 +19,13 @@ sequence-chunked cross entropy, and ``remat="block"`` checkpoints each
 block in train mode (``torch.utils.checkpoint``, the counterpart of
 ``jax.checkpoint``), so the backward recomputes a block's forward, scan
 kernel included.
+
+With a sharder (``distributed/sharding.py``) every module is built with
+this rank's shapes: each parameter group is drawn whole from the
+generator (so the stream, and every value, is the whole model's) and
+cut to the block the rank holds (``shard_group``); the blocks run the
+tensor-, expert- and vocabulary-parallel functions of the layers they
+call.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from .attention import KVCache, gqa_apply, gqa_cache_shape, gqa_init
 from .config import ModelConfig
 from .layers import (TensorSpec, apply_norm, embed_init, embed_lookup,
                      head_init, logits_apply, mlp_apply, mlp_init, norm_init,
-                     token_nll, torch_dtype)
+                     torch_dtype, vocab_nll)
 from .mamba import MambaCache, mamba_apply, mamba_cache_shape, mamba_init
 from .mla import mla_apply, mla_cache_shape, mla_init
 from .moe import moe_apply, moe_init
@@ -64,7 +71,33 @@ def _params(tensors: dict) -> nn.ParameterDict:
         for k, v in tensors.items()})
 
 
-def chunked_ce_sum(head, x, labels, cfg: ModelConfig, chunk: int = 1024):
+def shard_group(tensors: dict, group: str, shd, cfg: ModelConfig) -> dict:
+    """The whole tensors of the parameter group ``group`` ("attn",
+    "mlp", "embed", ...) cut to this rank's blocks under ``shd``
+    (``Sharder.local_slices`` of each leaf's ``param_spec``); the
+    tensors themselves without a sharder or where nothing is cut."""
+    if shd is None:
+        return tensors
+    from ..distributed.sharding import param_spec
+    out = {}
+    for k, v in tensors.items():
+        if isinstance(v, dict):
+            out[k] = shard_group(v, k, shd, cfg)
+            continue
+        sl = shd.local_slices(param_spec(f"{group}.{k}", cfg), v.shape)
+        out[k] = v if all(s == slice(None) for s in sl) else \
+            v[sl].clone()
+    return out
+
+
+def group_params(tensors: dict, group: str, shd, cfg: ModelConfig
+                 ) -> nn.ParameterDict:
+    """``_params`` of this rank's blocks of a group (``shard_group``)."""
+    return _params(shard_group(tensors, group, shd, cfg))
+
+
+def chunked_ce_sum(head, x, labels, cfg: ModelConfig, chunk: int = 1024,
+                   shd=None):
     """Sequence-chunked cross entropy of ``x`` (B, S, D) through ``head``
     against ``labels`` (B, S), labels < 0 masked, so that the (S, vocab)
     logits never materialize at once: the float32 sum of the unmasked
@@ -77,11 +110,25 @@ def chunked_ce_sum(head, x, labels, cfg: ModelConfig, chunk: int = 1024):
     cnt = x.new_zeros((), dtype=torch.float32)
     for c0 in range(0, S, chunk):
         ls = labels[:, c0:c0 + chunk]
-        logits = logits_apply(head, x[:, c0:c0 + chunk], cfg)
+        nll = vocab_nll(head, x[:, c0:c0 + chunk], ls.clamp(min=0), cfg,
+                        shd)
         mask = ls >= 0
-        tot = tot + (token_nll(logits, ls.clamp(min=0)) * mask).sum()
+        tot = tot + (nll * mask).sum()
         cnt = cnt + mask.sum()
     return tot, cnt
+
+
+def whole_logits(head, x, cfg: ModelConfig, shd=None) -> torch.Tensor:
+    """``logits_apply`` of the whole vocabulary: with ``shd``, this
+    rank's block of the head gathered over the model line first (the
+    serving steps' last-position logits; training never gathers
+    them)."""
+    from ..distributed.sharding import gather_placed, param_spec
+    if shd is not None:
+        group = "embed" if "table" in head else "head"
+        head = {k: gather_placed(v, shd.placement(param_spec(
+            f"{group}.{k}", cfg)), shd.mesh) for k, v in head.items()}
+    return logits_apply(head, x, cfg)
 
 
 def check_ported(cfg: ModelConfig):
@@ -112,59 +159,52 @@ class Block(nn.Module):
         self.norm1 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                        device))
         if cfg.attn_kind == "mla":
-            self.attn = _params(mla_init(gen, cfg, device))
+            self.attn = group_params(mla_init(gen, cfg, device), "attn", shd,
+                                     cfg)
         elif cfg.family != "ssm":
-            self.attn = _params(gqa_init(gen, cfg, device))
+            self.attn = group_params(gqa_init(gen, cfg, device), "attn", shd,
+                                     cfg)
         if cfg.family in ("ssm", "hybrid"):
-            self.ssm = _params(mamba_init(gen, cfg, device))
+            self.ssm = group_params(mamba_init(gen, cfg, device), "ssm", shd,
+                                    cfg)
         self.has_mlp = bool(cfg.d_ff) or cfg.mlp_kind == "moe"
         if self.has_mlp:
             self.norm2 = _params(norm_init(cfg.d_model, cfg.norm_kind, dtype,
                                            device))
-            if cfg.mlp_kind == "moe":
-                self.mlp = _params(moe_init(gen, cfg, device,
-                                            expert_slice(shd, cfg)))
-            else:
-                self.mlp = _params(mlp_init(gen, cfg, device))
+            init = moe_init if cfg.mlp_kind == "moe" else mlp_init
+            self.mlp = group_params(init(gen, cfg, device), "mlp", shd, cfg)
 
     def forward(self, x, *, mode: str, positions=None, cache=None, pos=None):
         cfg = self.cfg
         h = apply_norm(self.norm1, x, cfg.norm_kind)
+        shd = self.shd
         if cfg.attn_kind == "mla":
             a, new_cache = mla_apply(self.attn, h, cfg, positions=positions,
-                                     mode=mode, cache=cache, pos=pos)
+                                     mode=mode, cache=cache, pos=pos, shd=shd)
         elif cfg.family == "hybrid":
             a1, kv_new = gqa_apply(
                 self.attn, h, cfg, positions=positions, mode=mode,
-                cache=None if cache is None else cache.kv, pos=pos)
+                cache=None if cache is None else cache.kv, pos=pos, shd=shd)
             a2, ssm_new = mamba_apply(
                 self.ssm, h, cfg, mode=mode,
-                cache=None if cache is None else cache.ssm)
+                cache=None if cache is None else cache.ssm, shd=shd)
             a = 0.5 * (a1 + a2)
             new_cache = None if mode == "train" else HymbaCache(kv_new,
                                                                 ssm_new)
         elif cfg.family == "ssm":
             a, new_cache = mamba_apply(self.ssm, h, cfg, mode=mode,
-                                       cache=cache)
+                                       cache=cache, shd=shd)
         else:
             a, new_cache = gqa_apply(self.attn, h, cfg, positions=positions,
-                                     mode=mode, cache=cache, pos=pos)
+                                     mode=mode, cache=cache, pos=pos, shd=shd)
         x = x + a
         if self.has_mlp:
             h2 = apply_norm(self.norm2, x, cfg.norm_kind)
             if cfg.mlp_kind == "moe":
-                x = x + moe_apply(self.mlp, h2, cfg, shd=self.shd)
+                x = x + moe_apply(self.mlp, h2, cfg, shd=shd)
             else:
-                x = x + mlp_apply(self.mlp, h2, cfg)
+                x = x + mlp_apply(self.mlp, h2, cfg, shd=shd)
         return x, new_cache
-
-
-def expert_slice(shd, cfg: ModelConfig) -> slice:
-    """The expert slabs a rank holds under ``shd`` (all of them unless
-    the experts are sharded)."""
-    if shd is None or not shd.experts_sharded():
-        return slice(None)
-    return shd.local_slices(("experts",), (cfg.n_experts,))[0]
 
 
 class LM(nn.Module):
@@ -172,10 +212,10 @@ class LM(nn.Module):
     ``generator`` draws the parameters (embedding, blocks, head, in that
     order); ``None`` leaves them uninitialized for
     ``interop.lm_from_reference`` to fill.  ``shd`` (a
-    ``distributed.sharding.Sharder``) shards the MoE experts over its
-    model axis: each block keeps this rank's slabs of the whole model's
-    (drawn whole from ``generator`` and cut) and runs the
-    expert-parallel ``moe_apply``; every other parameter is whole."""
+    ``distributed.sharding.Sharder``) makes the model this rank's: every
+    parameter its block of the whole model's (drawn whole from
+    ``generator`` and cut, ``shard_group``), each layer the
+    tensor-, expert-, vocabulary- and FSDP-parallel function of it."""
 
     def __init__(self, cfg: ModelConfig, *, device, generator=None,
                  shd=None):
@@ -184,13 +224,15 @@ class LM(nn.Module):
         self.cfg = cfg
         self.shd = shd
         gen = generator
-        self.embed = _params(embed_init(gen, cfg, device))
+        self.embed = group_params(embed_init(gen, cfg, device), "embed",
+                                  shd, cfg)
         self.blocks = nn.ModuleList(Block(cfg, gen, device, shd)
                                     for _ in range(cfg.n_layers))
         self.final_norm = _params(norm_init(cfg.d_model, cfg.norm_kind,
                                             torch_dtype(cfg.param_dtype),
                                             device))
-        self.head = _params(head_init(gen, cfg, device))
+        self.head = group_params(head_init(gen, cfg, device), "head", shd,
+                                 cfg)
 
     @property
     def device(self) -> torch.device:
@@ -201,7 +243,8 @@ class LM(nn.Module):
         """The tokens' embeddings in the config's dtype, after the
         precomputed patch embeddings (B, n_patches, D) where given (the
         VLM stub)."""
-        x = embed_lookup(self.embed, tokens).to(torch_dtype(self.cfg.dtype))
+        x = embed_lookup(self.embed, tokens, self.shd).to(
+            torch_dtype(self.cfg.dtype))
         if patches is not None:
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         return x
@@ -231,7 +274,8 @@ class LM(nn.Module):
 
     def _logits(self, x):
         x = apply_norm(self.final_norm, x, self.cfg.norm_kind)
-        return logits_apply(self._head(), x[:, -1:], self.cfg)[:, 0]
+        return whole_logits(self._head(), x[:, -1:], self.cfg,
+                            self.shd)[:, 0]
 
     # -- training loss --------------------------------------------------------
     def loss_fn(self, batch):
@@ -253,7 +297,8 @@ class LM(nn.Module):
         labels = batch["labels"]
         if patches is not None:
             x = x[:, -labels.shape[1]:]
-        return chunked_ce_sum(self._head(), x, labels, self.cfg)
+        return chunked_ce_sum(self._head(), x, labels, self.cfg,
+                              shd=self.shd)
 
     # -- serving --------------------------------------------------------------
     @staticmethod

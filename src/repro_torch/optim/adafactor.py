@@ -26,6 +26,15 @@ update never stacks a group's members (one llama3-405b layer's MLP is
 its sum of squares, and walks a large matrix in blocks of rows, so no
 float32 temporary is larger than ``BLOCK`` elements.  The parameters and
 the statistics are written in place.
+
+On a mesh (``init(..., shd=)``) each rank holds its block of every leaf
+and the statistics of that block (a row statistic cut as the leaf's
+rows, a column statistic as its columns).  A mean over a dim that the
+sharder cuts is the local sum summed over that dim's line, over the
+whole dim's size, and the clip's RMS sums its squares over every line
+that cuts the leaf: the step is the whole leaf's, as the reference's
+GSPMD step computes it.  The statistics are not cut further over the
+data line (ZeRO-1 is AdamW's here; Adafactor's are O(rows + cols)).
 """
 from __future__ import annotations
 
@@ -51,6 +60,32 @@ def group_key(name):
     return None if m is None else f"{m.group(1)}.{m.group(2)}"
 
 
+def _lines(name, shape, shd):
+    """(the parameter ``name``'s placement under ``shd``, the line that
+    cuts each dim of its local ``shape``, None for a whole dim; the
+    whole shape)."""
+    if shd is None or name is None:
+        return (None,) * len(shape), [None] * len(shape), tuple(shape)
+    from ..distributed.sharding import param_spec
+    placement = shd.placement(param_spec(name, shd.cfg))
+    axes = [None if r is None else shd.mesh.axis(r) for r in placement]
+    whole = tuple(s * (a.size if a else 1) for s, a in zip(shape, axes))
+    return placement, axes, whole
+
+
+def stat_placements(grp) -> dict:
+    """{statistic: its placement} of an ``init`` group, from its
+    members': a row statistic is placed as the rows, a column statistic
+    as the columns (a stacked vector's row statistic, one a layer, is
+    whole)."""
+    P = tuple(grp["placement"])
+    if grp["kind"] == "stacked_vector":
+        return {"vr": (None,), "vc": P}
+    if grp["kind"] == "matrix":
+        return {"vr": P[:-1], "vc": P[:-2] + P[-1:]}
+    return {"v": P}
+
+
 def _blocks(shape):
     """(n, r0, r1): the matrices of a (..., R, C) tensor viewed as
     (N, R, C), cut into row blocks of at most BLOCK elements; one block
@@ -64,6 +99,15 @@ def _blocks(shape):
             for r0 in range(0, R, rows)]
 
 
+def _mean(t, dim: int, axis, n: int):
+    """``t.mean(dim)`` of a whole dim of size ``n`` that ``axis`` cuts
+    (this rank's sum summed over the line); ``t.mean(dim)`` without
+    one."""
+    if axis is None:
+        return t.mean(dim)
+    return axis.all_reduce(t.sum(dim)) / n
+
+
 def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip=1.0,
               warmup: int = 100) -> Optimizer:
     f32 = np.float32
@@ -74,14 +118,16 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip=1.0,
         warm = min(f32(1.0), (f32(step) + f32(1.0)) / f32(max(1, warmup)))
         return float(f32(lr) * warm)
 
-    def init(params) -> dict:
+    def init(params, shd=None) -> dict:
         """State for ``params``: a list of tensors, or of (name, tensor)
         pairs as ``model.named_parameters()`` gives them.  One group per
         reference leaf, with its kind and its float32 statistics:
         "stacked_vector" (per-layer vectors stacked, factored: ``vr``
         (L,), ``vc`` (D,)), "matrix" (each member factored over its last
         two axes: ``vr`` (..., R), ``vc`` (..., C) a member) or "vector"
-        (an unfactored ``v`` a member)."""
+        (an unfactored ``v`` a member).  With ``shd`` (a ``Sharder``;
+        names needed) each group keeps the lines that cut its members'
+        dims (``axes``, None for a whole dim) and their whole shape."""
         named = named_tensors(params)
         order, groups = [], {}
         for i, (name, t) in enumerate(named):
@@ -98,6 +144,8 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip=1.0,
             grp = groups[key]
             members = [named[i][1] for i in grp["index"]]
             shape, dev = tuple(members[0].shape), members[0].device
+            grp["placement"], grp["axes"], grp["whole"] = _lines(
+                named[grp["index"][0]][0], shape, shd)
             zeros = lambda s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
                                           device=dev)
             if grp["stacked"] and len(shape) == 1:
@@ -121,13 +169,15 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip=1.0,
                            / torch.clamp(rm[..., None], min=eps))
         return g / torch.clamp(denom, min=eps)
 
-    def _matrix_stats(g, vr, vc, beta):
+    def _matrix_stats(g, vr, vc, beta, grp):
         """Advance one member's row and column statistics in place."""
+        ax_r, ax_c = grp["axes"][-2:]
+        R_, C_ = grp["whole"][-2:]
         for n, r0, r1 in _blocks(g.shape):
             if n is None:
                 g2 = g.float().square().add_(eps)
-                vr.mul_(beta).add_((1 - beta) * g2.mean(-1))
-                vc.mul_(beta).add_((1 - beta) * g2.mean(-2))
+                vr.mul_(beta).add_((1 - beta) * _mean(g2, -1, ax_c, C_))
+                vc.mul_(beta).add_((1 - beta) * _mean(g2, -2, ax_r, R_))
                 continue
             R = g.shape[-2]
             gm = g.reshape(-1, R, g.shape[-1])[n]
@@ -136,16 +186,18 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip=1.0,
             if r0 == 0:
                 colsum = torch.zeros_like(vcm)
             g2 = gm[r0:r1].float().square().add_(eps)
-            vrm[r0:r1].mul_(beta).add_((1 - beta) * g2.mean(-1))
+            vrm[r0:r1].mul_(beta).add_((1 - beta) * _mean(g2, -1, ax_c, C_))
             colsum += g2.sum(0)
             if r1 == R:
-                vcm.mul_(beta).add_((1 - beta) * (colsum / R))
+                if ax_r is not None:
+                    colsum = ax_r.all_reduce(colsum)
+                vcm.mul_(beta).add_((1 - beta) * (colsum / R_))
 
-    def _matrix_blocks(g, vr, vc):
+    def _matrix_blocks(g, vr, vc, grp):
         """(slicer, u) over the blocks of one member: ``slicer`` cuts a
         block's rows out of a tensor of the member's shape, ``u`` is the
         unclipped update of those rows."""
-        rm = vr.mean(-1, keepdim=True)
+        rm = _mean(vr, -1, grp["axes"][-2], grp["whole"][-2])[..., None]
         for n, r0, r1 in _blocks(g.shape):
             if n is None:
                 yield (lambda t: t), _u(g.float(), vr, rm, vc)
@@ -164,7 +216,8 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip=1.0,
         if grp["kind"] == "stacked_vector":
             g = torch.stack([grads[i].float() for i in idx])   # (L, D)
             g2 = g.square().add_(eps)
-            grp["vr"].mul_(beta).add_((1 - beta) * g2.mean(-1))
+            grp["vr"].mul_(beta).add_((1 - beta) * _mean(
+                g2, -1, grp["axes"][0], grp["whole"][0]))
             grp["vc"].mul_(beta).add_((1 - beta) * g2.mean(-2))
             u = _u(g, grp["vr"], grp["vr"].mean(-1, keepdim=True),
                    grp["vc"])
@@ -185,11 +238,11 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip=1.0,
                                                        min=eps)
             return walk
         for i, vr, vc in zip(idx, grp["vr"], grp["vc"]):
-            _matrix_stats(grads[i], vr, vc, beta)
+            _matrix_stats(grads[i], vr, vc, beta, grp)
 
         def walk():
             for i, vr, vc in zip(idx, grp["vr"], grp["vc"]):
-                for rows, u in _matrix_blocks(grads[i], vr, vc):
+                for rows, u in _matrix_blocks(grads[i], vr, vc, grp):
                     yield i, rows, u
         return walk
 
@@ -211,6 +264,9 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip=1.0,
             for _, _, u in walk():
                 ssq += u.square().sum()
                 count += u.numel()
+            for axis in {id(a): a for a in grp["axes"] if a}.values():
+                ssq = axis.all_reduce(ssq)
+                count *= axis.size
             norm = torch.sqrt(ssq / count)
             div = torch.clamp(norm / clip, min=1.0)
             for i, rows, u in walk():

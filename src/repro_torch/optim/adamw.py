@@ -10,6 +10,14 @@ a copy of each at the full model's size, and walks each parameter in
 flat blocks of at most ``BLOCK`` elements, so that the update's float32
 temporaries stay small beside a full-width embedding (1 B parameters in
 llama4-scout's).  The update is elementwise: the blocks change no bit.
+
+ZeRO-1 (``init(..., shd=)``): a leaf whose ``residual`` dim the
+sharder's ``opt_state_spec`` cuts over the data line while the
+parameter keeps it whole has moments of this rank's block of that dim
+only (``Sharder.zero_dim``).  Every data rank holds the whole summed
+gradient, so each updates its block of the parameter, and the blocks
+are then gathered over the data line: the parameter every rank ends
+with is the unsharded update's, bit for bit.
 """
 from __future__ import annotations
 
@@ -33,6 +41,15 @@ def named_tensors(params) -> list:
     return [p if isinstance(p, tuple) else (None, p) for p in params]
 
 
+def _block(shape, zero) -> tuple:
+    """The moment's shape: ``shape`` with the ZeRO-1 dim cut."""
+    if zero is None:
+        return tuple(shape)
+    dim, axis = zero
+    return tuple(s // axis.size if i == dim else s
+                 for i, s in enumerate(shape))
+
+
 def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01,
           warmup: int = 100) -> Optimizer:
     f32 = np.float32
@@ -43,14 +60,39 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01,
         warm = min(f32(1.0), (f32(step) + f32(1.0)) / f32(max(1, warmup)))
         return float(f32(lr) * warm)
 
-    def init(params) -> dict:
+    def init(params, shd=None) -> dict:
         """Zero float32 moments ``m`` and ``v`` beside each parameter of
-        ``params`` (tensors, or (name, tensor) pairs; the names change
-        nothing)."""
-        zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for _, p in named_tensors(params)]
+        ``params`` (tensors, or (name, tensor) pairs; without ``shd`` the
+        names change nothing).  With ``shd`` (a ``Sharder``; names
+        needed) each moment is this rank's ZeRO-1 block (module
+        docstring); ``state["zero"]`` holds each leaf's (dim, data line)
+        or None."""
+        zero = []
+        for name, p in named_tensors(params):
+            z = None
+            if shd is not None:
+                from ..distributed.sharding import param_spec
+                z = shd.zero_dim(param_spec(name, shd.cfg))
+            zero.append(z)
+        zeros = [torch.zeros(_block(p.shape, z), dtype=torch.float32,
+                             device=p.device)
+                 for (_, p), z in zip(named_tensors(params), zero)]
         return {"m": zeros, "v": [torch.zeros_like(z) for z in zeros],
-                "step": 0}
+                "step": 0, "zero": zero}
+
+    def _apply(g, m, v, p, lr_t, bc1, bc2):
+        # view: a parameter written through a copy would not change
+        g = g.reshape(-1)
+        m, v, p = (x.view(-1) for x in (m, v, p))
+        for i in range(0, p.numel(), BLOCK):
+            gi, mi, vi, pi = (x[i:i + BLOCK] for x in (g, m, v, p))
+            gi = gi.float()
+            mi.mul_(b1).add_((1 - b1) * gi)
+            vi.mul_(b2).add_((1 - b2) * gi.square())
+            p32 = pi.float()
+            step_val = (mi / bc1) / ((vi / bc2).sqrt() + eps) \
+                + weight_decay * p32
+            pi.copy_(p32 - lr_t * step_val)
 
     @torch.no_grad()
     def update(grads, state, params) -> None:
@@ -62,19 +104,17 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01,
         t = f32(step + 1)
         bc1 = float(f32(1.0) - f32(b1) ** t)
         bc2 = float(f32(1.0) - f32(b2) ** t)
-        for g, m, v, p in zip(grads, state["m"], state["v"], params):
-            # view: a parameter written through a copy would not change
-            g = g.reshape(-1)
-            m, v, p = (x.view(-1) for x in (m, v, p))
-            for i in range(0, p.numel(), BLOCK):
-                gi, mi, vi, pi = (x[i:i + BLOCK] for x in (g, m, v, p))
-                gi = gi.float()
-                mi.mul_(b1).add_((1 - b1) * gi)
-                vi.mul_(b2).add_((1 - b2) * gi.square())
-                p32 = pi.float()
-                step_val = (mi / bc1) / ((vi / bc2).sqrt() + eps) \
-                    + weight_decay * p32
-                pi.copy_(p32 - lr_t * step_val)
+        for g, m, v, p, z in zip(grads, state["m"], state["v"], params,
+                                 state["zero"]):
+            if z is None:
+                _apply(g, m, v, p, lr_t, bc1, bc2)
+                continue
+            dim, axis = z
+            n = p.shape[dim] // axis.size
+            block = p.narrow(dim, axis.index * n, n).contiguous()
+            _apply(g.narrow(dim, axis.index * n, n).contiguous(), m, v,
+                   block, lr_t, bc1, bc2)
+            p.copy_(axis.all_gather(block, dim))
         state["step"] = step + 1
 
     return Optimizer(init=init, update=update)

@@ -143,7 +143,7 @@ def test_train_state_tree_names_every_leaf(tmp_path):
 def elastic(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("elastic")
     job = {"arch": SCOUT, "changes": {"top_k": 2}, "seed": SEED,
-           "dir": str(tmp / "ckpt")}
+           "dir": str(tmp / "ckpt"), "af_dir": str(tmp / "adafactor")}
     return tm.spawn(4, "checkpoint_elastic", job, tmp, "world")(), job
 
 
@@ -152,6 +152,30 @@ def test_elastic_restore_on_a_mesh(elastic, shape):
     got, _ = elastic
     same, ok, sliced = got[shape]
     assert same and ok and sliced
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=str)
+def test_elastic_adafactor_restore_on_a_mesh(elastic, shape):
+    """Adafactor's statistics of the sharded leaves, saved from a 2 x 2
+    mesh with their placements, restore to each rank's blocks."""
+    got, _ = elastic
+    assert got[("adafactor",) + shape]
+
+
+def test_elastic_adafactor_restore_on_one_rank(elastic):
+    """The 2 x 2 world's Adafactor checkpoint holds the whole
+    statistics."""
+    _, job = elastic
+    cfg = dataclasses.replace(get_config(SCOUT).reduced(), **job["changes"])
+    whole = build_model(cfg, device="cpu", seed=SEED)
+    want = tm.adafactor_stats(whole)
+    state = get_optimizer("adafactor").init(list(whole.named_parameters()))
+    got = CheckpointManager(job["af_dir"]).restore(1, state_tree(whole,
+                                                                 state))
+    for g, w in zip(got["opt"]["groups"], want["groups"]):
+        for k in g:
+            for a, b in zip(tm._leaves(g[k]), tm._leaves(w[k])):
+                assert torch.equal(a, b), (w["key"], k)
 
 
 def test_elastic_restore_on_one_rank(elastic):

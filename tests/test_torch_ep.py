@@ -18,6 +18,17 @@ and one batch of 4 x 32 tokens.  Bars: the loss within 1e-5, every gradient
 (gathered to whole arrays) within 1e-4, and the replicated leaves'
 gradients equal on every rank.
 
+Every placement of the Sharder acts in the six families' cases
+(``FAMILIES``, at (1, 2), (1, 4) and (2, 2)): the dense qwen3 and the MoE
+scout with ``fsdp`` and ``seq_shard`` on (FSDP's ``residual`` over data
+at (2, 2)), deepseek-v2's MLA with the router, falcon-mamba's
+``d_inner`` (the plain scan), hymba's hybrid block and whisper's
+encoder-decoder (its frames in the batch), each rank holding only its
+blocks of the reduced model; the reference's parameters are placed by
+its ``param_shardings``.  At (1, 4) the reduced configs' two KV heads
+do not divide the line while the four query heads do: each rank reads
+the KV head its query head needs.
+
 With ``seq_shard`` off every model rank routes the same tokens; with it
 on, each routes its slice of the sequence.  With ``lp_capacity`` each
 shard solves its own LP on its own tokens, so at (2, 2) the sharded
@@ -35,10 +46,18 @@ rows and a wrong split of the microbatches shows), each step's gradient
 norm about 19, so the clip acts at every step.  Bars: the losses within
 1e-5, the gradient norms within 1e-5 relative, the parameters within
 1e-5 (tests/torch_train_parity.py), the replicated leaves equal on every
-rank of the model line (``check_replicas``, which raises once one entry
-of one rank moves by an ulp).
+rank of each line they are not sharded on (``check_replicas``, which
+raises once one entry of one rank moves by an ulp).  The six families
+take the same three steps at (2, 2), where every rule acts and AdamW's
+moments are cut by ZeRO-1 over the data line, and the dense one at
+(1, 2) too (the clip acts in every family's steps but whisper's, whose
+gradient norm is about 0.74); the reduced llama3-405b (FSDP on, at
+(2, 2)) and nemotron-4-340b (at (1, 4)) take them with their config's
+Adafactor, whose factored statistics of the sharded leaves are summed
+over the lines that cut them.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -63,15 +82,27 @@ def _kw(lp, seq, top_k=2):
             ("seq_shard", seq))
 
 
-CASES = [(SCOUT, mesh, _kw(lp, seq)) for mesh in ((1, 2), (1, 4), (2, 2))
+ONE = (("n_layers", 1),)
+FSDP = (("fsdp", True), ("seq_shard", True))
+FAMILIES = (("qwen3-32b", ONE + FSDP), (SCOUT, _kw(False, True) + FSDP[:1]),
+            (MLA, _kw(True, True) + FSDP[:1]), ("falcon-mamba-7b", ONE),
+            ("hymba-1.5b", ONE),
+            ("whisper-small", ONE + (("n_encoder_layers", 1),)))
+MESHES = ((1, 2), (1, 4), (2, 2))
+ARCHS = sorted({a for a, _ in FAMILIES})
+
+CASES = [(SCOUT, mesh, _kw(lp, seq)) for mesh in MESHES
          for lp in (False, True) for seq in (False, True)] + \
-    [(MLA, (1, 4), _kw(True, True))]
+    [(MLA, (1, 4), _kw(True, True))] + \
+    [(arch, mesh, kw) for arch, kw in FAMILIES for mesh in MESHES]
 
 
 def _one_layer(params):
-    """The reference's reduced parameters cut to their first layer."""
-    return dict(params, layers=jax.tree.map(lambda a: a[:1],
-                                            params["layers"]))
+    """The reference's reduced parameters cut to their first layer (of
+    each stack)."""
+    return {k: jax.tree.map(lambda a: a[:1], v)
+            if k in ("layers", "enc_layers", "dec_layers") else v
+            for k, v in params.items()}
 
 # the reference's setup, its router patched as the module docstring says
 REFERENCE_HEAD = """
@@ -92,11 +123,23 @@ REFERENCE_HEAD = """
         job = pickle.load(f)
 """
 
+REFERENCE_HEAD += """
+    def placed(model, shd, params):
+        kept = {}
+
+        def init(key):
+            p, kept["specs"] = model.init(key)
+            return p
+        jax.eval_shape(init, jax.random.PRNGKey(0))
+        return jax.device_put(params, shd.param_shardings(kept["specs"]))
+"""
+
 REFERENCE = REFERENCE_HEAD + """
-    batch = jax.tree.map(jnp.asarray, job["batch"])
     out = {}
     for case in job["cases"]:
         arch, shape, kw = case
+        batch = jax.tree.map(jnp.asarray, job.get("arch_batch", {}).get(
+            arch, job["batch"]))
         cfg = dataclasses.replace(get_config(arch).reduced(), **dict(kw))
         params = jax.tree.map(jnp.asarray, job["params"][arch])
         if shape is None:
@@ -104,7 +147,9 @@ REFERENCE = REFERENCE_HEAD + """
             got = jax.jit(jax.value_and_grad(model.loss_fn))(params, batch)
         else:
             mesh = make_mesh(shape, ("data", "model"))
-            model = build_model(cfg, Sharder(cfg, mesh))
+            shd = Sharder(cfg, mesh)
+            model = build_model(cfg, shd)
+            params = placed(model, shd, params)
             with mesh:
                 got = jax.jit(jax.value_and_grad(model.loss_fn))(params,
                                                                  batch)
@@ -115,7 +160,14 @@ REFERENCE = REFERENCE_HEAD + """
 
 
 STEP_CASES = [(SCOUT, mesh, _kw(True, True), mb)
-              for mesh in ((1, 4), (2, 2)) for mb in (1, 2)]
+              for mesh in ((1, 4), (2, 2)) for mb in (1, 2)] + \
+    [(arch, (2, 2), kw, 1) for arch, kw in FAMILIES] + \
+    [("qwen3-32b", (1, 2), FAMILIES[0][1], 1),
+     ("llama3-405b", (2, 2), ONE + FSDP, 1),
+     ("nemotron-4-340b", (1, 4), ONE, 1)]
+# the cases whose sharded result may leave the single device's by design
+# (a shard's capacity, or its own LP, drops other tokens): the MoE ones
+MOE_CASES = [c for c in CASES if c[0] in (SCOUT, MLA)]
 
 REFERENCE_STEPS = REFERENCE_HEAD + """
     from repro.distributed.steps import make_train_step
@@ -126,14 +178,18 @@ REFERENCE_STEPS = REFERENCE_HEAD + """
         cfg = dataclasses.replace(get_config(arch).reduced(), **dict(kw))
         params = jax.tree.map(jnp.asarray, job["params"][arch])
         mesh = make_mesh(shape, ("data", "model"))
-        model = build_model(cfg, Sharder(cfg, mesh))
-        opt = get_optimizer("adamw", lr=job["lr"], warmup=job["warmup"])
+        shd = Sharder(cfg, mesh)
+        model = build_model(cfg, shd)
+        params = placed(model, shd, params)
+        opt = get_optimizer(cfg.optimizer, lr=job["lr"],
+                            warmup=job["warmup"])
         state = opt.init(params)
         step = jax.jit(make_train_step(model, opt,
                                        microbatches=microbatches))
         losses, norms = [], []
         with mesh:
-            for b in job["batches"]:
+            for b in job.get("arch_batches", {}).get(arch,
+                                                     job["batches"]):
                 params, state, m = step(params, state,
                                         jax.tree.map(jnp.asarray, b))
                 losses.append(float(m["loss"]))
@@ -149,39 +205,53 @@ def _single(case):
     return (case[0], None, case[2])
 
 
+def _chunks(items, n):
+    return [items[i::n] for i in range(n)]
+
+
 @pytest.fixture(scope="module")
 def started(tmp_path_factory):
     """Every world and reference subprocess of the file, started side by
     side (the reference's compiles dominate): the loss-and-gradient
     waiters and the train-step waiters."""
     tmp = tmp_path_factory.mktemp("ep")
-    params = {a: _one_layer(tp.params_np(a)) for a in (SCOUT, MLA)}
+    step_archs = sorted({c[0] for c in STEP_CASES})
+    archs = sorted(set(ARCHS) | set(step_archs))
+    # the reference's draws, side by side (XLA compiles without the GIL)
+    with ThreadPoolExecutor(len(archs)) as pool:
+        params = dict(zip(archs, pool.map(
+            lambda a: _one_layer(tp.params_np(a)), archs)))
     batch = tp.batch(tp.cfgs(SCOUT)[1], B, S, 0)
-    job = {"params": params, "batch": batch, "cases": CASES}
-    singles = sorted(set(_single(c) for c in CASES), key=str)
-    parts = [CASES[0:4], CASES[4:8], CASES[8:] + singles[:1],
-             singles[1:]]
+    whisper = tp.cfgs("whisper-small")[1]
+    job = {"params": params, "batch": batch, "cases": CASES,
+           "arch_batch": {"whisper-small": tp.batch(whisper, B, S, 0)}}
+    singles = sorted(set(_single(c) for c in MOE_CASES), key=str)
     refs = [tm.spawn_reference(REFERENCE, 4, tmp, f"ref{i}",
                                dict(job, cases=part))
-            for i, part in enumerate(parts)]
+            for i, part in enumerate(_chunks(CASES + singles, 6))]
     worlds = [tm.spawn(n, "loss_and_grads", job, tmp, f"world{n}")
               for n in (2, 4)]
-    steps = {"params": {SCOUT: params[SCOUT]}, "lr": tp.LR,
+    steps = {"params": {a: params[a] for a in step_archs}, "lr": tp.LR,
              "warmup": tp.WARMUP, "cases": STEP_CASES,
              "batches": [tp.batch(tp.cfgs(SCOUT)[1], 2 * B, S, 10 + s)
-                         for s in range(tp.STEPS)]}
+                         for s in range(tp.STEPS)],
+             "arch_batches": {"whisper-small": [
+                 tp.batch(whisper, 2 * B, S, 10 + s)
+                 for s in range(tp.STEPS)]}}
     step_refs = [tm.spawn_reference(REFERENCE_STEPS, 4, tmp, f"steps{i}",
-                                    dict(steps, cases=STEP_CASES[i::2]))
-                 for i in range(2)]
-    step_world = tm.spawn(4, "train_steps", steps, tmp, "steps")
-    return (params, batch, singles, refs, worlds), (step_refs, step_world)
+                                    dict(steps, cases=part))
+                 for i, part in enumerate(_chunks(STEP_CASES, 6))]
+    step_worlds = [tm.spawn(n, "train_steps", steps, tmp,
+                            f"step_world{n}")
+                   for n in (2, 4)]
+    return (params, job, singles, refs, worlds), (step_refs, step_worlds)
 
 
 @pytest.fixture(scope="module")
 def runs(started):
     """{case: (loss, grads[, replicated equal])} of the port's worlds,
     the reference's meshes and both single devices."""
-    (params, batch, singles, refs, worlds), _ = started
+    (params, job, singles, refs, worlds), _ = started
     port = {}
     for w in worlds:
         port.update(w())
@@ -192,6 +262,7 @@ def runs(started):
         arch, _, kw = case
         ref_cfg, cfg = tp.cfgs(arch, **dict(kw))
         lm = tp.lm_from_reference(cfg, params[arch], "cpu")
+        batch = job["arch_batch"].get(arch, job["batch"])
         loss = lm.loss_fn(tp.to_torch(batch))
         grads = torch.autograd.grad(loss, list(lm.parameters()))
         port[case] = (float(loss.detach()), tp.lm_to_reference(lm, grads))
@@ -202,11 +273,13 @@ def runs(started):
 def step_runs(started):
     """{case: (losses, grad norms, parameters[, replicated leaves
     checked])} of the port's sharded train step and the reference's."""
-    _, (step_refs, step_world) = started
-    ref = {}
+    _, (step_refs, step_worlds) = started
+    ref, port = {}, {}
     for r in step_refs:
         ref.update(r())
-    return step_world(), ref
+    for w in step_worlds:
+        port.update(w())
+    return port, ref
 
 
 def _gap(a, b):
@@ -222,7 +295,7 @@ def test_sharded_loss_and_gradients_match_the_reference(runs, case):
     assert same, "replicated gradients differ across ranks"
 
 
-@pytest.mark.parametrize("case", CASES, ids=str)
+@pytest.mark.parametrize("case", MOE_CASES, ids=str)
 def test_where_the_reference_follows_its_single_device_so_does_the_port(
         runs, case):
     port, ref = runs
@@ -247,14 +320,29 @@ def test_sharded_train_steps_match_the_reference(step_runs, case):
     port, ref = step_runs
     losses, norms, params, checked, caught = port[case]
     ref_losses, ref_norms, ref_params = ref[case]
-    assert min(ref_norms) > 1.0, ref_norms      # the clip acts
+    # the clip acts, but in whisper's steps (gradient norm about 0.74)
+    assert min(ref_norms) > 1.0 or case[0] == "whisper-small", ref_norms
     np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=LOSS_TOL)
     np.testing.assert_allclose(norms, ref_norms, rtol=1e-5)
     assert tp.max_diff(params, ref_params) < tp.PARAM_TOL
-    # every leaf but the expert slabs is replicated over the model line
-    assert checked == len(jax.tree.leaves(params)) - 3
-    # and one ulp of one entry on one rank of it is caught
+    # every leaf is compared over each line that does not shard it
+    assert checked == _replicated_pairs(case)
+    # and one ulp of one entry on one rank of the model line is caught
     assert caught
+
+
+def _replicated_pairs(case):
+    """The (leaf, line) pairs of ``case``'s model that ``check_replicas``
+    compares: each leaf once for each line of several ranks that does
+    not shard it."""
+    from repro_torch.distributed.sharding import Mesh, Sharder, param_spec
+    arch, shape, kw, _ = case
+    cfg = dataclasses.replace(tp.cfgs(arch)[1], **dict(kw))
+    shd = Sharder(cfg, Mesh(shape, ("data", "model")))
+    lm = tp.lm_from_reference(cfg, _one_layer(tp.params_np(arch)), "cpu")
+    return sum(size > 1 and ax not in shd.shard_axes(param_spec(n, cfg))
+               for n, _ in lm.named_parameters()
+               for ax, size in zip(("data", "model"), shape))
 
 
 class Line:

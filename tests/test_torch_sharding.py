@@ -8,10 +8,19 @@ activations are held equal on meshes (2,4), (4,2), (1,8), (16,16) and
 (2,16,16), head padding included.  The ``act`` guard is compared through
 the reference's own ``act`` with its constraint captured.  The port's
 logical specs of each parameter equal the reference's init specs without
-the stacked ``layers`` axis.  The executed placement (only expert slabs
-cut, ``local_slices``), ``shard_params`` / ``gather_params`` in a world
-of one and the mesh's rank layout are checked here too; the collectives
-themselves are tests/test_torch_ep.py's.
+the stacked ``layers`` axis.  The executed placement (``local_slices``,
+every rule the reference resolves), ``shard_params`` / ``gather_params``
+in a world of one and the mesh's rank layout are checked here too; the
+collectives themselves are tests/test_torch_ep.py's.
+
+Each rank's block of every leaf, for the ten published configs on the
+meshes (1,2), (1,4), (2,2) and (2,4), and of AdamW's moments under
+ZeRO-1, is held to the reference's ``NamedSharding`` shard of the same
+device index (``devices_indices_map``, the reference's guarded
+placement of ``launch/cells.py``) on an XLA host mesh of 8 devices in a
+subprocess; the reduced configs, with ``fsdp`` on, are built sharded and
+each parameter's local shape held to the reference's shard shape.
+Nothing is computed.
 """
 import dataclasses
 
@@ -21,6 +30,7 @@ import pytest
 import torch
 
 import repro.distributed.sharding as ref_sharding
+import torch_mesh as tm
 from repro.configs import ARCH_IDS as REF_ARCH_IDS
 from repro.configs import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
@@ -169,29 +179,184 @@ def test_mesh_lays_ranks_out_row_major():
     assert mesh.axis(()).size == 1
 
 
-def test_only_expert_slabs_are_cut():
+# (config, changes, mesh, a leaf the rule cuts, its whole shape, the dim)
+RULE_LEAVES = {
+    "heads": ("deepseek-v2-236b", {}, (1, 4), "blocks.0.attn.wq_b",
+              (1536, 128 * 192), 1),
+    "kv_heads": ("qwen3-32b", {}, (1, 4), "blocks.0.attn.wk",
+                 (5120, 8 * 128), 1),
+    "ff": ("qwen3-32b", {}, (1, 4), "blocks.0.mlp.w_down", (25600, 5120),
+           0),
+    "ff_expert": ("deepseek-v2-236b", {}, (1, 4), "blocks.0.mlp.ws_gate",
+                  (5120, 2 * 1536), 1),
+    "d_inner": ("falcon-mamba-7b", {}, (1, 4), "blocks.0.ssm.w_x",
+                (8192, 512 + 32), 0),
+    "vocab": ("deepseek-v2-236b", {}, (1, 4), "head.w", (5120, 102400), 1),
+    "experts": ("deepseek-v2-236b", {}, (1, 4), "blocks.0.mlp.w_gate",
+                (160, 5120, 1536), 0),
+    "residual": ("deepseek-v2-236b", {}, (4, 1), "blocks.0.attn.wq_a",
+                 (5120, 1536), 0),
+}
+
+
+def test_every_reference_rule_is_executed():
+    assert set(EXECUTED) == set(RULE_LEAVES)
+
+
+@pytest.mark.parametrize("rule", sorted(RULE_LEAVES))
+def test_each_rule_cuts_its_leaves(rule):
+    """Rank r of the rule's line holds block r of the dim the rule
+    names, every other dim whole; a leaf the rule does not name is not
+    cut by it."""
+    arch, changes, shape, name, whole, dim = RULE_LEAVES[rule]
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    assert rule in param_spec(name, cfg)
+    n = max(shape)
+    for rank in (0, n - 1):
+        shd = Sharder(cfg, Mesh(shape, ("data", "model"), rank=rank))
+        sl = shd.local_slices(param_spec(name, cfg), whole)
+        step = whole[dim] // n
+        assert sl[dim] == slice(rank * step, (rank + 1) * step)
+        assert all(s == slice(None) for d, s in enumerate(sl) if d != dim)
+        assert shd.is_sharded(param_spec(name, cfg))
+        assert not shd.is_sharded(param_spec("blocks.0.norm1.scale", cfg))
+        assert shd.shard_axes(param_spec(name, cfg)) == \
+            {"data" if rule == "residual" else "model"}
+
+
+def test_replicated_leaves_with_partial_gradients_are_model_summed():
     cfg = get_config("deepseek-v2-236b")
-    for rank, want in ((0, slice(0, 40)), (3, slice(120, 160))):
-        shd = Sharder(cfg, Mesh((1, 4), ("data", "model"), rank=rank))
-        assert shd.rules["heads"] == "model"   # reported, not executed
-        assert EXECUTED == ("experts",)
-        assert shd.local_slices(param_spec("blocks.0.mlp.w_gate", cfg),
-                                (160, 5120, 1536))[0] == want
-        names = ("blocks.0.mlp.w_up", "blocks.0.mlp.router")
-        got = shd.param_shardings(
-            {n: param_spec(n, cfg) for n in names},
-            {names[0]: (160, 5120, 1536), names[1]: (5120, 160)})
-        assert got == {names[0]: (want, slice(None), slice(None)),
-                       names[1]: (slice(None), slice(None))}
-        assert shd.local_slices(param_spec("blocks.0.attn.wq_b", cfg),
-                                (1536, 128 * 192)) == (slice(None),) * 2
-        assert shd.is_sharded(param_spec("blocks.0.mlp.w_down", cfg))
-        assert not shd.is_sharded(param_spec("head.w", cfg))
-        assert shd.experts_sharded()
-        assert shd.model_summed("blocks.0.mlp.router")
-        assert not shd.model_summed("blocks.0.mlp.ws_gate")
+    shd = Sharder(cfg, Mesh((1, 4), ("data", "model"), rank=3))
+    assert shd.experts_sharded()
+    assert shd.model_summed("blocks.0.mlp.router")
+    assert not shd.model_summed("blocks.0.mlp.ws_gate")
+    assert not shd.model_summed("blocks.0.attn.wkv_a")   # MLA: whole
+    # GQA with sharded heads over unsharded KV heads (8 % 16)
+    qwen = Sharder(get_config("qwen3-32b"), Mesh((1, 16), ("data", "model")))
+    assert qwen.rules["heads"] and not qwen.rules["kv_heads"]
+    assert qwen.model_summed("blocks.0.attn.wk")
+    assert qwen.model_summed("blocks.0.attn.q_scale")
+    assert not qwen.model_summed("blocks.0.attn.wq")
+    qwen4 = Sharder(get_config("qwen3-32b"), Mesh((1, 4), ("data", "model")))
+    assert not qwen4.model_summed("blocks.0.attn.wk")
     with pytest.raises(KeyError):
         param_spec("blocks.0.mlp.nothing", cfg)
+
+
+def test_zero_one_cuts_the_moments_residual_over_data():
+    cfg = get_config("qwen3-32b")      # fsdp off: the parameter keeps D
+    shd = Sharder(cfg, Mesh((2, 4), ("data", "model"), rank=5))
+    spec = param_spec("blocks.0.attn.wq", cfg)
+    assert shd.local_slices(spec, (5120, 8192)) == \
+        (slice(None), slice(2048, 4096))
+    assert shd.local_slices(spec, (5120, 8192), zero=True) == \
+        (slice(2560, 5120), slice(2048, 4096))
+    assert shd.opt_state_spec(spec) == ("data", "model")
+    # one data rank: the moments are the parameter's
+    one = Sharder(cfg, Mesh((1, 4), ("data", "model"), rank=1))
+    assert one.placement(spec, zero=True) == one.placement(spec)
+
+
+PLACEMENT_MESHES = ((1, 2), (1, 4), (2, 2), (2, 4))
+
+# the reference's guarded shards of every leaf (launch/cells.py), by the
+# port's parameter name, for each published config and mesh
+REFERENCE_SHARDS = """
+    import dataclasses, pickle, sys
+    import jax, numpy as np
+    from repro.configs import ARCH_IDS, get_config
+    from repro.distributed.sharding import Sharder, make_mesh
+    from repro.launch.cells import _guarded_sharding, _guarded_sharding_opt
+    from repro.models import build_model
+
+    def port_name(path):
+        keys = [k.key for k in path]
+        if keys[0] in ("layers", "enc_layers", "dec_layers"):
+            return ".".join([{"layers": "blocks"}.get(keys[0], keys[0]),
+                             "0"] + keys[1:]), 1
+        return ".".join(keys), 0
+
+    def bounds(sharding, shape, mesh, lead):
+        index = sharding.devices_indices_map(shape)
+        out = []
+        for dev in mesh.devices.flat:
+            out.append(tuple(sl.indices(n)[:2] for sl, n in
+                             zip(index[dev][lead:], shape[lead:])))
+        return out
+
+    def shards(cfg, mesh):
+        model = build_model(cfg, Sharder(cfg, mesh))
+        kept = {}
+
+        def init(key):
+            params, kept["specs"] = model.init(key)
+            return params
+        sds = jax.eval_shape(init, jax.random.PRNGKey(0))
+        specs = kept["specs"]
+        shd = Sharder(cfg, mesh)
+        params = _guarded_sharding(shd, sds, specs)
+        moments = _guarded_sharding_opt(shd, sds, specs)
+        flat = jax.tree_util.tree_flatten_with_path(sds)[0]
+        p_flat = jax.tree.leaves(params)
+        m_flat = jax.tree.leaves(moments)
+        out = {}
+        for (path, leaf), ps, ms in zip(flat, p_flat, m_flat):
+            name, lead = port_name(path)
+            out[name] = (leaf.shape[lead:], bounds(ps, leaf.shape, mesh, lead),
+                         bounds(ms, leaf.shape, mesh, lead))
+        return out
+
+    out = {}
+    for shape in ((1, 2), (1, 4), (2, 2), (2, 4)):
+        mesh = make_mesh(shape, ("data", "model"))
+        for arch in ARCH_IDS:
+            out[(arch, shape)] = shards(get_config(arch), mesh)
+            small = dataclasses.replace(get_config(arch).reduced(), fsdp=True)
+            out[(arch, shape, "reduced")] = shards(small, mesh)
+    with open(sys.argv[2], "wb") as f:
+        pickle.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_shards(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("shards")
+    return tm.spawn_reference(REFERENCE_SHARDS, 8, tmp, "shards")()
+
+
+def _bounds(slices, shape):
+    return tuple(sl.indices(n)[:2] for sl, n in zip(slices, shape))
+
+
+@pytest.mark.parametrize("shape", PLACEMENT_MESHES, ids=str)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_rank_holds_the_reference_shard(reference_shards, arch,
+                                              shape):
+    """Every leaf of the published config: each rank's block of the
+    parameter and of its ZeRO-1 moments is the reference's shard of the
+    same device index; the reduced config (fsdp on), built sharded,
+    holds each parameter at the reference's shard shape."""
+    want = reference_shards[(arch, shape)]
+    cfg = get_config(arch)
+    for rank in range(int(np.prod(shape))):
+        shd = Sharder(cfg, Mesh(shape, ("data", "model"), rank=rank))
+        for name, (whole, params, moments) in want.items():
+            spec = param_spec(name, cfg)
+            assert _bounds(shd.local_slices(spec, whole), whole) == \
+                params[rank], (name, rank)
+            assert _bounds(shd.local_slices(spec, whole, zero=True),
+                           whole) == moments[rank], (name, rank)
+    small = dataclasses.replace(cfg.reduced(), fsdp=True)
+    want = reference_shards[(arch, shape, "reduced")]
+    for rank in (0, int(np.prod(shape)) - 1):
+        shd = Sharder(small, Mesh(shape, ("data", "model"), rank=rank))
+        model = build_model(small, device="cpu", shd=shd)
+        got = {n: tuple(p.shape) for n, p in model.named_parameters()
+               if ".0." in n or not n.split(".")[0].endswith(("blocks",
+                                                               "layers"))}
+        assert set(got) == set(want)
+        for name, (whole, params, _) in want.items():
+            assert got[name] == tuple(b - a for a, b in params[rank]), name
 
 
 def test_shard_and_gather_round_trip_in_a_world_of_one():

@@ -4,12 +4,12 @@
 Resume is exact: 4 steps straight equal 2 steps, a checkpoint, and 2
 more in new processes that resume from it, bit for bit in every loss and
 parameter, in a world of one and over a 2 x 2 gloo world (the reduced
-llama4-scout, its experts sharded over the model axis; tests/torch_mesh.py
-spawns the ranks); a resume from a checkpoint written from the writer
+llama4-scout, every leaf the rules shard held in blocks, AdamW's
+moments under ZeRO-1; tests/torch_mesh.py spawns the ranks); a resume from a checkpoint written from the writer
 thread while training went on is exact too.  The 2 x 2 run's checkpoint holds whole arrays: one
 rank restores the gathered parameters from it.  A mesh with no world to
-run on, ranks that neither share one card nor own one each, and
-Adafactor with sharded experts raise."""
+run on and ranks that neither share one card nor own one each raise;
+Adafactor with sharded experts no longer does."""
 import dataclasses
 import shutil
 
@@ -144,12 +144,18 @@ def test_ranks_that_neither_share_a_card_nor_own_one_raise(monkeypatch):
 
 
 def test_adafactor_with_sharded_experts_raises():
+    """Adafactor with sharded experts raises no NotImplementedError any
+    more: its statistics of the sharded leaves are summed over the lines
+    that cut them (held to the reference's step on a mesh in
+    tests/test_torch_ep.py).  Without a world, only the mesh's missing
+    process groups stop it, as they stop AdamW's ZeRO-1 placement."""
     cfg = dataclasses.replace(get_config(SCOUT).reduced(), top_k=2)
     model = build_model(cfg, device="cpu")
     shd = Sharder(cfg, Mesh((1, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        train(cfg, model, batch=2, seq=8, steps=1, device="cpu",
-              optimizer="adafactor", shd=shd)
+    for optimizer in ("adafactor", "adamw"):
+        with pytest.raises(ValueError, match="no process groups"):
+            train(cfg, model, batch=2, seq=8, steps=1, device="cpu",
+                  optimizer=optimizer, shd=shd)
 
 
 def test_production_meshes_need_their_worlds():

@@ -135,7 +135,8 @@ def loss_and_grads(job, out):
         mesh = make_mesh(shape, ("data", "model"), device="cpu")
         shd = Sharder(cfg, mesh)
         lm = lm_from_reference(cfg, job["params"][arch], "cpu", shd=shd)
-        loss, grads = step_grads(lm, to_torch(job["batch"]), shd)
+        batch = job.get("arch_batch", {}).get(arch, job["batch"])
+        loss, grads = step_grads(lm, to_torch(batch), shd)
         names = [n for n, _ in lm.named_parameters()]
         rep = {n: g for n, g in zip(names, grads)
                if not shd.is_sharded(param_spec(n, cfg))}
@@ -149,12 +150,14 @@ def loss_and_grads(job, out):
 def train_steps(job, out):
     """Every case (arch, mesh, changes, microbatches) of the job whose
     mesh has the world's size: ``job["steps"]`` steps of the port's
-    ``make_train_step(shd=)`` with AdamW (``job["lr"]``,
-    ``job["warmup"]``) on ``job["batches"]``, from the reference's
-    parameters.  Rank 0 writes {case: (losses, grad norms, the whole
-    parameters in the reference's tree, replicated leaves checked, and
-    whether ``check_replicas`` then caught one ulp changed on one
-    rank)}."""
+    ``make_train_step(shd=)`` with the config's optimizer (AdamW, or
+    Adafactor for the reduced llama3-405b and nemotron-4-340b;
+    ``job["lr"]``, ``job["warmup"]``, AdamW's moments under ZeRO-1) on
+    ``job["batches"]`` (``job["arch_batches"][arch]`` where given), from
+    the reference's parameters.  Rank 0 writes {case: (losses, grad
+    norms, the whole parameters in the reference's tree, the (leaf,
+    line) pairs ``check_replicas`` compared, and whether it then caught
+    one ulp changed on one rank)}."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import (Sharder, gather_params,
                                                   make_mesh)
@@ -173,11 +176,12 @@ def train_steps(job, out):
         cfg = dataclasses.replace(get_config(arch).reduced(), **dict(kw))
         shd = Sharder(cfg, make_mesh(shape, ("data", "model"), device="cpu"))
         lm = lm_from_reference(cfg, job["params"][arch], "cpu", shd=shd)
-        opt = get_optimizer("adamw", lr=job["lr"], warmup=job["warmup"])
-        state = opt.init(list(lm.named_parameters()))
+        opt = get_optimizer(cfg.optimizer, lr=job["lr"],
+                            warmup=job["warmup"])
+        state = opt.init(list(lm.named_parameters()), shd=shd)
         step = make_train_step(lm, opt, microbatches=microbatches, shd=shd)
         losses, norms = [], []
-        for b in job["batches"]:
+        for b in job.get("arch_batches", {}).get(arch, job["batches"]):
             m = step(state, to_torch(b))
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
@@ -186,14 +190,16 @@ def train_steps(job, out):
                                for n, p in lm.named_parameters()}, shd)
         checked = check_replicas(lm, shd)
         # one ulp of one replicated entry on the model line's last rank
+        norm = "dec_norm.scale" if cfg.family == "encdec" else \
+            "final_norm.scale"
         if shd.model_axis().index == shd.model_axis().size - 1:
             with torch.no_grad():
-                lm.final_norm["scale"].view(torch.int32)[0] += 1
+                dict(lm.named_parameters())[norm].view(torch.int32)[0] += 1
         try:
             check_replicas(lm, shd)
             caught = False
         except RuntimeError as e:
-            caught = "final_norm.scale" in str(e)
+            caught = norm in str(e)
         done[case] = (losses, norms, lm_to_reference(
             lm, [whole[n] for n in names]), checked, caught)
     _dump(out, done)
@@ -227,16 +233,20 @@ def train_cli(job, out):
 
 def checkpoint_elastic(job, out):
     """Save the reduced llama4-scout's parameters and AdamW state from a
-    (2, 2) mesh (each rank its expert slabs, gathered on save), then
-    restore the checkpoint on a (1, 4) mesh of the same world: rank 0
-    writes, per mesh, whether every rank's restored leaves equal its
-    slices of the whole arrays."""
+    (2, 2) mesh (each rank its blocks of the leaves, the moments cut
+    further by ZeRO-1, gathered on save), then restore the checkpoint on
+    a (1, 4) mesh of the same world: rank 0 writes, per mesh, whether
+    every rank's restored leaves equal its slices of the whole arrays
+    (its ZeRO-1 slices for the moments).  Then Adafactor's statistics
+    (``adafactor_stats``), saved from (2, 2) with their placements and
+    restored on (1, 4): per mesh, whether every rank's equal its
+    blocks."""
     import dataclasses
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import (Sharder, make_mesh,
-                                                  shard_params)
-    from repro_torch.launch.train import state_tree
+                                                  param_spec, shard_params)
+    from repro_torch.launch.train import state_specs, state_tree
     from repro_torch.models import build_model
     from repro_torch.optim import get_optimizer
     job = _load(job)
@@ -248,8 +258,12 @@ def checkpoint_elastic(job, out):
     for shape, step in (((2, 2), 1), ((1, 4), None)):
         shd = Sharder(cfg, make_mesh(shape, ("data", "model"), device="cpu"))
         model = build_model(cfg, device="cpu", seed=job["seed"], shd=shd)
-        state = opt.init(list(model.named_parameters()))
-        state["m"] = [p.detach() + 0.5 for p in model.parameters()]
+        state = opt.init(list(model.named_parameters()), shd=shd)
+        moments = {n: shd.local_slices(param_spec(n, cfg), p.shape,
+                                       zero=True)
+                   for n, p in whole.named_parameters()}
+        state["m"] = [p.detach()[moments[n]] + 0.5
+                      for n, p in whole.named_parameters()]
         state["step"] = 7
         mgr = CheckpointManager(job["dir"])
         if step is not None:
@@ -260,10 +274,66 @@ def checkpoint_elastic(job, out):
         want = shard_params({n: p.detach()
                              for n, p in whole.named_parameters()}, shd)
         ok = all(torch.equal(got["params"][n], want[n]) for n in want) and \
-            all(torch.equal(got["opt"]["m"][n], 0.5 + want[n])
-                for n in want) and got["opt"]["step"] == 7
+            all(torch.equal(got["opt"]["m"][n],
+                            0.5 + p.detach()[moments[n]])
+                for n, p in whole.named_parameters()) and \
+            got["opt"]["step"] == 7
         sliced = any(got["params"][n].shape != p.shape
                      for n, p in whole.named_parameters())
         done[shape] = (_same_on_every_rank(torch.tensor([ok, sliced])),
                        ok, sliced)
+    # Adafactor's statistics, placed as their members' dims, the same way
+    af = get_optimizer("adafactor")
+    stats = adafactor_stats(whole)
+    for shape, step in (((2, 2), 1), ((1, 4), None)):
+        shd = Sharder(cfg, make_mesh(shape, ("data", "model"), device="cpu"))
+        model = build_model(cfg, device="cpu", seed=job["seed"], shd=shd)
+        state = af.init(list(model.named_parameters()), shd=shd)
+        want = _local_stats(state, stats, shd)
+        mgr = CheckpointManager(job["af_dir"])
+        if step is not None:
+            for g, w in zip(state["groups"], want):
+                for k, v in w.items():
+                    g[k] = v
+            mgr.save(step, state_tree(model, state), sharder=shd,
+                     specs=state_specs(state))
+            dist.barrier()
+        got = mgr.restore(1, state_tree(model, state), sharder=shd,
+                          specs=state_specs(state))
+        ok = all(torch.equal(a, b) for g, w in zip(got["opt"]["groups"], want)
+                 for k in w for a, b in zip(_leaves(g[k]), _leaves(w[k])))
+        done[("adafactor",) + shape] = _same_on_every_rank(
+            torch.tensor([ok]))
     _dump(out, done)
+
+
+def adafactor_stats(model):
+    """Adafactor's state of ``model``'s whole parameters with every
+    statistic filled with distinct values (0.25 a step from the group's
+    index)."""
+    from repro_torch.optim import get_optimizer
+    state = get_optimizer("adafactor").init(list(model.named_parameters()))
+    for i, g in enumerate(state["groups"]):
+        for k in ("vr", "vc", "v"):
+            for t in _leaves(g.get(k, [])):
+                t.copy_(i + 0.25 * torch.arange(t.numel()).reshape(t.shape))
+    return state
+
+
+def _leaves(x):
+    return [x] if isinstance(x, torch.Tensor) else list(x)
+
+
+def _local_stats(state, whole, shd):
+    """Each group's statistics of ``whole`` (the whole model's state)
+    cut to this rank's blocks by their placements."""
+    from repro_torch.optim.adafactor import stat_placements
+    out = []
+    for g, w in zip(state["groups"], whole["groups"]):
+        cut = {}
+        for k, placement in stat_placements(g).items():
+            parts = [t[shd.place_slices(placement, t.shape)].clone()
+                     for t in _leaves(w[k])]
+            cut[k] = parts[0] if isinstance(w[k], torch.Tensor) else parts
+        out.append(cut)
+    return out
