@@ -391,6 +391,32 @@ two ``make_compressed_train_step`` steps: every leaf's dequantization
 error within half its scale (float32 rounding aside), the error-feedback
 residual bit for bit, the losses finite.
 
+The dry run (``dryrun``, before ``training_sharded``): (a) on the host, in
+a process started with the run (``start_dryrun_host``, niced, one
+thread), ``launch/dryrun.py``'s cells hymba-1.5b decode_32k,
+falcon-mamba-7b prefill_32k and llama3-405b train_4k on rank 0 of the
+abstract 16 x 16 mesh, and ``launch/dryrun_lp.py`` over the paper's
+workloads, each record's numbers printed (llama3-405b's with its fits
+verdict against 80 GB); (b) on the card, rank 0's share of
+falcon-mamba-7b prefill_32k at 16 x 16 run for real (``build_cell(...,
+device="cuda")``: 2 of 32 sequences of 32,768 tokens, d_inner 512 a
+rank; the abstract mesh's collectives return zeros, so the rank's
+compute and memory are real and its values are not the model's): the
+scan launches equal to the dry run's charges, the matrix products'
+flops from the profiler (``with_flops``; it counts no custom kernel,
+so both sides leave the scan's charge out; profiled at 1 and 2 layers
+of the same widths and taken to 64, since every layer runs the same
+products) within 1% of the dry run's, the peak of ``torch.cuda.max_memory_allocated`` within 20% of
+the reckoned arguments + temp, the wall beside the roofline's largest
+term, and the scan kernel bit-equal to its plain version at the
+shapes of the rank's first launch on seeded inputs (dA in (0, 1); the
+launch's own inputs are trivial there), a kernel writing zeros or one a
+time step late told apart from it;
+(c) rank 0's block of lp_100d_50k at 16 x 16 (the first 196 LPs)
+through the whole-solve simplex kernel: its mean pivots beside the
+oracle sample's and its milliseconds beside the reckoned compute and
+memory terms.
+
 The plain versions of the long parity checks run first, in 4 worker
 processes (``Behind``; their own CUDA contexts, the same functions on the
 same device and inputs), while the kernels build: every such check hands
@@ -5567,6 +5593,9 @@ def built_workload(name):
     assert batch.batch == w.batch and (batch.m, batch.n) == (w.m, w.n)
     if w.fixture is not None:
         info["canonical_work"] = canonical_work(batch)
+    if name == "lp_100d_50k":   # rank 0's block on 16 x 16 (phase dryrun)
+        info["rank0_block"] = (batch.A[:LP_BLOCK], batch.b[:LP_BLOCK],
+                               batch.c[:LP_BLOCK])
     return info
 
 
@@ -5622,19 +5651,24 @@ def solve_workload(name):
     return info
 
 
-def paper_workloads(behind, solved):
+def paper_workloads(behind, solved, blocks):
     """Every configs/paper_lp.py workload built with ``build_batch`` at its
     published batch size: those of ``behind`` (the main path's
     lp_100d_50k as published, lp_300d_2k and lp_afiro_100k) on a worker
     (``built_workload``), the rest of NEW_WORKLOADS solved here
     (``solve_workload``), beside those of ``solved`` (solved before).
-    Returns the whole-solve kernel's launches by workload."""
+    Returns the whole-solve kernel's launches by workload; ``blocks``
+    receives published lp_100d_50k's first LP_BLOCK LPs."""
     from repro_torch.configs.paper_lp import WORKLOADS
+    from repro_torch.core import LPBatch
     launches = {}
     for w in WORKLOADS:
         if w.name in behind:
             info = behind[w.name].result()
             info["on_worker"] = True
+            block = info.pop("rank0_block", None)
+            if block is not None:
+                blocks[w.name] = LPBatch(*block)
         elif w.name in NEW_WORKLOADS:
             info = solved.get(w.name) or solve_workload(w.name)
             launches[w.name] = info["launches"]
@@ -6721,6 +6755,277 @@ def training_sharded(workdir):
     return {"deepseek": a, "mesh_twin": b, "compressed": c}
 
 
+# ---- the dry run: the host's reckoning and one rank run on the card ------
+DRYRUN_CELLS = (("falcon-mamba-7b", "prefill_32k"),
+                ("hymba-1.5b", "decode_32k"),
+                ("llama3-405b", "train_4k"))
+DRYRUN_HOST = """
+import os, sys
+os.nice(19)
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun, dryrun_lp
+out = sys.argv[1]
+cells = [c.split(":") for c in sys.argv[2:]]
+dryrun.run_cell(*cells[0], False, out)
+dryrun_lp.main(["--out", os.path.join(out, "lp")])
+for arch, shape in cells[1:]:
+    dryrun.run_cell(arch, shape, False, out)
+"""
+SCAN_PRODUCTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+DRYRUN_FLOPS_REL = 0.01
+DRYRUN_PEAK_REL = 0.20
+LP_BLOCK = 196                # ceil(50,000 / 256): rank 0's lp_100d_50k
+
+
+_DRYRUN = []
+
+
+def start_dryrun_host(out: Path):
+    """The host's dry run of DRYRUN_CELLS and of the LP workloads, in a
+    process of its own (the CPU's work, beside the card's), writing
+    ``launch/dryrun.py``'s records under ``out``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_HOST, str(out)]
+        + [f"{a}:{s}" for a, s in DRYRUN_CELLS], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _DRYRUN.append(proc)
+    return proc
+
+
+def stop_dryrun_host():
+    while _DRYRUN:
+        proc = _DRYRUN.pop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def wait_dryrun_host(proc, out: Path, timeout=600) -> tuple:
+    """The records of ``start_dryrun_host``'s process once it ends:
+    ({(arch, shape): record}, {workload: record}, its seconds waited)."""
+    t0 = time.perf_counter()
+    log, _ = proc.communicate(timeout=timeout)
+    waited = time.perf_counter() - t0
+    assert proc.returncode == 0, log[-4000:]
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        rec = json.loads((out / f"{arch}__{shape}__16x16.json").read_text())
+        assert "roofline" in rec, (arch, shape, rec.get("error"),
+                                   rec.get("traceback"))
+        cells[(arch, shape)] = rec
+    lps = {p.name.split("__")[0]: json.loads(p.read_text())
+           for p in sorted((out / "lp").glob("*.json"))}
+    return cells, lps, waited
+
+
+def dryrun_summary(rec) -> dict:
+    """A record's numbers for the log: memory and fits against 80 GB,
+    flops, bytes, collectives, kernel charges, the roofline, the
+    placements the port does not execute."""
+    from repro_torch.analysis.report import fits
+    ma = rec["memory_analysis"]
+    return {"dryrun_cell": f"{rec['arch']} {rec['shape']} {rec['mesh']}",
+            "total_params": rec["total_params"], "memory_analysis": ma,
+            "args_plus_temp_gb": (ma["argument_size_in_bytes"]
+                                  + ma["temp_size_in_bytes"]) / 1e9,
+            "fits_80gb": fits(rec), "op_cost": rec["op_cost"],
+            "collectives": rec["collectives"], "kernels": rec["kernels"],
+            "roofline": rec["roofline"], "trace_s": rec["trace_s"],
+            "placement_gaps": rec["placement_gaps"]}
+
+
+def product_flops(rec) -> float:
+    """The dry run's flops of the matrix products alone: its total less
+    the kernel charges (the profiler sees no custom kernel)."""
+    return rec["op_cost"]["flops"] - sum(k["flops"] for k in
+                                         rec["kernels"].values())
+
+
+def profiled_products(mesh, layers: int, calls=()) -> tuple:
+    """The matrix products' flops by the profiler (host operators, shapes
+    recorded) of rank 0's falcon-mamba-7b prefill_32k cut to ``layers``
+    layers at its widths, and the scan inputs of launches ``calls``
+    (``scan_inputs_kept``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cells import build_cell
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=layers)
+    with torch.no_grad():
+        cell = build_cell("falcon-mamba-7b", "prefill_32k", mesh, cfg=cfg,
+                          device="cuda", seed=SERVE_SEED)
+    with scan_inputs_kept(set(calls)) as kept, profile(
+            activities=[ProfilerActivity.CPU], with_flops=True) as prof:
+        cell["fn"](*cell["args"])
+        torch.cuda.synchronize()
+    return sum(e.flops for e in prof.key_averages()
+               if e.key in SCAN_PRODUCTS), kept
+
+
+def dryrun_rank_on_card(rec) -> dict:
+    """Rank 0's share of falcon-mamba-7b prefill_32k at 16 x 16 run for
+    real on the card, against the dry run's record ``rec``."""
+    import torch
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh(abstract=True, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cell = build_cell("falcon-mamba-7b", "prefill_32k", mesh,
+                          device="cuda", seed=SERVE_SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    args_bytes = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = cell["fn"](*cell["args"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = only("ssm_scan")
+    peak = torch.cuda.max_memory_allocated() - base
+    assert all(bool(torch.isfinite(t).all()) for t in (out[0],
+                                                       out[1].h))
+    del out
+    # the products' flops from the profiler at 1 and 2 layers of the
+    # same widths, taken to the cell's depth: every layer runs the same
+    # products, so they are linear in the layers (profiling all 64 layers
+    # took 94 s, nearly all of it the host events); one launch's inputs
+    # kept for their shapes
+    t0 = time.perf_counter()
+    one, kept = profiled_products(mesh, 1, calls=(0,))
+    two, _ = profiled_products(mesh, 2)
+    layers = cell["cfg"].n_layers
+    flops = one + (layers - 1) * (two - one)
+    profile_s = time.perf_counter() - t0
+    err, wrong = seeded_scan_check(*kept[0])
+    ma = rec["memory_analysis"]
+    reckoned = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+    want_flops = product_flops(rec)
+    charges = rec["kernels"]["ssm_scan"]["launches"]
+    rl = rec["roofline"]
+    info = {"dryrun_on_card": "falcon-mamba-7b prefill_32k rank 0 of 16x16",
+            "build_s": build_s, "wall_s": wall,
+            "roofline_largest_s": max(rl["compute_s"], rl["memory_s"],
+                                      rl["collective_s"]),
+            "roofline_bottleneck": rl["bottleneck"],
+            "scan_launches": launches, "scan_charges": charges,
+            "argument_bytes_on_card": args_bytes,
+            "argument_size_in_bytes": ma["argument_size_in_bytes"],
+            "peak_bytes_on_card": peak, "args_plus_temp_bytes": reckoned,
+            "peak_rel_diff": peak / reckoned - 1.0,
+            "product_flops_profiler": flops,
+            "product_flops_dryrun": want_flops,
+            "flops_rel_diff": flops / want_flops - 1.0,
+            "product_flops_profiler_1_2_layers": [one, two],
+            "flops_compared": "aten mm, addmm, bmm and baddbmm on both "
+                              "sides; the scan kernel's charge left out "
+                              "(the profiler counts no custom kernel); "
+                              "the profiler's at 1 and 2 layers taken "
+                              "to the cell's depth",
+            "profile_s": profile_s,
+            "scan_vs_plain_max_abs_err": err,
+            "scan_check": "seeded dA in (0, 1), dBx and h0 at the shapes "
+                          "of the rank's first launch",
+            "scan_wrong_kernels_err": wrong,
+            "values": "the abstract mesh's collectives return zeros: the "
+                      "rank's compute and memory are real, its values are "
+                      "not the model's (its scans see dBx = 0 and h0 = 0)"}
+    emit(info)
+    assert launches == charges, info
+    assert abs(info["flops_rel_diff"]) <= DRYRUN_FLOPS_REL, info
+    assert abs(info["peak_rel_diff"]) <= DRYRUN_PEAK_REL, info
+    del cell
+    torch.cuda.empty_cache()
+    return info
+
+
+def seeded_scan_check(dA, dBx, h0) -> tuple:
+    """The scan kernel against its plain version on seeded inputs of the
+    shapes and dtypes of a launch on the path (``dA``, ``dBx``, ``h0``,
+    whose values the abstract mesh's zeros make trivial): dA in (0, 1),
+    dBx and h0 standard normal.  Returns (the largest |kernel - plain|,
+    which must be 0, and that of two wrong kernels against plain, one
+    writing zeros and one a time step late, which must not be: the check
+    can fail)."""
+    import torch
+    from repro_torch.kernels import ssm_scan_plain
+    g = torch.Generator(device=dA.device).manual_seed(SERVE_SEED)
+    args = (torch.rand(dA.shape, generator=g, device=dA.device,
+                       dtype=dA.dtype) * 0.98 + 0.01,
+            torch.randn(dBx.shape, generator=g, device=dBx.device,
+                        dtype=dBx.dtype),
+            torch.randn(h0.shape, generator=g, device=h0.device,
+                        dtype=h0.dtype))
+    err = scan_vs_plain(*args)
+    hs, _ = ssm_scan_plain(*args)
+    wrong = {"zeros": float(hs.abs().max()),
+             "late": float((hs.roll(1, dims=1) - hs).abs().max())}
+    assert err == 0.0, ("scan kernel vs plain", err)
+    assert min(wrong.values()) > 0.0, ("the check cannot fail", wrong)
+    return err, wrong
+
+
+def dryrun_lp_block(lp_block, rec) -> dict:
+    """Rank 0's block of lp_100d_50k at 16 x 16 through the whole-solve
+    simplex kernel, against the LP dry run's record ``rec``."""
+    import torch
+    from repro_torch.core.lp import default_max_iters
+    from repro_torch.core.simplex import batch_tensors
+    from repro_torch.kernels.simplex_tile import WORK_COUNTERS, simplex_tile
+    m, n = lp_block.m, lp_block.n
+    A, b, c, ub = batch_tensors(lp_block, torch.device("cuda"))
+    work = torch.zeros((lp_block.batch, WORK_COUNTERS), dtype=torch.int32,
+                       device="cuda")
+    run = lambda: simplex_tile(A, b, c, ub, m=m, n=n,  # noqa: E731
+                               max_iters=default_max_iters(m, n), work=work)
+    run()                         # warm: the first launch loads the module
+    zero_counts()
+    out, ms = timed(run)
+    launches = only("simplex_tile")
+    one = rec["shard_map"]
+    info = {"dryrun_lp_block": f"lp_100d_50k rank 0 of {rec['mesh']}",
+            "lps": lp_block.batch, "kernel_ms": ms,
+            "mean_pivots_measured": float(out[3].double().mean()),
+            "mean_pivots_oracle_sample": rec["mean_pivots"],
+            "optimal": int((out[2] == 0).sum()),
+            "reckoned_compute_ms": one["compute_s"] * 1e3,
+            "reckoned_compute_f32_ms": one["compute_s_f32"] * 1e3,
+            "reckoned_memory_ms": one["memory_s"] * 1e3,
+            "reckoned_collective_ms": one["collective_s"] * 1e3}
+    emit(info)
+    assert launches == 1 and lp_block.batch == LP_BLOCK == rec["lps_per_dev"]
+    return info
+
+
+def dryrun_phase(host, out: Path, lp_block) -> dict:
+    """Phase ``dryrun`` (module docstring): (a) the host's records, (b)
+    one rank on the card, (c) one rank's LP block."""
+    cells, lps, waited = wait_dryrun_host(host, out)
+    emit({"dryrun_host_waited_s": waited})
+    for rec in cells.values():
+        emit(dryrun_summary(rec))
+    for name, rec in lps.items():
+        one = rec["shard_map"]
+        emit({"dryrun_lp": name, "mean_pivots": rec["mean_pivots"],
+              "m_device": rec["m_device"], "n_device": rec["n_device"],
+              **{k: one[k] for k in (
+                  "flops_per_dev", "analytic_flops_per_dev",
+                  "mem_bytes_per_dev", "collective_bytes_per_dev",
+                  "compute_s", "compute_s_f32", "memory_s",
+                  "collective_s")}})
+    rank = dryrun_rank_on_card(cells[("falcon-mamba-7b", "prefill_32k")])
+    block = dryrun_lp_block(lp_block, lps["lp_100d_50k"])
+    return {"rank": rank, "block": block}
+
+
+
 def pdhg_only(parent_src) -> int:
     """Build, trace the PDHG kernel on the lp_100d_50k slice and time it
     against the pdhg_tile.cu at ``parent_src`` in turns."""
@@ -6843,6 +7148,7 @@ def main(argv=None) -> int:
     finally:
         stop_plain_pool()
         stop_training_data()
+        stop_dryrun_host()
 
 
 def first_members(g, k):
@@ -6860,6 +7166,9 @@ def smoke() -> int:
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
+    # the host's dry run, beside everything the card does (phase dryrun)
+    dryrun_out = Path(ROOT) / "build" / "dryrun"
+    dryrun_host = start_dryrun_host(dryrun_out)
     # the kernels' cycle-counter builds and traces (pdhg_trace,
     # revised_trace, simplex_trace) run in the --*-parent modes only
     took, failed = {}, []
@@ -6894,7 +7203,7 @@ def smoke() -> int:
     sc205, _ = canonicalize(perturbed_batch(
         read_mps(fixture_path("sc205_like")), SLICE))
     assert simplex_variant(sc205.m, sc205.n) == "device"
-    checks = {}
+    checks, blocks = {}, {}
 
     def ahead(key, check):
         checks[key] = start(check)
@@ -7050,7 +7359,7 @@ def smoke() -> int:
         with phase("new_phases"):
             with phase("paper_workloads"):
                 for name, n in paper_workloads(behind, {
-                        "lp_sc50b_like_50k": sc50b}).items():
+                        "lp_sc50b_like_50k": sc50b}, blocks).items():
                     path_launches("simplex_tile", f"paper_workloads {name}",
                                   n)
             with phase("distributed"):
@@ -7208,6 +7517,14 @@ def smoke() -> int:
     with phase("optimal_mixture"):
         mix = optimal_mixture_phase()
         path_launches("simplex_tile", "optimal_mixture", mix["launches"])
+
+    # ---- the dry run: the host's reckoning, one rank on the card ----------
+    with phase("dryrun"):
+        dry = dryrun_phase(dryrun_host, dryrun_out, blocks["lp_100d_50k"])
+        path_launches("ssm_scan", "dryrun falcon-mamba-7b prefill_32k rank 0 "
+                      "of 16x16", dry["rank"]["scan_launches"])
+        path_launches("simplex_tile", "dryrun lp_100d_50k rank 0 block of "
+                      "16x16", 1)
 
     # ---- training on a mesh: expert parallelism, compression, resume ------
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:

@@ -52,3 +52,8 @@ def get_config(arch: str):
     if key not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch!r}")
     return import_module(f"repro_torch.configs.{key}").config()
+
+
+def all_configs():
+    """{id: config} of every architecture, in ``ARCH_IDS`` order."""
+    return {a: get_config(a) for a in ARCH_IDS}

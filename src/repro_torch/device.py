@@ -23,3 +23,19 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            "available")
     return dev
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` has shape, dtype and device but no data: a tensor on
+    the meta device, on which the dry run builds its cells
+    (``launch/cells.py``).  Where the port branches on the device, such an
+    input takes the card's branch, so that the dry run reckons the card's
+    program; a kernel wrapper given one charges its launch to the cost
+    counter tracing the step (``analysis/op_cost.py`` ``charge``) and
+    refuses it when none is."""
+    return t.is_meta
+
+
+def on_card(t) -> bool:
+    """``t.is_cuda``, or a tensor with no data (``is_fake``)."""
+    return t.is_cuda or is_fake(t)

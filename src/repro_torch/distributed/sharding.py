@@ -55,7 +55,10 @@ each axis, and for the data-parallel axes together; a ``Mesh`` made
 directly has no groups and serves the rules alone.  Collectives travel
 as host tensors over gloo (ranks that share one card) or as device
 tensors over NCCL (a card a rank); any other backend raises, and a mesh
-whose size is not the world's raises.
+whose size is not the world's raises.  ``Mesh.abstract`` is the
+counterpart of the reference's placeholder host devices: a mesh of any
+shape, seen from one rank, whose collectives record their kind, count
+and bytes and return zeros (the dry run's, ``launch/dryrun.py``).
 
 Replicas agree bit for bit: the ranks of a model line compute each
 replicated leaf's gradient on their own, from the same inputs, so a mesh
@@ -83,22 +86,47 @@ EXECUTED = ("heads", "kv_heads", "ff", "ff_expert", "d_inner", "vocab",
             "experts", "residual")
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class Axis:
     """One line of a mesh: the ranks that differ only along ``names``,
     with this rank's index on it and the collectives over it.  A line of
     one rank makes no collective.  ``seconds`` adds up the host's wall
-    time in the collectives, copies to and from the host included."""
+    time in the collectives, copies to and from the host included;
+    ``kinds`` their count and bytes by kind, the bytes of one collective
+    the larger of its operand and its result (the rule of the
+    reference's ``analysis/hlo.py``).
+
+    An ``abstract`` line (``Mesh.abstract``) has no process group: each
+    collective records itself as a real one does and returns zeros of
+    its result's shape, dtype and device, exchanging nothing."""
 
     def __init__(self, names: Tuple[str, ...], size: int, index: int,
-                 group=None, via: Optional[torch.device] = None):
+                 group=None, via: Optional[torch.device] = None,
+                 abstract: bool = False):
         self.names, self.size, self.index = names, size, index
         self.group, self.via = group, via
+        self.abstract = abstract
         self.seconds, self.calls = 0.0, 0
+        self.kinds: Dict[str, dict] = {}
 
-    def _run(self, t: torch.Tensor, fn) -> torch.Tensor:
+    def _record(self, kind: str, nbytes: int):
+        k = self.kinds.setdefault(kind, {"count": 0, "bytes": 0})
+        k["count"] += 1
+        k["bytes"] += nbytes
+
+    def _run(self, t: torch.Tensor, fn, kind: str, out_shape) -> torch.Tensor:
         """fn on ``t`` moved to the exchange's device; its result, a
         tensor or a list of them to concatenate along the dim it names,
-        back on ``t``'s device."""
+        back on ``t``'s device.  On an abstract line, zeros of
+        ``out_shape`` on ``t``'s device."""
+        self._record(kind, max(_nbytes(t), int(np.prod(out_shape)) *
+                               t.element_size()))
+        self.calls += 1
+        if self.abstract:
+            return t.new_zeros(out_shape)
         t0 = time.perf_counter()
         src = t.to(self.via).contiguous()
         out = fn(src)
@@ -107,7 +135,6 @@ class Axis:
         else:
             out = out.to(t.device)
         self.seconds += time.perf_counter() - t0
-        self.calls += 1
         return out
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -121,7 +148,7 @@ class Axis:
             out = torch.empty_like(src)
             dist.all_to_all_single(out, src, group=self.group)
             return out
-        return self._run(t, fn)
+        return self._run(t, fn, "all_to_all", t.shape)
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``t`` (equal shapes) concatenated along ``dim`` in
@@ -133,7 +160,9 @@ class Axis:
             parts = [torch.empty_like(src) for _ in range(self.size)]
             dist.all_gather(parts, src, group=self.group)
             return parts, dim
-        return self._run(t, fn)
+        shape = list(t.shape)
+        shape[dim] *= self.size
+        return self._run(t, fn, "all_gather", shape)
 
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM
                    ) -> torch.Tensor:
@@ -146,7 +175,7 @@ class Axis:
             src = src.clone() if src.data_ptr() == t.data_ptr() else src
             dist.all_reduce(src, op=op, group=self.group)
             return src
-        return self._run(t, fn)
+        return self._run(t, fn, "all_reduce", t.shape)
 
     def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block along ``dim`` of the sum of every rank's
@@ -157,13 +186,24 @@ class Axis:
             return t
         n = t.shape[dim] // self.size
         blocks = t.unflatten(dim, (self.size, n)).movedim(dim, 0)
-        return self.all_to_all(blocks.contiguous()).sum(0)
+
+        def fn(src):
+            out = torch.empty_like(src)
+            dist.all_to_all_single(out, src, group=self.group)
+            return out
+        if self.abstract:
+            shape = list(t.shape)
+            shape[dim] = n
+            return self._run(t, fn, "reduce_scatter", shape)
+        return self._run(blocks.contiguous(), fn, "reduce_scatter",
+                         blocks.shape).sum(0)
 
 
 class Mesh:
     """A mesh of ``prod(shape)`` ranks with named axes (module
     docstring).  ``rank`` places this process; ``axes`` are the
-    collective lines ``make_mesh`` built (none for a description)."""
+    collective lines ``make_mesh`` built (none for a description).
+    ``Mesh.abstract`` makes one whose lines exchange nothing."""
 
     def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
                  rank: int = 0, axes: Optional[Dict] = None,
@@ -182,6 +222,19 @@ class Mesh:
                                 np.unravel_index(rank, tuple(shape)))))
         self._axes = axes
         self.device = device
+        self.is_abstract = False
+
+    @classmethod
+    def abstract(cls, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+                 rank: int = 0, device=None) -> "Mesh":
+        """A mesh of any shape with no ``torch.distributed`` world: every
+        line through ``rank`` is an abstract ``Axis`` (made when first
+        asked for), whose collectives record their kind, count and bytes
+        and return zeros.  The dry run (``launch/dryrun.py``) traces one
+        rank's share of a step over one."""
+        mesh = cls(shape, axis_names, rank, {}, device)
+        mesh.is_abstract = True
+        return mesh
 
     def axis(self, names) -> Axis:
         """The line through this rank along ``names`` (an axis name or a
@@ -191,6 +244,11 @@ class Mesh:
         size = int(np.prod([self.shape[a] for a in names]))
         if size == 1:
             return Axis(names, 1, 0)
+        if self.is_abstract and names not in self._axes:
+            index = int(np.ravel_multi_index(
+                tuple(self.coords[a] for a in names),
+                tuple(self.shape[a] for a in names)))
+            self._axes[names] = Axis(names, size, index, abstract=True)
         if self._axes is None or names not in self._axes:
             raise ValueError(f"mesh axes {names}: this mesh has no process "
                              "groups (make it with make_mesh over an "
@@ -198,11 +256,18 @@ class Mesh:
         return self._axes[names]
 
     def exchanges(self) -> dict:
-        """The collectives every line of this rank made: their count
-        and the host seconds they took."""
+        """The collectives every line of this rank made: their count,
+        the host seconds they took, and by kind their count and bytes
+        (``kinds``: {kind: {"count", "bytes"}})."""
         lines = (self._axes or {}).values()
+        kinds = {}
+        for a in lines:
+            for kind, k in a.kinds.items():
+                got = kinds.setdefault(kind, {"count": 0, "bytes": 0})
+                got["count"] += k["count"]
+                got["bytes"] += k["bytes"]
         return {"calls": sum(a.calls for a in lines),
-                "seconds": sum(a.seconds for a in lines)}
+                "seconds": sum(a.seconds for a in lines), "kinds": kinds}
 
 
 def _line_ranks(shape, names, axis_names, fixed):

@@ -77,7 +77,10 @@ class _Plan:
                      for n in names]
         self.summed = [shd.model_summed(n) for n in names]
 
-    def rows(self, batch: dict, microbatches: int) -> list:
+    def rows(self, batch: dict, microbatches: int,
+             local: bool = False) -> list:
+        if local:   # the batch handed over is this rank's rows already
+            return local_rows(batch["tokens"].shape[0], microbatches)
         return local_rows(batch["tokens"].shape[0], microbatches,
                           self.data.size, self.data.index)
 
@@ -116,15 +119,17 @@ def loss_and_grads(model, batch: dict, shd: Sharder | None = None):
 
 
 def make_train_step(model, optimizer, microbatches: int = 1,
-                    shd: Sharder | None = None):
+                    shd: Sharder | None = None, local_batch: bool = False):
     """``train_step(opt_state, batch) -> metrics`` for the port's ``LM``
     ``model`` and an ``optim`` optimizer.  ``batch`` is {"tokens",
     "labels"} (and a family's frames or patches), (B, S) tensors on the
     model's device, B a multiple of ``microbatches`` (times the data
     ranks with ``shd``: the global batch, of which each rank takes its
-    rows).  The step updates the model's parameters and ``opt_state`` in
-    place and returns {"loss", "grad_norm"} as float32 scalars on the
-    device, the same on every rank."""
+    rows; with ``local_batch`` this rank's rows already, as the dry
+    run's cells hand them over).  The step updates the model's
+    parameters and ``opt_state`` in place and returns {"loss",
+    "grad_norm"} as float32 scalars on the device, the same on every
+    rank."""
     plan = _Plan(model, shd)
 
     def train_step(opt_state, batch):
@@ -132,7 +137,7 @@ def make_train_step(model, optimizer, microbatches: int = 1,
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in params]
         losses = []
-        for sl in plan.rows(batch, microbatches):
+        for sl in plan.rows(batch, microbatches, local_batch):
             loss, grads = plan.local(model, {k: v[sl]
                                              for k, v in batch.items()},
                                      params)

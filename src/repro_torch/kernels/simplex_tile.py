@@ -28,6 +28,16 @@ bit for bit); on CUDA tensors it launches the kernel or raises.
 ``simplex_tile.launches`` and ``segment_tile.launches`` count kernel
 launches, ``segment_tile.tel_launches`` those of them that carried
 counters and ``segment_tile.full_launches`` those of stage full.
+
+Given inputs with no data (meta tensors, ``device.is_fake``),
+``simplex_tile`` takes the
+card's path: it builds the tableau with the same torch ops and, in place
+of the launch, returns fake outputs and charges one launch of the
+whole-solve kernel: ``flops_per_pivot(m, n)`` (core/simplex.py) a pivot for
+each of the B LPs, at the counter's ``default_trip`` pivots (the pivot
+count depends on the data), and the bytes of the tableau state read and
+written once, the bounds read and the outputs written once. The plain
+version never runs on them.
 """
 from __future__ import annotations
 
@@ -38,7 +48,9 @@ import torch
 
 from ..core.compaction import TABLEAU_STAGES, CompactionState, run_segment
 from ..core.pricing import PRICING_RULES, canonicalize_rule
-from ..core.simplex import build_tableau_torch, solve_two_phase
+from ..core.simplex import (build_tableau_torch, flops_per_pivot,
+                            solve_two_phase)
+from ..device import is_fake
 from ..obs.telemetry import ALL_LANES, INT_LANES, rows_to_tel, tel_to_rows
 from . import _build
 
@@ -171,11 +183,12 @@ def simplex_tile(A, b, c, ub, *, m: int, n: int, max_iters: int,
         raise ValueError(f"the tableau kernel prices with {PRICING_RULES}, "
                          f"not {pricing!r}")
     _check(A, b, c, ub, work, m, n)
-    if A.device.type == "cpu":
+    fake = is_fake(A)
+    if A.device.type == "cpu" and not fake:
         return simplex_tile_plain(A, b, c, ub, m=m, n=n, max_iters=max_iters,
                                   tol=tol, feas_tol=feas_tol, pricing=rule,
                                   work=work)
-    if A.device.type != "cuda":
+    if A.device.type != "cuda" and not fake:
         raise ValueError(f"simplex_tile runs on cuda or cpu, not {A.device}")
     B = A.shape[0]
     T, basis, phase = build_tableau_torch(A, b, c)
@@ -187,6 +200,15 @@ def simplex_tile(A, b, c, ub, *, m: int, n: int, max_iters: int,
     z = torch.empty((B, n), **opts)
     status = torch.empty((B,), dtype=torch.int32, device=A.device)
     iters = torch.empty((B,), dtype=torch.int32, device=A.device)
+    if fake:
+        from ..analysis.op_cost import charge
+        # the tableau, basis and phase read and written; ub and thr
+        # read; x, obj, y, z, status and iters written
+        state = 4 * (T.numel() + B * (m + 1))
+        nbytes = 2 * state + 4 * B * (n + 1) + 4 * B * (2 * n + m + 3)
+        charge("simplex_tile", trip_flops=flops_per_pivot(m, n) * B,
+               nbytes=nbytes)
+        return x, obj, status.to(torch.int8), iters, y, z
     launch = _lib().simplex_tile_launch
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream

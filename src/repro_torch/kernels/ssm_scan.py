@@ -23,6 +23,14 @@ both of its products separately, as the reference's does (its carry
 crosses the loop boundary, so nothing is fused), and the kernel agrees
 with the plain version bit for bit.  ``ssm_scan_bwd.launches`` counts
 backward launches.
+
+Inputs with no data (meta tensors, ``device.is_fake``) take the card's
+path without a launch: the wrappers return fake outputs of the kernel's
+shapes and charge one launch of the card's kernel to the dry run's
+counter (``analysis/op_cost.py`` ``charge``, which refuses them when no
+counter traces): 2 BTL operations and 4 (3 BTL + 2 BL) bytes forward, 3 BTL
+operations and 4 (5 BTL + 3 BL) bytes backward (L = S D lanes), the
+bounds of the kernel table. The plain version never runs on them.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import functools
 import torch
 
 from ..core.fp import fma
+from ..device import is_fake
 from . import _build
 
 THREADS = 256
@@ -70,8 +79,13 @@ def _check(dA, dBx, h0, names=("dA", "dBx", "h0")):
     if tuple(h0.shape) != want:
         raise ValueError(f"{names[2]} has shape {tuple(h0.shape)}, "
                          f"expected {want}")
-    if dA.device.type not in ("cpu", "cuda"):
+    if dA.device.type not in ("cpu", "cuda") and not is_fake(dA):
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {dA.device}")
+
+
+def _lanes(dA):
+    """(B, T, L) of a scan's (B, T, S, D) or (B, T, d, s) input."""
+    return dA.shape[0], dA.shape[1], dA.shape[2] * dA.shape[3]
 
 
 class _Scan(torch.autograd.Function):
@@ -108,6 +122,12 @@ def ssm_scan(dA, dBx, h0):
 
 
 def _scan_fwd(dA, dBx, h0):
+    if is_fake(dA):
+        from ..analysis.op_cost import charge
+        B, T, L = _lanes(dA)
+        charge("ssm_scan", flops=2 * B * T * L,
+               nbytes=4 * (3 * B * T * L + 2 * B * L))
+        return torch.empty_like(dA), torch.empty_like(h0)
     if dA.device.type == "cpu":
         return ssm_scan_plain(dA, dBx, h0)
     B, T = dA.shape[:2]
@@ -135,6 +155,13 @@ def ssm_scan_bwd(dA, hs, h0, g_hs, g_hT):
     tensors, the plain version on CPU tensors; either layout."""
     _check(dA, hs, h0, ("dA", "hs", "h0"))
     _check(dA, g_hs, g_hT, ("dA", "g_hs", "g_hT"))
+    if is_fake(dA):
+        from ..analysis.op_cost import charge
+        B, T, L = _lanes(dA)
+        charge("ssm_scan_bwd", flops=3 * B * T * L,
+               nbytes=4 * (5 * B * T * L + 3 * B * L))
+        return (torch.empty_like(dA), torch.empty_like(dA),
+                torch.empty_like(h0))
     if dA.device.type == "cpu":
         return ssm_scan_bwd_plain(dA, hs, h0, g_hs, g_hT)
     B, T = dA.shape[:2]

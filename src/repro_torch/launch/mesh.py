@@ -3,8 +3,10 @@
 One pod is a 16 x 16 mesh (data=16, model=16); two pods add a leading
 pure data-parallel 'pod' axis: (pod=2, data=16, model=16), 512 ranks.
 Both are functions over the caller's ``torch.distributed`` world, which
-must have exactly as many ranks (``make_mesh`` raises otherwise);
-``join_world`` joins one for the train CLI's ``--mesh``.
+must have exactly as many ranks (``make_mesh`` raises otherwise), or,
+with ``abstract=True``, rank 0's view of the mesh with no world at all
+(``sharding.Mesh.abstract``, the dry run's); ``join_world`` joins a
+world for the train CLI's ``--mesh``.
 """
 from __future__ import annotations
 
@@ -14,12 +16,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..distributed.sharding import make_mesh
+from ..distributed.sharding import Mesh, make_mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None):
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         abstract: bool = False):
+    """The production mesh over the world, or with ``abstract`` rank 0's
+    abstract mesh (``Mesh.abstract``: its collectives record themselves
+    and exchange nothing).  Rank 0 stands for every rank there: under
+    the Sharder's divisibility guard every rank of the production meshes
+    holds blocks of the same local shapes, and takes the same rows of
+    the batch, so its step costs what any rank's does."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if abstract:
+        return Mesh.abstract(shape, axes, 0, device)
     return make_mesh(shape, axes, device=device)
 
 

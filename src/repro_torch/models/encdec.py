@@ -30,6 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..device import is_fake
 from ..distributed.sharding import (GatherLeaf, enter, gathered, line,
                                     reduce_over)
 from .attention import (KVCache, _zero_padding_heads, blockwise_attention,
@@ -284,8 +285,10 @@ class EncDecLM(nn.Module):
         """token: (B,) integer; pos: (B,) the position each sequence
         writes and attends from (its self-attention row and its row of
         the position table).  Returns (logits (B, vocab_padded), updated
-        caches)."""
-        if bool(((pos < 0) | (pos >= POS_TABLE_ROWS)).any()):
+        caches).  A position outside the table raises (a fake one, the
+        dry run's, is not checked)."""
+        if not is_fake(pos) and \
+                bool(((pos < 0) | (pos >= POS_TABLE_ROWS)).any()):
             raise IndexError(f"decode position {pos.tolist()} outside the "
                              f"{POS_TABLE_ROWS}-row position table")
         x = (embed_lookup(self.embed, token, self.shd)

@@ -4,7 +4,8 @@
 Train and prefill run the sequence in chunks: a Python loop over chunks
 carries (h, conv_tail), so the (B, chunk, d_inner, state) discretization
 tensors stay bounded.  Within a chunk the scan on the card is always the
-CUDA kernel (``kernels.ssm_scan.ssm_scan_bt_ds``).  On the CPU
+CUDA kernel (``kernels.ssm_scan.ssm_scan_bt_ds``), as it is for the fake
+tensors of the dry run (``device.on_card``).  On the CPU
 ``cfg.ssm_impl`` picks which reference path to reproduce: "kernel" the
 kernel's plain version, "assoc" a log-depth doubling scan in torch ops with
 the reference's ``combine``.  Decode is the exact O(1) recurrence, its
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.fp import fma
+from ..device import on_card
 from ..distributed.sharding import (GatherLeaf, enter, gathered, line,
                                     reduce_over)
 from ..kernels.ssm_scan import ssm_scan_bt_ds
@@ -168,7 +170,7 @@ def mamba_apply(p, x, cfg: ModelConfig, *, mode: str,
         xc, tail = _causal_conv_chunk(p, xr[:, c0:c0 + T], tail, cv)
         xc = F.silu(xc)
         dA, dBx, C_ssm = _ssm_coeffs(p, xc, cfg, dl)
-        if x.is_cuda or cfg.ssm_impl == "kernel":
+        if on_card(x) or cfg.ssm_impl == "kernel":
             hs, h = ssm_scan_bt_ds(dA, dBx, h)
         else:
             hs, h = _chunk_scan(h, dA, dBx)

@@ -118,6 +118,41 @@ def test_sources_never_import_jax_or_the_reference():
     assert not offenders
 
 
+# modules of the reference with no counterpart in the port, and why
+NO_COUNTERPART = {
+    "kernels/ref.py": "the jnp oracles of the Pallas kernels: each kernel "
+                      "wrapper's plain PyTorch version plays that part",
+}
+
+
+# reference modules whose counterpart has another name
+RENAMED = {"analysis/hlo.py": "analysis/op_cost.py",
+           "analysis/hlo_cost.py": "analysis/op_cost.py"}
+
+
+def test_every_reference_module_has_a_counterpart():
+    ref = ROOT / "src" / "repro"
+    missing = []
+    for p in ref.rglob("*.py"):
+        rel = str(p.relative_to(ref))
+        if "__pycache__" not in p.parts and \
+                not (PKG / RENAMED.get(rel, rel)).exists():
+            missing.append(rel)
+    assert sorted(missing) == sorted(NO_COUNTERPART)
+
+
+def test_dry_run_modules_import_without_jax():
+    code = ("import sys, repro_torch.launch.cells, repro_torch.launch.dryrun,"
+            " repro_torch.launch.dryrun_lp, repro_torch.analysis.op_cost, "
+            "repro_torch.analysis.roofline, repro_torch.analysis.report\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "[]"
+
+
 def test_chip_smoke_never_imports_jax_or_the_reference():
     """chip_smoke.py drives the port on a machine without JAX: none of its
     imports, at any depth of the file, names jax or repro."""

@@ -337,3 +337,83 @@ def _local_stats(state, whole, shd):
             cut[k] = parts[0] if isinstance(w[k], torch.Tensor) else parts
         out.append(cut)
     return out
+
+
+def serve_steps(job, out):
+    """Every case (arch, mesh, changes) of the job whose mesh has the
+    world's size: the reduced config (seed 0) built sharded over the
+    mesh and whole in this process; this rank's rows of the prompts
+    prefilled and decoded ``job["gen"]`` greedy steps on each.  Rank 0
+    writes {case: [(rank, the largest |sharded - whole| of the logits at
+    every step, of every cache leaf (this rank's block of the whole
+    cache) after prefill and after the last step, the greedy tokens
+    equal, the mesh's collectives by kind)] of every rank}."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Sharder, make_mesh
+    from repro_torch.launch.cells import cache_logical_spec
+    from repro_torch.launch.serve import pad_kv
+    from repro_torch.models import build_model
+    job = _load(job)
+    world = dist.get_world_size()
+    done = {}
+    for case in job["cases"]:
+        arch, shape, kw = case
+        if int(np.prod(shape)) != world:
+            continue
+        cfg = dataclasses.replace(get_config(arch).reduced(), **dict(kw))
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        shd = Sharder(cfg, mesh)
+        mine = build_model(cfg, device="cpu", seed=0, shd=shd)
+        whole = build_model(cfg, device="cpu", seed=0)
+        tokens = torch.from_numpy(np.asarray(job["tokens"])).long()
+        dl = shd.data_axis()
+        per = tokens.shape[0] // dl.size
+        rows = slice(dl.index * per, (dl.index + 1) * per)
+        P, G = tokens.shape[1], job["gen"]
+
+        def block(t, logical):
+            """This rank's block of a whole stacked cache leaf."""
+            sl = list(shd.place_slices(shd.placement(logical, t.shape),
+                                       t.shape))
+            sl[logical.index("batch")] = rows
+            return t[tuple(sl)]
+
+        def cache_err(got, want):
+            errs = []
+
+            def one(g, w, lg):
+                errs.append(float((g.float() - block(w, lg).float())
+                                  .abs().max()))
+                return g
+            _zip(one, got, want, cache_logical_spec(cfg))
+            return max(errs)
+
+        with torch.inference_mode():
+            got_l, got_c = mine.prefill(tokens[rows])
+            want_l, want_c = whole.prefill(tokens)
+            errs = [float((got_l - want_l[rows]).abs().max())]
+            c_errs = [cache_err(got_c, want_c)]
+            got_c, want_c = pad_kv(got_c, P + G), pad_kv(want_c, P + G)
+            same = True
+            for g in range(G):
+                tok = want_l.argmax(-1)
+                same &= bool(torch.equal(got_l.argmax(-1), tok[rows]))
+                pos = torch.full((tokens.shape[0],), P + g, dtype=torch.long)
+                got_l, got_c = mine.decode_step(got_c, tok[rows], pos[rows])
+                want_l, want_c = whole.decode_step(want_c, tok, pos)
+                errs.append(float((got_l - want_l[rows]).abs().max()))
+            c_errs.append(cache_err(got_c, want_c))
+        mine_out = (dist.get_rank(), errs, c_errs, same,
+                    mesh.exchanges()["kinds"])
+        every = [None] * world
+        dist.all_gather_object(every, mine_out)
+        done[case] = every
+    _dump(out, done)
+
+
+def _zip(fn, a, b, c):
+    if isinstance(a, torch.Tensor):
+        return fn(a, b, c)
+    for x, y, z in zip(a, b, c):
+        _zip(fn, x, y, z)
